@@ -10,6 +10,7 @@ from repro_torch.models.common import ModelConfig
 
 ARCHS = {
     "llama3.2-1b": "llama3_2_1b",
+    "mamba2-780m": "mamba2_780m",
 }
 
 

@@ -41,7 +41,8 @@ def params_to_numpy(tree):
 
 
 def cache_from_numpy(cache, device="cuda"):
-    """Decode cache (``pos``, stacked ``k``/``v``) from numpy arrays."""
+    """Decode cache from numpy arrays: ``pos`` and the stacked ``(L, ...)``
+    entries, ``k``/``v`` (dense) or ``ssm_state``/``conv_state`` (ssm)."""
     return params_from_numpy(cache, device)
 
 

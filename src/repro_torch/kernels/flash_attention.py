@@ -2,9 +2,10 @@
 
 Port of ``repro.kernels.flash_attention.flash_attention_pallas``; the
 kernel is ``repro_torch/csrc/flash_attention.cu`` (design and bound in its
-header).  It is compiled with ``nvcc`` for ``sm_90a`` into a shared
-library with a plain C interface at first use, under ``build/`` at the
-root of the checkout, and called through ``ctypes``.
+header).  ``repro_torch.kernels._build`` compiles it with ``nvcc`` for
+``sm_90a`` into a shared library with a plain C interface at first use,
+under ``build/`` at the root of the checkout; it is called through
+``ctypes``.
 
 The plain version of the same function is
 ``repro_torch.kernels.ref.attention_ref``; ``repro_torch.kernels.ops``
@@ -14,40 +15,20 @@ from __future__ import annotations
 
 import ctypes
 import functools
-import hashlib
-import os
-import subprocess
 from pathlib import Path
 
 import torch
 
-SRC = Path(__file__).resolve().parents[1] / "csrc" / "flash_attention.cu"
-BUILD_DIR = Path(__file__).resolve().parents[3] / "build"
+from repro_torch.kernels import _build
+
+SRC = _build.CSRC / "flash_attention.cu"
 HEAD_DIMS = (16, 32, 64, 128)
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 
 
 def build() -> Path:
-    """Compile the kernel unless a library built from this exact source is
-    already in ``build/``; returns the library's path.  The compiler's
-    output (``-Xptxas -v``: registers, shared memory, spills) is kept next
-    to it as ``<library>.log``."""
-    digest = hashlib.sha256(SRC.read_bytes()).hexdigest()[:16]
-    lib = BUILD_DIR / f"libflash_attention-{digest}.so"
-    if lib.exists():
-        return lib
-    from torch.utils.cpp_extension import CUDA_HOME
-    nvcc = os.path.join(CUDA_HOME, "bin", "nvcc") if CUDA_HOME else "nvcc"
-    BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    tmp = lib.with_name(f"{lib.name}.{os.getpid()}.tmp")
-    cmd = [nvcc, "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-           "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v", "-o", str(tmp), str(SRC)]
-    res = subprocess.run(cmd, capture_output=True, text=True)
-    Path(f"{lib}.log").write_text(res.stdout + res.stderr)
-    if res.returncode != 0:
-        raise RuntimeError(f"nvcc failed with code {res.returncode}:\n{res.stderr[-6000:]}")
-    os.replace(tmp, lib)
-    return lib
+    """Compile the kernel into ``build/`` unless it is there already."""
+    return _build.build(SRC)
 
 
 @functools.lru_cache(maxsize=None)

@@ -8,6 +8,7 @@ from __future__ import annotations
 
 from repro_torch.kernels import ref as _ref
 from repro_torch.kernels.flash_attention import flash_attention_cuda
+from repro_torch.kernels.ssd_scan import ssd_cuda
 
 
 # ---------------------------------------------------------- flash attention
@@ -19,3 +20,14 @@ def flash_attention(q, k, v, *, causal=True, window=0, scale=None):
         return _ref.attention_ref(q, k, v, causal=causal, window=window or 0,
                                   scale=scale)
     return flash_attention_cuda(q, k, v, causal=causal, window=window, scale=scale)
+
+
+# --------------------------------------------------------------------- SSD
+
+def ssd(x, dt, A, B, C, *, chunk=256):
+    """x: (b,s,h,p); dt: (b,s,h); A: (h,); B, C: (b,s,g,n); ``s % chunk == 0``.
+    Returns (y in x.dtype, final float32 state (b,h,p,n)).  Dtypes pass
+    through as they come: nothing is cast on the host."""
+    if x.device.type == "cpu":
+        return _ref.ssd_ref(x, dt, A, B, C, chunk=chunk)
+    return ssd_cuda(x, dt, A, B, C, chunk=chunk)

@@ -39,3 +39,65 @@ def attention_ref(q, k, v, *, causal: bool = True, window: int = 0,
     p = p.div_(p.sum(-1, keepdim=True).clamp_(min=1e-30))
     o = torch.einsum("bkgqj,bjkd->bkgqd", p, v.float())
     return o.permute(0, 3, 1, 2, 4).reshape(B, Sq, H, -1).to(q.dtype)
+
+
+# ------------------------------------------------------------------ SSD ref
+
+def ssd_ref(x, dt, A, B, C, *, chunk: int = 256, initial_state=None):
+    """Mamba-2 state-space duality (SSD), chunked exact algorithm: the plain
+    version of ``csrc/ssd_scan.cu``.
+
+    x: (b, s, h, p)   dt: (b, s, h)  post-softplus
+    A: (h,)           negative real
+    B, C: (b, s, g, n) with h % g == 0
+    Returns (y: (b, s, h, p) in x.dtype, final_state: (b, h, p, n) float32).
+
+    A Python loop over chunks carrying the float32 (b, h, p, n) state, so
+    only one chunk's (l x l) decay block is materialized at a time.
+    """
+    b, s, h, p = x.shape
+    g, n = B.shape[2], B.shape[3]
+    if s % chunk:
+        raise ValueError(f"sequence {s} is not a multiple of chunk {chunk}: "
+                         f"pad it upstream")
+    rep = h // g
+    xd = (x * dt[..., None]).float()            # promotes as JAX does: bf16 * f32 -> f32
+    Be = B.repeat_interleave(rep, dim=2).float()
+    Ce = C.repeat_interleave(rep, dim=2).float()
+    dA = (dt * A).float()                       # (b, s, h)
+    state = (torch.zeros((b, h, p, n), dtype=torch.float32, device=x.device)
+             if initial_state is None else initial_state.float())
+    tri = torch.ones((chunk, chunk), dtype=torch.bool, device=x.device).tril()
+    ys = []
+    for c0 in range(0, s, chunk):
+        xd_c, Be_c, Ce_c = xd[:, c0:c0 + chunk], Be[:, c0:c0 + chunk], Ce[:, c0:c0 + chunk]
+        cums = torch.cumsum(dA[:, c0:c0 + chunk], dim=1)          # (b, l, h)
+        seg = cums[:, :, None, :] - cums[:, None, :, :]            # (b, l, s, h)
+        # mask BEFORE exp: above the diagonal seg is large and positive
+        seg = seg.masked_fill(~tri[None, :, :, None], -math.inf)
+        scores = torch.einsum("blhn,bshn->blsh", Ce_c, Be_c) * seg.exp()
+        y = torch.einsum("blsh,bshp->blhp", scores, xd_c)          # intra-chunk
+        y = y + torch.einsum("blhn,bhpn,blh->blhp", Ce_c, state, cums.exp())
+        decay = torch.exp(cums[:, -1:, :] - cums)                  # (b, l, h)
+        upd = torch.einsum("blhp,blh,blhn->bhpn", xd_c, decay, Be_c)
+        state = state * torch.exp(cums[:, -1, :])[:, :, None, None] + upd
+        ys.append(y)
+    return torch.cat(ys, 1).to(x.dtype), state
+
+
+def ssd_decode_ref(x, dt, A, B, C, state):
+    """One-token SSD recurrence.  x: (b,h,p); dt: (b,h); B,C: (b,g,n);
+    state: (b,h,p,n) float32.  Returns (y: (b,h,p) in x.dtype, state).
+
+    The JAX package has no kernel for this step, so it stays torch ops on
+    the card's decode path too, as ``layers.decode_attention`` does."""
+    b, h, p = x.shape
+    g, n = B.shape[1], B.shape[2]
+    rep = h // g
+    Be = B.repeat_interleave(rep, dim=1).float()            # (b, h, n)
+    Ce = C.repeat_interleave(rep, dim=1).float()
+    dA = torch.exp(dt.float() * A.float())                 # (b, h)
+    xd = (x * dt[..., None]).float()
+    state = state * dA[..., None, None] + torch.einsum("bhp,bhn->bhpn", xd, Be)
+    y = torch.einsum("bhpn,bhn->bhp", state, Ce)
+    return y.to(x.dtype), state

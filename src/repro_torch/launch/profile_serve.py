@@ -2,15 +2,16 @@
 
     python -m repro_torch.launch.profile_serve
 
-Serves llama3.2-1b at full width (batch 4, prompt 2048, 32 new tokens,
-seed 0) with ``repro_torch.launch.serve``'s prefill and decode: one run
-to warm up (allocator, cuBLAS, kernel library), one timed on the host
-clock around synchronised work, and one under ``torch.profiler`` for the
-device time by kernel.  Prints the warm prefill time, the decode time per
+Serves each ported arch in turn, llama3.2-1b then mamba2-780m, at full
+width (batch 4, prompt 2048, 32 new tokens, seed 0) with
+``repro_torch.launch.serve``'s prefill and decode: one run to warm up
+(allocator, cuBLAS, kernel library), one timed on the host clock around
+synchronised work, and one under ``torch.profiler`` for the device time by
+kernel.  For each it prints the warm prefill time, the decode time per
 step, the device-busy share of each (device kernel time over the timed
-run's wall time) and the kernels that take the most device time, then one
-JSON line with those numbers and the card's name and power limit.  Needs
-a CUDA card.
+run's wall time), the kernels that take the most device time and the
+hand-written kernels' launches per prefill, then one JSON line with those
+numbers and the card's name and power limit.  Needs a CUDA card.
 """
 from __future__ import annotations
 
@@ -23,10 +24,13 @@ from torch.profiler import ProfilerActivity, profile
 
 from repro_torch.configs.registry import get_config
 from repro_torch.kernels.flash_attention import flash_attention_cuda
+from repro_torch.kernels.ssd_scan import ssd_cuda
 from repro_torch.launch.serve import decode, prefill
 from repro_torch.models.registry import build
 
-B, P, T, SEED = 4, 2048, 32, 0   # the slice's serving shape
+ARCHS = ("llama3.2-1b", "mamba2-780m")
+B, P, T, SEED = 4, 2048, 32, 0   # the slices' serving shape
+KERNELS = {"k1": flash_attention_cuda, "k3": ssd_cuda}
 TOP = 12                         # kernels listed per phase
 
 
@@ -47,13 +51,13 @@ def _device_ms(prof):
     return sorted(rows, key=lambda r: -r[1])
 
 
-def main():
-    if not torch.cuda.is_available():
-        raise SystemExit("profile_serve measures the card: no CUDA device")
-
+def profile_arch(arch: str, card: str):
+    """Warm prefill and decode of ``arch`` at the serving shape; prints the
+    breakdown and returns it as a dict."""
     dev = torch.device("cuda")
-    cfg = get_config("llama3.2-1b")
+    cfg = get_config(arch)
     model = build(cfg)
+    torch.cuda.reset_peak_memory_stats()
     gen = torch.Generator(dev).manual_seed(SEED)
     result = {"arch": cfg.arch, "batch": B, "prompt_len": P, "tokens": T}
     with torch.inference_mode():
@@ -64,14 +68,15 @@ def main():
         decode(model, params, logits, cache, T)
         (logits, cache), prefill_s = _timed(lambda: prefill(model, params, prompts, T))
         _, decode_s = _timed(lambda: decode(model, params, logits, cache, T))
-        launches = flash_attention_cuda.launches
+        launches = {k: fn.launches for k, fn in KERNELS.items()}
         with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof_p:
             logits, cache = prefill(model, params, prompts, T)
             torch.cuda.synchronize()
         with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof_d:
             decode(model, params, logits, cache, T)
             torch.cuda.synchronize()
-        result["k1_launches_per_prefill"] = flash_attention_cuda.launches - launches
+        for k, fn in KERNELS.items():
+            result[f"{k}_launches_per_prefill"] = fn.launches - launches[k]
 
     for name, prof, wall_s, steps in (("prefill", prof_p, prefill_s, 1),
                                       ("decode", prof_d, decode_s, T)):
@@ -80,7 +85,7 @@ def main():
         result[f"{name}_ms"] = wall_s * 1e3 / steps
         result[f"{name}_device_ms"] = dev_ms / steps
         result[f"{name}_device_busy"] = dev_ms / (wall_s * 1e3)
-        print(f"{name}: {wall_s * 1e3 / steps:.3f} ms{' per step' if steps > 1 else ''} "
+        print(f"{arch} {name}: {wall_s * 1e3 / steps:.3f} ms{' per step' if steps > 1 else ''} "
               f"warm, device kernels {dev_ms / steps:.3f} ms, busy "
               f"{dev_ms / (wall_s * 1e3):.1%} of the unprofiled wall time")
         for key, ms in rows[:TOP]:
@@ -88,11 +93,17 @@ def main():
         result[f"{name}_top"] = [[key[:100], ms / steps] for key, ms in rows[:TOP]]
     result["decode_tokens_per_s"] = B * T / decode_s
     result["peak_memory_gib"] = torch.cuda.max_memory_allocated() / 2**30
+    result["card"] = card
+    print(json.dumps(result), flush=True)
+    return result
+
+
+def main():
+    if not torch.cuda.is_available():
+        raise SystemExit("profile_serve measures the card: no CUDA device")
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                          capture_output=True, text=True, timeout=60)
-    result["card"] = smi.stdout.strip()
-    print(json.dumps(result))
-    return result
+    return [profile_arch(arch, smi.stdout.strip()) for arch in ARCHS]
 
 
 if __name__ == "__main__":

@@ -1,6 +1,6 @@
-"""Decoder-only LM assembly, dense family: a Python loop over the stacked
-``(L, ...)`` layer parameters (the layout ``repro.models.lm`` builds with
-``vmap`` and scans over, so keys and shapes match its pytree), and three
+"""Decoder-only LM assembly, dense and ssm families: a Python loop over the
+stacked ``(L, ...)`` layer parameters (the layout ``repro.models.lm`` builds
+with ``vmap`` and scans over, so keys and shapes match its pytree), and three
 entry points — ``forward`` (full sequence), ``prefill`` (build caches) and
 ``decode_step`` (one token).  Training (``loss_fn``, remat) comes with the
 training slice; the other families with their own slices."""
@@ -9,13 +9,13 @@ from __future__ import annotations
 import torch
 
 from repro_torch.models import attention as attn
+from repro_torch.models import ssm as ssm_mod
 from repro_torch.models.common import ModelConfig
 from repro_torch.models.layers import dense_init, rmsnorm, rope_cos_sin, swiglu
 
 NEG_WINDOW_OFF = 1 << 30   # "window" value that disables windowing
 
 _LATER = {
-    "ssm": "the mamba2 serving slice",
     "hybrid": "the hybrid (hymba) slice",
     "moe": "the MoE slice",
     "vlm": "the VLM slice",
@@ -25,9 +25,14 @@ _LATER = {
 
 def check_ported(cfg: ModelConfig):
     """Raise NotImplementedError for what the port cannot run yet."""
-    if cfg.family != "dense":
+    if cfg.family not in ("dense", "ssm"):
         raise NotImplementedError(f"{cfg.arch}: family {cfg.family!r} comes with "
                                   f"{_LATER.get(cfg.family, 'a later slice')}")
+    if cfg.family == "ssm":
+        if cfg.attn_kind != "none":
+            raise NotImplementedError(f"{cfg.arch}: an ssm model with {cfg.attn_kind!r} "
+                                      f"attention is the hybrid family's")
+        return
     if cfg.attn_kind != "gqa":
         raise NotImplementedError(f"{cfg.arch}: {cfg.attn_kind!r} attention comes "
                                   f"with the MLA slice")
@@ -39,7 +44,10 @@ def check_ported(cfg: ModelConfig):
 # ------------------------------------------------------------------- params
 
 def _layer_init(cfg: ModelConfig, gen):
-    return {"norm1": torch.ones((cfg.d_model,), dtype=cfg.pdt, device=gen.device),
+    norm1 = torch.ones((cfg.d_model,), dtype=cfg.pdt, device=gen.device)
+    if cfg.family == "ssm":
+        return {"norm1": norm1, "ssm": ssm_mod.ssm_init(cfg, gen)}
+    return {"norm1": norm1,
             "attn": attn.gqa_init(cfg, gen),
             "norm2": torch.ones((cfg.d_model,), dtype=cfg.pdt, device=gen.device),
             "mlp": _mlp_init(cfg, gen)}
@@ -107,7 +115,15 @@ def _mlp(pl, x):
 
 
 def _block(cfg: ModelConfig, pl, x, rope, window: int, *, return_kv=False):
-    """One transformer block, full-sequence path.  Returns (x, kv)."""
+    """One block, full-sequence path.  Returns (x, kv): with ``return_kv``,
+    the layer's (k, v), or for ssm its (ssm state, conv state)."""
+    if cfg.family == "ssm":
+        out = ssm_mod.ssm_forward(cfg, pl["ssm"], rmsnorm(x, pl["norm1"], cfg.norm_eps),
+                                  return_state=return_kv)
+        if return_kv:
+            out, state = out
+            return x + out, state
+        return x + out, None
     h = rmsnorm(x, pl["norm1"], cfg.norm_eps)
     a = attn.gqa_forward(cfg, pl["attn"], h, rope, window=window, return_kv=return_kv)
     kv = None
@@ -125,7 +141,10 @@ def _embed(cfg, params, tokens):
 
 
 def _rope_for(cfg: ModelConfig, positions):
-    """positions: (B,S) int32; returns (cos, sin)."""
+    """positions: (B,S) int32; returns (cos, sin), or None for ssm (no
+    attention)."""
+    if cfg.family == "ssm":
+        return None
     return rope_cos_sin(positions, cfg.head_dim, cfg.rope_theta)
 
 
@@ -155,11 +174,26 @@ def forward(cfg: ModelConfig, params, tokens, positions=None):
 # ------------------------------------------------------------------ serving
 
 def init_cache(cfg: ModelConfig, batch: int, max_len: int, device="cuda"):
-    """Decode cache, stacked over layers."""
-    L, kvh, hd = cfg.n_layers, cfg.n_kv_heads, cfg.head_dim
-    return {"pos": torch.zeros((), dtype=torch.int32, device=device),
-            "k": torch.zeros((L, batch, max_len, kvh, hd), dtype=cfg.cdt, device=device),
-            "v": torch.zeros((L, batch, max_len, kvh, hd), dtype=cfg.cdt, device=device)}
+    """Decode cache, stacked over layers: k/v (dense) or ssm_state (float32)
+    and conv_state (ssm; ``max_len`` does not size it)."""
+    L = cfg.n_layers
+    c = {"pos": torch.zeros((), dtype=torch.int32, device=device)}
+    if cfg.family == "ssm":
+        st, cv = ssm_mod.ssm_init_cache(cfg, batch, cfg.cdt, device)
+        c["ssm_state"] = st.new_zeros((L, *st.shape))
+        c["conv_state"] = cv.new_zeros((L, *cv.shape))
+        return c
+    kvh, hd = cfg.n_kv_heads, cfg.head_dim
+    c["k"] = torch.zeros((L, batch, max_len, kvh, hd), dtype=cfg.cdt, device=device)
+    c["v"] = torch.zeros((L, batch, max_len, kvh, hd), dtype=cfg.cdt, device=device)
+    return c
+
+
+def _cache_keys(cfg: ModelConfig):
+    """The per-layer cache entries ``_block_decode`` takes, in its order."""
+    if cfg.family == "ssm":
+        return ("ssm_state", "conv_state")
+    return ("k", "v")
 
 
 def prefill(cfg: ModelConfig, params, tokens, max_len: int, positions=None):
@@ -173,17 +207,25 @@ def prefill(cfg: ModelConfig, params, tokens, max_len: int, positions=None):
     cache = init_cache(cfg, B, max_len, tokens.device)
     cache["pos"].fill_(S)
     for i, win in enumerate(layer_windows(cfg)):
-        x, (k, v) = _block(cfg, _layer(params["layers"], i), x, rope, int(win),
-                           return_kv=True)
-        cache["k"][i, :, :S] = k
-        cache["v"][i, :, :S] = v
+        x, kv = _block(cfg, _layer(params["layers"], i), x, rope, int(win), return_kv=True)
+        if cfg.family == "ssm":
+            cache["ssm_state"][i] = kv[0]
+            cache["conv_state"][i] = kv[1]
+        else:
+            cache["k"][i, :, :S] = kv[0]
+            cache["v"][i, :, :S] = kv[1]
     return _unembed(cfg, params, x[:, -1:]), cache
 
 
 def _block_decode(cfg: ModelConfig, pl, x, rope, window: int, caches, pos):
-    """One block, one token.  ``caches``: this layer's (k, v) cache views,
-    updated in place.  Returns (x, caches)."""
+    """One block, one token.  ``caches``: this layer's cache views in
+    ``_cache_keys`` order, updated in place.  Returns (x, caches)."""
     h = rmsnorm(x, pl["norm1"], cfg.norm_eps)
+    if cfg.family == "ssm":
+        out, st, cv = ssm_mod.ssm_decode(cfg, pl["ssm"], h, caches[0], caches[1])
+        caches[0].copy_(st)
+        caches[1].copy_(cv)
+        return x + out, caches
     a, kc, vc = attn.gqa_decode(cfg, pl["attn"], h, caches[0], caches[1], pos, rope,
                                 window=window)
     x = x + a
@@ -193,15 +235,16 @@ def _block_decode(cfg: ModelConfig, pl, x, rope, window: int, caches, pos):
 
 def decode_step(cfg: ModelConfig, params, cache, tokens):
     """One serving step.  tokens: (B, 1) int; returns (logits, cache).  The
-    cache's k/v tensors are updated in place."""
+    cache's tensors are updated in place."""
     check_ported(cfg)
     B = tokens.shape[0]
     pos = cache["pos"]
     positions = pos.to(torch.int32).broadcast_to((B, 1))
     x = _embed(cfg, params, tokens)
     rope = _rope_for(cfg, positions)
+    keys = _cache_keys(cfg)
     for i, win in enumerate(layer_windows(cfg)):
         x, _ = _block_decode(cfg, _layer(params["layers"], i), x, rope, int(win),
-                             (cache["k"][i], cache["v"][i]), pos)
+                             tuple(cache[k][i] for k in keys), pos)
     cache["pos"] = pos + 1
     return _unembed(cfg, params, x), cache

@@ -1,12 +1,16 @@
-"""The port's dense LM (llama3.2-1b SMOKE) against the JAX package's, from
-the same parameters (built by JAX ``init_lm``, carried over through
-``repro_torch.convert``) and the same numpy tokens.
+"""The port's LM (llama3.2-1b and mamba2-780m SMOKE) against the JAX
+package's, from the same parameters (built by JAX ``init_lm``, carried over
+through ``repro_torch.convert``) and the same numpy tokens.
 
 Tolerances: 1e-4 at float32 compute (both sides in float32, sums in
-another order); 5e-2 at bfloat16 compute (the two frameworks round the
-activations at different places); decode-equals-forward < 2e-1 as in
+another order); at bfloat16 compute the two frameworks round the
+activations at different places: 5e-2 for llama3.2-1b, 0.15 for
+mamba2-780m, whose bfloat16 logits lie several times farther from their
+own float32 logits than llama's do, on both sides (the gated norm, the
+conv and the scan each round); decode-equals-forward < 2e-1 as in
 ``tests/test_models_smoke.py``."""
 import dataclasses
+import importlib
 
 import jax
 import jax.numpy as jnp
@@ -22,18 +26,26 @@ from repro_torch.convert import (cache_from_numpy, cache_to_numpy, params_from_n
 from repro_torch.models import lm as tlm
 from repro_torch.models.registry import build
 
-ARCH = "llama3.2-1b"
+ARCHS = ("llama3.2-1b", "mamba2-780m")
+BF16_TOL = {"llama3.2-1b": 5e-2, "mamba2-780m": 0.15}
+CACHE_KEYS = {"llama3.2-1b": ("k", "v"), "mamba2-780m": ("ssm_state", "conv_state")}
+PROMPT = {"llama3.2-1b": 16, "mamba2-780m": 20}   # 20: not a multiple of SMOKE's chunk 16
 CPU = torch.device("cpu")
 
 
-def _cfgs(compute_dtype):
-    return (dataclasses.replace(jax_smoke(ARCH), compute_dtype=compute_dtype),
-            dataclasses.replace(get_smoke(ARCH), compute_dtype=compute_dtype))
+def _cfgs(arch, compute_dtype):
+    return (dataclasses.replace(jax_smoke(arch), compute_dtype=compute_dtype),
+            dataclasses.replace(get_smoke(arch), compute_dtype=compute_dtype))
+
+
+@pytest.fixture(scope="module", params=ARCHS)
+def arch(request):
+    return request.param
 
 
 @pytest.fixture(scope="module")
-def np_params():
-    return jax.tree.map(np.asarray, jlm.init_lm(jax_smoke(ARCH), jax.random.PRNGKey(0)))
+def np_params(arch):
+    return jax.tree.map(np.asarray, jlm.init_lm(jax_smoke(arch), jax.random.PRNGKey(0)))
 
 
 def _tokens(B, S, vocab, seed=0):
@@ -45,36 +57,39 @@ def _close(got, want, tol):
                                rtol=tol, atol=tol)
 
 
-def test_configs_match_and_unported_archs_raise():
+def test_configs_match_and_unported_archs_raise(arch):
+    mod = importlib.import_module(f"repro.configs.{arch.replace('.', '_').replace('-', '_')}")
+    own = importlib.import_module(f"repro_torch.configs.{mod.__name__.split('.')[-1]}")
     for f in ("CONFIG", "SMOKE"):
-        from repro.configs import llama3_2_1b as jc
-        from repro_torch.configs import llama3_2_1b as tc
-        assert dataclasses.asdict(getattr(jc, f)) == dataclasses.asdict(getattr(tc, f))
-    assert get_smoke(ARCH).cdt == torch.bfloat16 and get_smoke(ARCH).pdt == torch.float32
-    with pytest.raises(KeyError, match="mamba2-780m"):
-        get_config("mamba2-780m")
-    with pytest.raises(NotImplementedError, match="mamba2"):
-        build(dataclasses.replace(get_smoke(ARCH), family="ssm"))
+        assert dataclasses.asdict(getattr(mod, f)) == dataclasses.asdict(getattr(own, f))
+    assert get_config(arch) is own.CONFIG
+    assert get_smoke(arch).cdt == torch.bfloat16 and get_smoke(arch).pdt == torch.float32
+    with pytest.raises(KeyError, match="hymba-1.5b"):
+        get_config("hymba-1.5b")
+    with pytest.raises(NotImplementedError, match="hymba"):
+        build(dataclasses.replace(get_smoke(arch), family="hybrid"))
+    with pytest.raises(NotImplementedError, match="hybrid"):
+        build(dataclasses.replace(get_smoke("mamba2-780m"), attn_kind="gqa"))
     with pytest.raises(NotImplementedError, match="training slice"):
-        build(get_smoke(ARCH)).loss({}, {})
+        build(get_smoke(arch)).loss({}, {})
 
 
-def test_params_roundtrip_and_layout(np_params):
+def test_params_roundtrip_and_layout(arch, np_params):
     p = params_from_numpy(np_params, CPU)
     back = params_to_numpy(p)
     assert jax.tree.structure(back) == jax.tree.structure(np_params)
     for a, b in zip(jax.tree.leaves(back), jax.tree.leaves(np_params)):
         assert a.dtype == b.dtype and a.shape == b.shape
         np.testing.assert_array_equal(a, b)
-    own = build(get_smoke(ARCH)).init(torch.Generator(CPU).manual_seed(0))
+    own = build(get_smoke(arch)).init(torch.Generator(CPU).manual_seed(0))
     assert (jax.tree.map(lambda a: a.shape, params_to_numpy(own))
             == jax.tree.map(lambda a: a.shape, np_params))
 
 
-def test_init_fills_the_stack_layer_by_layer():
+def test_init_fills_the_stack_layer_by_layer(arch):
     """``init_lm`` draws the embedding, then each layer in turn, into the
     stacked tensors: layer i equals the i-th of consecutive per-layer draws."""
-    cfg = get_smoke(ARCH)
+    cfg = get_smoke(arch)
     params = tlm.init_lm(cfg, torch.Generator(CPU).manual_seed(3))
     gen = torch.Generator(CPU).manual_seed(3)
     embed = tlm.dense_init(gen, (cfg.vocab, cfg.d_model), cfg.d_model, cfg.pdt)
@@ -86,8 +101,8 @@ def test_init_fills_the_stack_layer_by_layer():
             np.testing.assert_array_equal(a, b)
 
 
-def test_forward_matches_jax_f32(np_params):
-    jc, tc = _cfgs("float32")
+def test_forward_matches_jax_f32(arch, np_params):
+    jc, tc = _cfgs(arch, "float32")
     toks = _tokens(2, 24, tc.vocab)
     want, _ = jlm.forward(jc, np_params, jnp.asarray(toks))
     got, aux = tlm.forward(tc, params_from_numpy(np_params, CPU), torch.from_numpy(toks))
@@ -95,8 +110,8 @@ def test_forward_matches_jax_f32(np_params):
     _close(got, want, 1e-4)
 
 
-def test_forward_matches_jax_f32_untied_unembed():
-    jc, tc = (dataclasses.replace(c, tie_embeddings=False) for c in _cfgs("float32"))
+def test_forward_matches_jax_f32_untied_unembed(arch):
+    jc, tc = (dataclasses.replace(c, tie_embeddings=False) for c in _cfgs(arch, "float32"))
     params = jax.tree.map(np.asarray, jlm.init_lm(jc, jax.random.PRNGKey(1)))
     assert params["unembed"].shape == (tc.d_model, tc.vocab)
     toks = _tokens(2, 24, tc.vocab, seed=6)
@@ -107,57 +122,61 @@ def test_forward_matches_jax_f32_untied_unembed():
     assert own["unembed"].shape == (tc.d_model, tc.vocab)
 
 
-def test_forward_matches_jax_bf16(np_params):
-    jc, tc = _cfgs("bfloat16")
+def test_forward_matches_jax_bf16(arch, np_params):
+    jc, tc = _cfgs(arch, "bfloat16")
     toks = _tokens(2, 24, tc.vocab, seed=1)
     want, _ = jlm.forward(jc, np_params, jnp.asarray(toks))
     got, _ = tlm.forward(tc, params_from_numpy(np_params, CPU), torch.from_numpy(toks))
-    _close(got, want, 5e-2)
+    _close(got, want, BF16_TOL[arch])
 
 
-def test_prefill_and_decode_match_jax_f32(np_params):
-    jc, tc = _cfgs("float32")
-    toks = _tokens(2, 16, tc.vocab, seed=2)
+def test_prefill_and_decode_match_jax_f32(arch, np_params):
+    jc, tc = _cfgs(arch, "float32")
+    S = PROMPT[arch]
+    toks = _tokens(2, S, tc.vocab, seed=2)
     tp = params_from_numpy(np_params, CPU)
-    jlog, jcache = jlm.prefill(jc, np_params, jnp.asarray(toks), 24)
-    tlog, tcache = tlm.prefill(tc, tp, torch.from_numpy(toks), 24)
+    jlog, jcache = jlm.prefill(jc, np_params, jnp.asarray(toks), S + 8)
+    tlog, tcache = tlm.prefill(tc, tp, torch.from_numpy(toks), S + 8)
     _close(tlog, jlog, 1e-4)
-    for key in ("k", "v"):
+    assert set(tcache) == set(jcache) == {"pos", *CACHE_KEYS[arch]}
+    for key in CACHE_KEYS[arch]:
         _close(tcache[key], jcache[key], 1e-4)
-    assert int(tcache["pos"]) == int(jcache["pos"]) == 16
+    assert int(tcache["pos"]) == int(jcache["pos"]) == S
     for step in range(3):
         nxt = _tokens(2, 1, tc.vocab, seed=10 + step)
         jlog, jcache = jlm.decode_step(jc, np_params, jcache, jnp.asarray(nxt))
         tlog, tcache = tlm.decode_step(tc, tp, tcache, torch.from_numpy(nxt))
         _close(tlog, jlog, 1e-4)
-    for key in ("k", "v"):
+    for key in CACHE_KEYS[arch]:
         _close(tcache[key], jcache[key], 1e-4)
-    assert int(tcache["pos"]) == 19
+    assert int(tcache["pos"]) == S + 3
 
 
-def test_bf16_cache_carries_over_exactly(np_params):
+def test_bf16_cache_carries_over_exactly(arch, np_params):
     """A JAX bfloat16 decode cache converts bit for bit, and the port
     decodes on from it as the JAX model does."""
-    jc, tc = _cfgs("bfloat16")
+    jc, tc = _cfgs(arch, "bfloat16")
     toks = _tokens(2, 8, tc.vocab, seed=3)
     _, jcache = jlm.prefill(jc, np_params, jnp.asarray(toks), 12)
     np_cache = jax.tree.map(np.asarray, jcache)
     tcache = cache_from_numpy(np_cache, CPU)
-    assert tcache["k"].dtype == torch.bfloat16 and tcache["pos"].dtype == torch.int32
+    first, second = CACHE_KEYS[arch]
+    assert tcache[second].dtype == torch.bfloat16 and tcache["pos"].dtype == torch.int32
+    assert tcache[first].dtype == (torch.float32 if arch == "mamba2-780m" else torch.bfloat16)
     back = cache_to_numpy(tcache)
-    for key in ("k", "v"):
+    for key in CACHE_KEYS[arch]:
         np.testing.assert_array_equal(back[key], np_cache[key].astype(np.float32))
     nxt = _tokens(2, 1, tc.vocab, seed=4)
     jlog, _ = jlm.decode_step(jc, np_params, jcache, jnp.asarray(nxt))
     tlog, _ = tlm.decode_step(tc, params_from_numpy(np_params, CPU), tcache,
                               torch.from_numpy(nxt))
-    _close(tlog, jlog, 5e-2)
+    _close(tlog, jlog, BF16_TOL[arch])
 
 
-def test_decode_matches_forward():
+def test_decode_matches_forward(arch):
     """Teacher-forced decode reproduces the full-sequence logits (the
     port's own model, bfloat16 compute)."""
-    model = build(get_smoke(ARCH))
+    model = build(get_smoke(arch))
     params = model.init(torch.Generator(CPU).manual_seed(0))
     S = 16
     toks = torch.from_numpy(_tokens(1, S, model.cfg.vocab, seed=5))
@@ -170,3 +189,38 @@ def test_decode_matches_forward():
     err = float((torch.stack(outs, 1) - full[:, 1:S]).abs().max())
     assert err < 2e-1, f"decode/forward divergence {err}"
     assert int(cache["pos"]) == S
+
+
+def _decode_gap(arch, n_layers, dtype, S=16):
+    """Mean |teacher-forced decode - forward| logit gap of the JAX model and
+    of the port, from the same numpy parameters and tokens."""
+    jc, tc = (dataclasses.replace(c, n_layers=n_layers) for c in _cfgs(arch, dtype))
+    params = jax.tree.map(np.asarray, jlm.init_lm(jc, jax.random.PRNGKey(0)))
+    toks = _tokens(1, S, tc.vocab, seed=9)
+    jfull, _ = jax.jit(lambda p, t: jlm.forward(jc, p, t))(params, jnp.asarray(toks))
+    _, jcache = jax.jit(lambda p, t: jlm.prefill(jc, p, t, S + 2))(params, jnp.asarray(toks[:, :1]))
+    step = jax.jit(lambda p, c, t: jlm.decode_step(jc, p, c, t))
+    model, tp, tt = build(tc), params_from_numpy(params, CPU), torch.from_numpy(toks)
+    tfull, _ = model.forward(tp, {"tokens": tt})
+    _, tcache = model.prefill(tp, {"tokens": tt[:, :1]}, S + 2)
+    jouts, touts = [], []
+    for t in range(1, S):
+        lg, jcache = step(params, jcache, jnp.asarray(toks[:, t:t + 1]))
+        jouts.append(np.asarray(lg[:, 0]))
+        lg, tcache = model.decode_step(tp, tcache, tt[:, t:t + 1])
+        touts.append(lg[:, 0].numpy())
+    return (float(np.abs(np.stack(jouts, 1) - np.asarray(jfull)[:, 1:]).mean()),
+            float(np.abs(np.stack(touts, 1) - tfull[:, 1:].numpy()).mean()))
+
+
+def test_mamba2_decode_gap_tracks_jax_with_depth():
+    """Random-weight mamba2 amplifies bfloat16 rounding with depth, in the
+    JAX model as in the port: teacher-forced decode drifts from the forward
+    in proportion to the layers.  The port's gap grows with JAX's own and
+    stays within 1.25x of it at each depth."""
+    gaps = {n: _decode_gap("mamba2-780m", n, "bfloat16") for n in (2, 16)}
+    print({f"{n} layers bf16 mean gap": f"jax {j:.3e} port {t:.3e}" for n, (j, t) in gaps.items()})
+    for jax_gap, port_gap in gaps.values():
+        assert port_gap <= 1.25 * jax_gap
+    for side in (0, 1):
+        assert gaps[16][side] > 3 * gaps[2][side]
