@@ -1,8 +1,11 @@
-"""Carry parameters and decode caches between the JAX package and the port.
+"""Carry parameters, train states and decode caches between the JAX package
+and the port.
 
 Both sides meet at nested dicts of numpy arrays, as
-``jax.tree.map(np.asarray, params)`` gives them: keys and shapes are kept
-as they are, the stacked ``(L, ...)`` layer dim included.  bfloat16 arrays
+``jax.tree.map(np.asarray, tree)`` gives them: keys and shapes are kept
+as they are, the stacked ``(L, ...)`` layer dim included.  A train state
+``{"params", "opt": {"m", "v", "step"}}`` goes through the same functions:
+bfloat16 moments stay bfloat16 and ``step`` stays a 0-d int32.  bfloat16 arrays
 (``ml_dtypes.bfloat16``, which JAX hands out) are read through their raw
 bits; going back, bfloat16 tensors widen exactly to float32, because numpy
 has no bfloat16 of its own.

@@ -9,8 +9,12 @@
 // Design.  One block per (batch * head, 64-row q tile).  The loop over kv
 // tiles inside the block takes the place of the Pallas kernel's sequential
 // ("arbitrary") kv grid axis; it starts at the window's lower limit and
-// stops at the causal limit, so fully masked tiles cost nothing.  K and V
-// tiles of 64 rows are staged in shared memory.  q/k/v are read in their
+// stops at the causal limit, so fully masked tiles cost nothing.  On
+// request (a non-null `lse`) it also writes each row's log-sum-exp of the
+// scaled scores, fp32 (B, H, Sq), for the backward kernels in
+// flash_attention_bwd.cu; +inf for a row that sees no key, so that
+// exp(s - lse) is 0 there.  K and V tiles of 64 rows are staged in shared
+// memory.  q/k/v are read in their
 // (B, S, H, D) layout through the strides the wrapper passes; nothing is
 // transposed on the host.  Templates cover D in {16, 32, 64, 128}.
 //   * bf16: 4 warps, each owning 16 q rows.  S = Q K^T and O += P V run on
@@ -46,6 +50,7 @@ struct Params {
   const void* k;
   const void* v;
   void* o;
+  float* lse;  // (B, H, Sq) or null
   int Sq, Skv, H, G;
   long long q_sb, q_ss, q_sh;
   long long k_sb, k_ss, k_sh;
@@ -167,6 +172,8 @@ __global__ void __launch_bounds__(256) fa_fwd_f32(Params p) {
     float* o = static_cast<float*>(p.o) + b * p.o_sb + i * p.o_ss + h * p.o_sh;
 #pragma unroll
     for (int dd = 0; dd < D / 4; ++dd) o[qd + 4 * dd] = acc[dd] / den;
+    if (p.lse != nullptr && qd == 0)
+      p.lse[static_cast<long long>(bh) * p.Sq + i] = m == -INFINITY ? INFINITY : m + logf(l);
   }
 }
 
@@ -338,6 +345,9 @@ __global__ void __launch_bounds__(128) fa_fwd_bf16(Params p) {
   for (int rr = 0; rr < 2; ++rr) {
     if (i_row[rr] >= p.Sq) continue;
     const float den = fmaxf(l[rr], 1e-30f);
+    if (p.lse != nullptr && t == 0)
+      p.lse[static_cast<long long>(bh) * p.Sq + i_row[rr]] =
+          m[rr] == -INFINITY ? INFINITY : m[rr] + logf(l[rr]);
     __nv_bfloat16* orow = o + i_row[rr] * p.o_ss + 2 * t;
 #pragma unroll
     for (int dt = 0; dt < D / 8; ++dt)
@@ -369,9 +379,10 @@ cudaError_t launch_bf16(const Params& p, dim3 grid, cudaStream_t stream) {
 }  // namespace
 
 // dtype: 0 = float32, 1 = bfloat16.  Strides are in elements; the last dim
-// of q, k, v and o is contiguous.  Returns 0 on success.
+// of q, k, v and o is contiguous.  lse: null, or B * H * Sq floats.
+// Returns 0 on success.
 extern "C" int flash_attention_fwd(
-    const void* q, const void* k, const void* v, void* o, int dtype,
+    const void* q, const void* k, const void* v, void* o, float* lse, int dtype,
     int B, int Sq, int Skv, int H, int KV, int D,
     long long q_sb, long long q_ss, long long q_sh,
     long long k_sb, long long k_ss, long long k_sh,
@@ -379,7 +390,7 @@ extern "C" int flash_attention_fwd(
     long long o_sb, long long o_ss, long long o_sh,
     float scale, int causal, int window, void* stream) {
   Params p;
-  p.q = q; p.k = k; p.v = v; p.o = o;
+  p.q = q; p.k = k; p.v = v; p.o = o; p.lse = lse;
   p.Sq = Sq; p.Skv = Skv; p.H = H; p.G = H / KV;
   p.q_sb = q_sb; p.q_ss = q_ss; p.q_sh = q_sh;
   p.k_sb = k_sb; p.k_ss = k_ss; p.k_sh = k_sh;

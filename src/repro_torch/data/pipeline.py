@@ -1,0 +1,108 @@
+"""Deterministic, resumable token pipeline.
+
+Batches are a pure function of (seed, step) — resuming after a crash needs
+only the step counter, which the train loop persists through the same
+NVCache-backed FS as the checkpoints (one more "legacy" consumer of the
+paper's technique).  A file-backed mode streams token shards through the
+FS, exercising the NVCache read path.
+"""
+from __future__ import annotations
+
+import json
+from typing import Optional
+
+import numpy as np
+
+
+class SyntheticTokens:
+    """Zipf-ish synthetic corpus, deterministic per (seed, step)."""
+
+    def __init__(self, vocab: int, batch: int, seq: int, *, seed: int = 0,
+                 family: str = "dense", d_model: int = 0):
+        self.vocab, self.batch, self.seq = vocab, batch, seq
+        self.seed = seed
+        self.family = family
+        self.d_model = d_model
+        self.step = 0
+
+    def _rng(self, step):
+        return np.random.default_rng((self.seed << 20) ^ step)
+
+    def next(self) -> dict:
+        rng = self._rng(self.step)
+        self.step += 1
+        z = rng.zipf(1.3, size=(self.batch, self.seq))
+        tokens = (z % (self.vocab - 2)).astype(np.int32) + 1
+        if self.family == "encdec":
+            frames = rng.standard_normal(
+                (self.batch, self.seq, self.d_model)).astype(np.float32) * 0.02
+            dec = (rng.zipf(1.3, size=(self.batch, max(2, self.seq // 8)))
+                   % (self.vocab - 2)).astype(np.int32) + 1
+            return {"frames": frames, "dec_tokens": dec}
+        return {"tokens": tokens}
+
+    # -- resumable state ------------------------------------------------
+    def state(self) -> dict:
+        return {"seed": self.seed, "step": self.step}
+
+    def load_state(self, state: dict) -> None:
+        assert state["seed"] == self.seed, "corpus seed mismatch"
+        self.step = state["step"]
+
+    def save_state(self, fs, path: str = "/datapipe.json") -> None:
+        blob = json.dumps(self.state()).encode()
+        fd = fs.open(path)
+        fs.pwrite(fd, blob.ljust(256), 0)
+        fs.close(fd)
+
+    def restore_state(self, fs, path: str = "/datapipe.json") -> bool:
+        try:
+            fd = fs.open(path)
+            raw = fs.pread(fd, 256, 0)
+            fs.close(fd)
+            if not raw.strip():
+                return False
+            self.load_state(json.loads(raw.decode()))
+            return True
+        except Exception:
+            return False
+
+
+class FileBackedTokens:
+    """Token shards stored as int32 files behind the FS (read-path load)."""
+
+    RECORD = 4  # bytes per token
+
+    def __init__(self, fs, paths: list[str], batch: int, seq: int):
+        self.fs = fs
+        self.fds = [fs.open(p) for p in paths]
+        self.sizes = [fs.size(fd) // self.RECORD for fd in self.fds]
+        self.batch, self.seq = batch, seq
+        self.cursor = [0] * len(self.fds)
+        self.shard = 0
+
+    @staticmethod
+    def write_shard(fs, path: str, tokens: np.ndarray) -> None:
+        fd = fs.open(path)
+        fs.pwrite(fd, tokens.astype(np.int32).tobytes(), 0)
+        fs.close(fd)
+
+    def next(self) -> dict:
+        need = self.batch * self.seq
+        out = np.empty((need,), np.int32)
+        got = 0
+        while got < need:
+            i = self.shard
+            avail = self.sizes[i] - self.cursor[i]
+            if avail <= 0:
+                self.cursor[i] = 0
+                self.shard = (i + 1) % len(self.fds)
+                continue
+            take = min(avail, need - got)
+            raw = self.fs.pread(self.fds[i], take * self.RECORD,
+                                self.cursor[i] * self.RECORD)
+            out[got:got + take] = np.frombuffer(raw, np.int32)
+            self.cursor[i] += take
+            got += take
+            self.shard = (i + 1) % len(self.fds)
+        return {"tokens": out.reshape(self.batch, self.seq)}

@@ -19,7 +19,8 @@ def attention_ref(q, k, v, *, causal: bool = True, window: int = 0,
                   scale: Optional[float] = None):
     """Materialized-scores attention. q: (B,Sq,H,D); k/v: (B,Skv,KV,Dk/Dv).
     A query that sees no key gives 0, as the kernels do (``repro.kernels.ref``
-    gives NaN there)."""
+    gives NaN there).  Differentiable: autograd through it is the plain
+    version of the backward kernels (``csrc/flash_attention_bwd.cu``)."""
     B, Sq, H, D = q.shape
     _, Skv, KV, _ = k.shape
     G = H // KV
@@ -35,8 +36,8 @@ def attention_ref(q, k, v, *, causal: bool = True, window: int = 0,
         mask &= jk > iq - window
     s = s.masked_fill(~mask[None, None, None], -math.inf)
     m = s.amax(-1, keepdim=True)
-    p = (s - torch.where(torch.isfinite(m), m, torch.zeros_like(m))).exp_()
-    p = p.div_(p.sum(-1, keepdim=True).clamp_(min=1e-30))
+    p = (s - torch.where(torch.isfinite(m), m, torch.zeros_like(m))).exp()
+    p = p / p.sum(-1, keepdim=True).clamp(min=1e-30)
     o = torch.einsum("bkgqj,bjkd->bkgqd", p, v.float())
     return o.permute(0, 3, 1, 2, 4).reshape(B, Sq, H, -1).to(q.dtype)
 
@@ -101,3 +102,32 @@ def ssd_decode_ref(x, dt, A, B, C, state):
     state = state * dA[..., None, None] + torch.einsum("bhp,bhn->bhpn", xd, Be)
     y = torch.einsum("bhpn,bhn->bhp", state, Ce)
     return y.to(x.dtype), state
+
+
+# ------------------------------------------------------------- quantize ref
+
+def quantize_ref(x, *, group: int = 256):
+    """Symmetric int8 group quantization along the last axis: the plain
+    version of ``csrc/quantize.cu``.  ``scale = amax / 127`` (1.0 when the
+    group is all zero), ``q = clip(round_half_even(x / scale), -127, 127)``
+    with true divisions; ``torch.round`` rounds half to even, as
+    ``jnp.round`` does.  The divisor 127 is a tensor: PyTorch's CUDA
+    division by a Python scalar multiplies by its reciprocal, one ulp off
+    the quotient in some groups.
+
+    Returns (q: int8 same shape, scales: float32 (..., n_groups))."""
+    shape = x.shape
+    if shape[-1] % group:
+        raise ValueError(f"last dim of {tuple(shape)} is not a multiple of group {group}")
+    xg = x.reshape(*shape[:-1], shape[-1] // group, group).float()
+    amax = xg.abs().amax(-1)
+    scale = torch.where(amax > 0, amax / torch.full_like(amax, 127.0), torch.ones_like(amax))
+    q = torch.round(xg / scale[..., None]).clamp_(-127, 127).to(torch.int8)
+    return q.reshape(shape), scale
+
+
+def dequantize_ref(q, scale, *, group: int = 256, dtype=torch.float32):
+    """Inverse of :func:`quantize_ref` up to its rounding: ``q * scale``."""
+    shape = q.shape
+    qg = q.reshape(*shape[:-1], shape[-1] // group, group).float()
+    return (qg * scale[..., None]).reshape(shape).to(dtype)

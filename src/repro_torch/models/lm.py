@@ -1,12 +1,16 @@
 """Decoder-only LM assembly, dense and ssm families: a Python loop over the
 stacked ``(L, ...)`` layer parameters (the layout ``repro.models.lm`` builds
-with ``vmap`` and scans over, so keys and shapes match its pytree), and three
-entry points — ``forward`` (full sequence), ``prefill`` (build caches) and
-``decode_step`` (one token).  Training (``loss_fn``, remat) comes with the
-training slice; the other families with their own slices."""
+with ``vmap`` and scans over, so keys and shapes match its pytree), and four
+entry points — ``forward`` (full sequence, with ``cfg.remat`` when autograd
+records), ``loss_fn`` (next-token cross-entropy), ``prefill`` (build caches)
+and ``decode_step`` (one token).  The other families come with their own
+slices."""
 from __future__ import annotations
 
+import functools
+
 import torch
+from torch.utils.checkpoint import CheckpointPolicy, checkpoint, create_selective_checkpoint_contexts
 
 from repro_torch.models import attention as attn
 from repro_torch.models import ssm as ssm_mod
@@ -84,9 +88,14 @@ def _init_layers(cfg: ModelConfig, gen):
     return stacked
 
 
-def _layer(tree, i: int):
-    """The i-th layer's slice of the stacked parameters (views)."""
-    return {k: _layer(v, i) if isinstance(v, dict) else v[i] for k, v in tree.items()}
+def _layers(tree, n: int):
+    """The per-layer views of the stacked parameters, one dict per layer.
+    One ``unbind`` per leaf: under autograd its backward stacks the layers'
+    gradients once, where indexing would add a full-size gradient per
+    layer."""
+    per_leaf = {k: _layers(v, n) if isinstance(v, dict) else v.unbind(0)
+                for k, v in tree.items()}
+    return [{k: v[i] for k, v in per_leaf.items()} for i in range(n)]
 
 
 def init_lm(cfg: ModelConfig, gen: torch.Generator):
@@ -159,16 +168,59 @@ def _unembed(cfg, params, x):
     return (x @ un.to(x.dtype)).float()
 
 
+def _save_dots(ctx, op, *args, **kwargs):
+    """JAX's ``dots_with_no_batch_dims_saveable``: keep the outputs of the
+    plain matrix products (the weight products), recompute the rest."""
+    return (CheckpointPolicy.MUST_SAVE if op is torch.ops.aten.mm.default
+            else CheckpointPolicy.PREFER_RECOMPUTE)
+
+
+def _remat(cfg: ModelConfig, fn):
+    """``fn`` under ``cfg.remat``, as ``repro.models.lm._remat`` wraps the
+    scanned layer: "none" saves every intermediate for the backward, "full"
+    recomputes the whole layer in it, "dots" saves the weight products'
+    outputs and recomputes the rest (attention included)."""
+    if cfg.remat == "none":
+        return fn
+    if cfg.remat == "full":
+        return functools.partial(checkpoint, fn, use_reentrant=False)
+    if cfg.remat == "dots":
+        return functools.partial(
+            checkpoint, fn, use_reentrant=False,
+            context_fn=functools.partial(create_selective_checkpoint_contexts, _save_dots))
+    raise ValueError(f"remat must be none, dots or full, got {cfg.remat!r}")
+
+
 def forward(cfg: ModelConfig, params, tokens, positions=None):
-    """Full-sequence logits.  tokens: (B,S) int.  Returns (logits_f32, aux)."""
+    """Full-sequence logits.  tokens: (B,S) int.  Returns (logits_f32, aux).
+    When autograd records, each layer runs under ``cfg.remat``."""
     check_ported(cfg)
     if positions is None:
         positions = _positions(tokens)
     x = _embed(cfg, params, tokens)
     rope = _rope_for(cfg, positions)
-    for i, win in enumerate(layer_windows(cfg)):
-        x, _ = _block(cfg, _layer(params["layers"], i), x, rope, int(win))
+
+    def body(pl, x, win):
+        return _block(cfg, pl, x, rope, win)[0]
+
+    if torch.is_grad_enabled():
+        body = _remat(cfg, body)
+    for pl, win in zip(_layers(params["layers"], cfg.n_layers), layer_windows(cfg)):
+        x = body(pl, x, int(win))
     return _unembed(cfg, params, x), torch.zeros((), device=x.device)
+
+
+def loss_fn(cfg: ModelConfig, params, batch, *, aux_weight=0.01):
+    """Next-token cross-entropy.  batch: {tokens: (B,S)}.  Returns
+    (loss, {"ce", "aux"})."""
+    tokens = batch["tokens"]
+    logits, aux = forward(cfg, params, tokens, batch.get("positions"))
+    tgt = tokens[:, 1:].long()
+    lg = logits[:, :-1]
+    lse = torch.logsumexp(lg, dim=-1)
+    ll = torch.gather(lg, -1, tgt[..., None])[..., 0]
+    loss = torch.mean(lse - ll)
+    return loss + aux_weight * aux, {"ce": loss, "aux": aux}
 
 
 # ------------------------------------------------------------------ serving
@@ -206,8 +258,9 @@ def prefill(cfg: ModelConfig, params, tokens, max_len: int, positions=None):
     rope = _rope_for(cfg, positions)
     cache = init_cache(cfg, B, max_len, tokens.device)
     cache["pos"].fill_(S)
-    for i, win in enumerate(layer_windows(cfg)):
-        x, kv = _block(cfg, _layer(params["layers"], i), x, rope, int(win), return_kv=True)
+    for i, (pl, win) in enumerate(zip(_layers(params["layers"], cfg.n_layers),
+                                      layer_windows(cfg))):
+        x, kv = _block(cfg, pl, x, rope, int(win), return_kv=True)
         if cfg.family == "ssm":
             cache["ssm_state"][i] = kv[0]
             cache["conv_state"][i] = kv[1]
@@ -243,8 +296,8 @@ def decode_step(cfg: ModelConfig, params, cache, tokens):
     x = _embed(cfg, params, tokens)
     rope = _rope_for(cfg, positions)
     keys = _cache_keys(cfg)
-    for i, win in enumerate(layer_windows(cfg)):
-        x, _ = _block_decode(cfg, _layer(params["layers"], i), x, rope, int(win),
-                             tuple(cache[k][i] for k in keys), pos)
+    for i, (pl, win) in enumerate(zip(_layers(params["layers"], cfg.n_layers),
+                                      layer_windows(cfg))):
+        x, _ = _block_decode(cfg, pl, x, rope, int(win), tuple(cache[k][i] for k in keys), pos)
     cache["pos"] = pos + 1
     return _unembed(cfg, params, x), cache

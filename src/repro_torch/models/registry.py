@@ -17,17 +17,13 @@ class Model(NamedTuple):
     init_cache: Callable        # (batch, max_len, device) -> cache dict
 
 
-def _loss(p, b):
-    raise NotImplementedError("loss_fn comes with the training slice")
-
-
 def build(cfg: ModelConfig) -> Model:
     _lm.check_ported(cfg)
     return Model(
         cfg=cfg,
         init=lambda gen: _lm.init_lm(cfg, gen),
         forward=lambda p, b: _lm.forward(cfg, p, b["tokens"], b.get("positions")),
-        loss=_loss,
+        loss=lambda p, b: _lm.loss_fn(cfg, p, b),
         prefill=lambda p, b, max_len: _lm.prefill(
             cfg, p, b["tokens"], max_len, b.get("positions")),
         decode_step=lambda p, c, t: _lm.decode_step(cfg, p, c, t),

@@ -1,7 +1,15 @@
 """K1, flash attention: the port's CPU path of ``ops.flash_attention``
 against the Pallas kernel (interpret mode) and the JAX oracle over the
-sweep of ``tests/test_kernels.py``, and, on a CUDA card, the hand-written
-kernel against its plain version.
+sweep of ``tests/test_kernels.py``, its gradient against ``jax.grad`` of
+the JAX model's ``blocked_attention`` (what the JAX training path
+differentiates), and, on a CUDA card, the hand-written forward and
+backward kernels against their plain versions (the backward: autograd
+through ``attention_ref``).
+
+Gradient tolerances: 1e-4 at float32 (sums in another order); on the card
+``|d| <= tol·(1+|ref|)`` with 1e-4 at float32 and 2e-2 at bfloat16 (P and
+dS are rounded to bfloat16 as operands of the tensor-core products, and
+dq/dk/dv once at the end, as the forward's output is).
 
 JAX is imported inside the ``jx`` fixture, not at the top: the kernel
 tests need none, and on the card they run alone
@@ -12,6 +20,7 @@ import numpy as np
 import pytest
 import torch
 
+from repro_torch.kernels import flash_attention as fa
 from repro_torch.kernels import ops
 from repro_torch.kernels import ref as tref
 from repro_torch.kernels.flash_attention import flash_attention_cuda
@@ -88,6 +97,24 @@ def test_cpu_path_empty_rows_give_zero_like_pallas(jx, dtype):
     _close(_f32(got), pallas, dtype)
 
 
+@pytest.mark.parametrize("B,Sq,Skv,H,KV,D", SHAPES[:2])
+@pytest.mark.parametrize("causal,window", MASKS)
+def test_cpu_path_grad_matches_jax_blocked_attention(jx, B, Sq, Skv, H, KV, D, causal,
+                                                     window):
+    import jax
+    from repro.models.layers import blocked_attention
+    arrs = _inputs(B, Sq, Skv, H, KV, D)
+    do = np.random.default_rng(1).normal(size=(B, Sq, H, D)).astype(np.float32)
+    want = jax.grad(lambda q, k, v: (blocked_attention(
+        q, k, v, causal=causal, window=window, block=16) * do).sum(), argnums=(0, 1, 2))(
+            *(jx.jnp.asarray(a) for a in arrs))
+    q, k, v = (torch.from_numpy(a).requires_grad_() for a in arrs)
+    out = ops.flash_attention(q, k, v, causal=causal, window=window)
+    got = torch.autograd.grad(out, (q, k, v), torch.from_numpy(do))
+    for g, w in zip(got, want):
+        _close(g.numpy(), w, "float32")
+
+
 def test_wrapper_refuses_cpu_tensors():
     q, k, v = (torch.from_numpy(a) for a in _inputs(1, 32, 32, 2, 2, 16))
     with pytest.raises(ValueError, match="CUDA"):
@@ -130,7 +157,53 @@ def test_kernel_empty_rows_give_zero_on_card(cuda, dtype):
     _close(_f32(got), _f32(tref.attention_ref(q, k, v, causal=False, window=24)), dtype)
 
 
-def test_kernel_refuses_grad_on_card(cuda):
+def _grad_close(got, want, tol):
+    d = (got.float() - want.float()).abs()
+    assert bool((d <= tol * (1 + want.float().abs())).all()), float(d.max())
+
+
+def _kernel_and_plain_grads(q, k, v, do, **kw):
+    """(dq, dk, dv) through the kernels and through autograd of the plain
+    version, from the same leaves."""
+    out = []
+    for fn in (fa.flash_attention, tref.attention_ref):
+        leaves = [t.detach().clone().requires_grad_() for t in (q, k, v)]
+        out.append(torch.autograd.grad(fn(*leaves, **kw), leaves, do))
+    return out
+
+
+@pytest.mark.parametrize("B,Sq,Skv,H,KV,D", SHAPES + [(2, 200, 200, 8, 2, 128)])
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("causal,window", MASKS + [(False, 24), (True, 1 << 30)])
+def test_kernel_grad_matches_plain_on_card(cuda, B, Sq, Skv, H, KV, D, dtype, causal, window):
+    q, k, v = (torch.from_numpy(a).to(cuda, getattr(torch, dtype))
+               for a in _inputs(B, Sq, Skv, H, KV, D))
+    do = torch.from_numpy(_inputs(B, Sq, Sq, H, H, D, seed=1)[0]).to(cuda, q.dtype)
+    before = (flash_attention_cuda.launches, fa.flash_attention_bwd_cuda.launches)
+    got, want = _kernel_and_plain_grads(q, k, v, do, causal=causal, window=window)
+    torch.cuda.synchronize()
+    assert (flash_attention_cuda.launches, fa.flash_attention_bwd_cuda.launches) == (
+        before[0] + 1, before[1] + 1)
+    for g, w in zip(got, want):
+        assert g.dtype == q.dtype and g.shape == w.shape
+        _grad_close(g, w, TOL[dtype])
+
+
+def test_kernel_grad_of_empty_rows_is_zero_on_card(cuda):
+    """Non-causal window 24 over 32 keys: queries from 55 on see no key;
+    their dq is 0 and they add nothing to dk, dv."""
+    q, k, v = (torch.from_numpy(a).to(cuda) for a in _inputs(2, 96, 32, 4, 2, 64))
+    do = torch.ones_like(q)
+    (dq, dk, dv), want = _kernel_and_plain_grads(q, k, v, do, causal=False, window=24)
+    assert bool((dq[:, 55:] == 0).all())
+    for g, w in zip((dq, dk, dv), want):
+        _grad_close(g, w, TOL["float32"])
+
+
+def test_serving_path_writes_no_lse_on_card(cuda):
+    """Without autograd the wrapper is the forward kernel alone."""
     q, k, v = (torch.from_numpy(a).to(cuda) for a in _inputs(1, 32, 32, 2, 2, 16))
-    with pytest.raises(NotImplementedError, match="forward-only"):
-        flash_attention_cuda(q.requires_grad_(), k, v, causal=True)
+    with torch.inference_mode():
+        o = fa.flash_attention(q, k, v, causal=True)
+    assert o.grad_fn is None
+    _close(_f32(o), _f32(tref.attention_ref(q, k, v, causal=True)), "float32")

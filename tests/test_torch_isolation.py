@@ -11,7 +11,7 @@ import pytest
 
 ROOT = Path(__file__).resolve().parents[1]
 PORT = ROOT / "src" / "repro_torch"
-FORBIDDEN = {"jax", "jaxlib", "ml_dtypes", "repro"}
+FORBIDDEN = {"jax", "jaxlib", "ml_dtypes", "msgpack", "repro"}
 
 # the engine's import closure as NVCache, Policy, NVCacheFS, Tier and BLOB
 # need it: copied verbatim, only ``repro.`` -> ``repro_torch.`` in imports
@@ -20,6 +20,8 @@ ENGINE = ([f"core/{n}.py" for n in ("__init__", "api", "cleanup", "drain", "lock
                                     "router", "recovery")]
           + [f"obs/{n}.py" for n in ("__init__", "flight", "metrics", "spans")]
           + ["storage/fsapi.py", "storage/tiers.py"])
+# numpy-only modules copied as they are
+VERBATIM = ENGINE + ["data/pipeline.py"]
 _IMPORT = re.compile(r"^(\s*(?:from|import)\s+)repro\.", re.M)
 
 
@@ -37,8 +39,8 @@ def _forbidden_imports(path: Path):
             names = [node.module or ""]
         elif isinstance(node, ast.Constant) and isinstance(node.value, str):
             # importlib.import_module("repro.x") / f"repro.{...}" module paths
-            names = [node.value] if re.fullmatch(r"(jax|jaxlib|ml_dtypes|repro)(\.\w*)*\.?",
-                                                 node.value) else []
+            names = [node.value] if re.fullmatch(
+                r"(jax|jaxlib|ml_dtypes|msgpack|repro)(\.\w*)*\.?", node.value) else []
         else:
             continue
         bad += [f"{rel}:{node.lineno}: {n}" for n in names
@@ -56,12 +58,14 @@ def test_port_imports_no_jax_and_nothing_of_repro():
 def test_scan_catches_a_planted_import(tmp_path):
     f = tmp_path / "planted.py"
     f.write_text("import os\nfrom repro.core import api\nimport jax.numpy as jnp\n"
-                 "mod = 'repro.models.lm'\nfrom repro_torch.core import api\n")
-    assert [b.split(": ")[1] for b in _forbidden_imports(f)] == [
-        "repro.core", "jax.numpy", "repro.models.lm"]
+                 "mod = 'repro.models.lm'\nfrom repro_torch.core import api\n"
+                 "import msgpack\nfrom repro_torch.checkpoint import codec\n"
+                 "def f():\n    from msgpack import packb\n")
+    assert sorted(b.split(": ")[1] for b in _forbidden_imports(f)) == [
+        "jax.numpy", "msgpack", "msgpack", "repro.core", "repro.models.lm"]
 
 
-@pytest.mark.parametrize("rel", ENGINE)
+@pytest.mark.parametrize("rel", VERBATIM)
 def test_engine_copy_matches_original(rel):
     original = (ROOT / "src" / "repro" / rel).read_text()
     assert (PORT / rel).read_text() == _IMPORT.sub(r"\1repro_torch.", original), (

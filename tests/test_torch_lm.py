@@ -70,8 +70,10 @@ def test_configs_match_and_unported_archs_raise(arch):
         build(dataclasses.replace(get_smoke(arch), family="hybrid"))
     with pytest.raises(NotImplementedError, match="hybrid"):
         build(dataclasses.replace(get_smoke("mamba2-780m"), attn_kind="gqa"))
-    with pytest.raises(NotImplementedError, match="training slice"):
-        build(get_smoke(arch)).loss({}, {})
+    model = build(get_smoke(arch))
+    toks = torch.from_numpy(_tokens(1, 8, model.cfg.vocab))
+    loss, metrics = model.loss(model.init(torch.Generator(CPU).manual_seed(0)), {"tokens": toks})
+    assert loss.shape == () and bool(torch.isfinite(loss)) and set(metrics) == {"ce", "aux"}
 
 
 def test_params_roundtrip_and_layout(arch, np_params):
@@ -94,9 +96,9 @@ def test_init_fills_the_stack_layer_by_layer(arch):
     gen = torch.Generator(CPU).manual_seed(3)
     embed = tlm.dense_init(gen, (cfg.vocab, cfg.d_model), cfg.d_model, cfg.pdt)
     assert torch.equal(params["embed"], embed)
-    for i in range(cfg.n_layers):
+    for layer in tlm._layers(params["layers"], cfg.n_layers):
         want = params_to_numpy(tlm._layer_init(cfg, gen))
-        got = params_to_numpy(tlm._layer(params["layers"], i))
+        got = params_to_numpy(layer)
         for a, b in zip(jax.tree.leaves(got), jax.tree.leaves(want)):
             np.testing.assert_array_equal(a, b)
 
