@@ -9,10 +9,14 @@ Phases, each of which must pass:
              together;
   2. kernels each kernel (K1 flash attention and its backward, K2 int8
              quantize, K3 SSD scan) against its plain PyTorch version on the
-             card, on the sweep of the CPU tests and at every shape the
-             later phases drive it at, with its time at its main path's
-             shape beside the plain version's, a library call's (where one
-             PyTorch call computes the same) and the card's bound;
+             card, on the sweep of the CPU tests, at every shape the later
+             phases drive it at and, for K1, at bf16 head dim 128, with its
+             time at its main path's shape beside the plain version's, a
+             library call's (where one PyTorch call computes the same) and
+             the card's bound; two K1 backward runs must agree (dq adds with
+             atomics); K1's times and the library's are taken in turns, with
+             those of an earlier commit's K1 sources when they are copied
+             into build/parent/;
   3. serve   llama3.2-1b, then mamba2-780m, at full width (batch 4, prompt
              2048, 32 new tokens) through ``repro_torch.launch.serve.main``,
              with the kernels' launch counts set to 0 just before and read
@@ -59,6 +63,14 @@ MODEL_CASES = [(*SLICE.values(), "bfloat16", True, None)] + [
     (1, S, S, 32, 8, 64, dtype, True, None)
     for S in (64, 1) for dtype in ("float32", "bfloat16")]
 TOL = {"float32": 1e-4, "bfloat16": 2e-2}
+# the bf16 wgmma kernels' other head dim, forward and backward: several full
+# 128-row tiles, and a window
+D128_CASES = [(2, 2048, 2048, 16, 4, 128, "bfloat16", True, None),
+              (2, 200, 200, 8, 2, 128, "bfloat16", True, 24)]
+# The attention sources of an earlier commit, when they are stashed here
+# (build/ is not committed): phase 2 then times them beside the kernels of
+# this tree and the library call, in turns, in this one process.
+PARENT_DIR = Path(__file__).resolve().parent / "build" / "parent"
 # K1 backward (dq, dk, dv against autograd of attention_ref), the same form
 # |d| <= tol·(1+|ref|): f32 sums in another order; bf16 rounds P and dS as
 # tensor-core operands and dq/dk/dv once at the end
@@ -118,6 +130,15 @@ def cuda_ms(torch, fn, reps, warmup=2):
     end.record()
     end.synchronize()
     return start.elapsed_time(end) / reps
+
+
+def in_turns(torch, fns, reps):
+    """Mean device time (ms) of each named function, timed in the order
+    a, b, ..., ..., b, a; returns {name: [first, second]}."""
+    times = {name: [] for name, _ in fns}
+    for name, fn in fns + fns[::-1]:
+        times[name].append(cuda_ms(torch, fn, reps))
+    return times
 
 
 def visible_pairs(Sq, Skv, causal, window):
@@ -198,6 +219,7 @@ def main() -> int:
     from repro_torch.configs.registry import get_config, get_smoke
     from repro_torch.core import NVCache, Policy, recover
     from repro_torch.data.pipeline import SyntheticTokens
+    from repro_torch.kernels import _build
     from repro_torch.kernels import flash_attention as fa
     from repro_torch.kernels import ops, ref
     from repro_torch.kernels import quantize as quant
@@ -261,12 +283,31 @@ def main() -> int:
             failures.append(f"{name}: {exc!r}")
             print(f"[{name}] FAILED: {exc!r}", flush=True)
 
+    parent = {}   # entry-point name in fa -> the stashed earlier kernel's entry point
+
+    def with_entry(name, entry, call):
+        """``call`` with fa's library entry ``name`` pointing at ``entry``."""
+        def run():
+            saved = getattr(fa, name)
+            setattr(fa, name, lambda: entry)
+            try:
+                return call()
+            finally:
+                setattr(fa, name, saved)
+        return run
+
     # ---------------------------------------------------------------- build
     def build_kernels():
         t0 = time.perf_counter()
-        builders = (fa.build, fa.build_bwd, quant.build, ssd.build)
+        builders = [fa.build, fa.build_bwd, quant.build, ssd.build]
+        stashed = [PARENT_DIR / name for name in ("flash_attention.cu", "flash_attention_bwd.cu")]
+        if all(src.exists() for src in stashed):
+            builders += [lambda src=src: _build.build(src) for src in stashed]
         with ThreadPoolExecutor(len(builders)) as pool:   # one nvcc per source, together
             libs = list(pool.map(lambda build_one: build_one(), builders))
+        if len(libs) > 4:
+            parent["_entry"], parent["_bwd_entry"] = fa.load_fwd(libs[4]), fa.load_bwd(libs[5])
+            print(f"  stashed earlier attention kernels from {PARENT_DIR}")
         print(f"build: {', '.join(lib.name for lib in libs)} in "
               f"{time.perf_counter() - t0:.2f} s")
         for lib in libs:
@@ -285,7 +326,7 @@ def main() -> int:
     def check_kernels():
         gen = torch.Generator(dev).manual_seed(0)
         bad, errs = [], {}
-        for case in SWEEP + MODEL_CASES:
+        for case in SWEEP + MODEL_CASES + D128_CASES:
             B, Sq, Skv, H, KV, D, dtype, causal, window = case
             dt = getattr(torch, dtype)
             q = torch.randn((B, Sq, H, D), generator=gen, device=dev).to(dt)
@@ -307,19 +348,27 @@ def main() -> int:
         k1["max_abs_err"] = errs[MODEL_CASES[0]]   # at the serving prefill shape
         q, k, v = slice_qkv
         scale = 1.0 / SLICE["D"] ** 0.5
-        k1["ms"] = cuda_ms(torch, lambda: fa.flash_attention_cuda(q, k, v, causal=True), 20)
-        k1["plain_ms"] = cuda_ms(torch, lambda: ref.attention_ref(q, k, v, causal=True), 5)
         G = SLICE["H"] // SLICE["KV"]
         qt = q.transpose(1, 2)
         kt = k.repeat_interleave(G, dim=2).transpose(1, 2)
         vt = v.repeat_interleave(G, dim=2).transpose(1, 2)
-        k1["library_ms"] = cuda_ms(torch, lambda: F.scaled_dot_product_attention(
-            qt, kt, vt, is_causal=True, scale=scale), 20)
+        fns = [("kernel", lambda: fa.flash_attention_cuda(q, k, v, causal=True)),
+               ("sdpa", lambda: F.scaled_dot_product_attention(qt, kt, vt, is_causal=True,
+                                                                scale=scale))]
+        if parent:
+            fns.append(("earlier kernel", with_entry("_entry", parent["_entry"], fns[0][1])))
+        times = in_turns(torch, fns, 20)
+        k1["ms"] = sum(times["kernel"]) / 2
+        k1["library_ms"] = sum(times["sdpa"]) / 2
+        if parent:
+            k1["earlier_ms"] = sum(times["earlier kernel"]) / 2
+        k1["plain_ms"] = cuda_ms(torch, lambda: ref.attention_ref(q, k, v, causal=True), 5)
         k1["bound_ms"], k1["bound_by"] = attention_bound(
             *SLICE.values(), 2, True, 0, PEAK_BF16_FLOPS)
-        print(f"  K1 at {SLICE} bf16 causal: kernel {k1['ms']:.4f} ms, plain "
-              f"{k1['plain_ms']:.4f} ms, sdpa {k1['library_ms']:.4f} ms, bound "
-              f"{k1['bound_ms']:.4f} ms ({k1['bound_by']})")
+        print(f"  K1 at {SLICE} bf16 causal, in turns: "
+              + ", ".join(f"{name} {a:.4f}/{b:.4f} ms" for name, (a, b) in times.items())
+              + f"; plain {k1['plain_ms']:.4f} ms, bound {k1['bound_ms']:.4f} ms "
+              f"({k1['bound_by']})")
         if bad:
             raise AssertionError(f"K1 disagrees with attention_ref in {bad}")
 
@@ -362,7 +411,7 @@ def main() -> int:
     def check_attention_bwd():
         gen = torch.Generator(dev).manual_seed(2)
         bad, errs = [], {}
-        for case in SWEEP + BWD_CASES:
+        for case in SWEEP + BWD_CASES + D128_CASES:
             B, Sq, Skv, H, KV, D, dtype, causal, window = case
             dt = getattr(torch, dtype)
             q, k, v, do = (torch.randn(shape, generator=gen, device=dev).to(dt)
@@ -392,8 +441,21 @@ def main() -> int:
             del want, leaves
         k1b["max_abs_err"] = errs[BWD_CASES[0]]    # at the training shape
         q, k, v, o, lse, do = train_args
-        k1b["ms"] = cuda_ms(torch, lambda: fa.flash_attention_bwd_cuda(
-            q, k, v, o, lse, do, causal=True), 20)
+        # dq's atomics add in an order that changes from run to run: two runs
+        # agree within the bf16 tolerance
+        runs = [fa.flash_attention_bwd_cuda(q, k, v, o, lse, do, causal=True) for _ in range(2)]
+        torch.cuda.synchronize()
+        gap = max(float((a.float() - b.float()).abs().max()) for a, b in zip(*runs))
+        agree = all(bool(((a.float() - b.float()).abs()
+                          <= BWD_TOL["bfloat16"] * (1 + b.float().abs())).all())
+                    for a, b in zip(*runs))
+        same = all(torch.equal(a, b) for a, b in zip(*runs))
+        print(f"  K1 bwd run twice at {TRAIN}: max |gap| {gap:.3e}, bitwise "
+              f"{'equal' if same else 'different'}, tol {BWD_TOL['bfloat16']} "
+              f"{'ok' if agree else 'MISMATCH'}")
+        if not agree:
+            bad.append("run twice")
+        del runs
         leaves = [t.clone().requires_grad_() for t in (q, k, v)]
         out = ref.attention_ref(*leaves, causal=True)
         k1b["plain_ms"] = cuda_ms(torch, lambda: torch.autograd.grad(
@@ -407,13 +469,23 @@ def main() -> int:
                   for t in (k, v))
         sdpa = F.scaled_dot_product_attention(qt, kt, vt, is_causal=True)
         dot = do.transpose(1, 2)
-        k1b["library_ms"] = cuda_ms(torch, lambda: torch.autograd.grad(
-            sdpa, (qt, kt, vt), dot, retain_graph=True), 20)
+        fns = [("kernel", lambda: fa.flash_attention_bwd_cuda(q, k, v, o, lse, do, causal=True)),
+               ("sdpa backward", lambda: torch.autograd.grad(sdpa, (qt, kt, vt), dot,
+                                                             retain_graph=True))]
+        if parent:
+            fns.append(("earlier kernel", with_entry("_bwd_entry", parent["_bwd_entry"],
+                                                     fns[0][1])))
+        times = in_turns(torch, fns, 20)
+        k1b["ms"] = sum(times["kernel"]) / 2
+        k1b["library_ms"] = sum(times["sdpa backward"]) / 2
+        if parent:
+            k1b["earlier_ms"] = sum(times["earlier kernel"]) / 2
         k1b["bound_ms"], k1b["bound_by"] = attention_bwd_bound(
             *TRAIN.values(), 2, True, 0, PEAK_BF16_FLOPS)
-        print(f"  K1 bwd at {TRAIN} bf16 causal: kernel {k1b['ms']:.4f} ms, plain "
-              f"{k1b['plain_ms']:.4f} ms, sdpa backward {k1b['library_ms']:.4f} ms, bound "
-              f"{k1b['bound_ms']:.4f} ms ({k1b['bound_by']})")
+        print(f"  K1 bwd at {TRAIN} bf16 causal, in turns: "
+              + ", ".join(f"{name} {a:.4f}/{b:.4f} ms" for name, (a, b) in times.items())
+              + f"; plain {k1b['plain_ms']:.4f} ms, bound {k1b['bound_ms']:.4f} ms "
+              f"({k1b['bound_by']})")
         if bad:
             raise AssertionError(f"K1 backward disagrees with autograd of attention_ref in {bad}")
 

@@ -6,30 +6,45 @@
 // padding masks, GQA head h reading kv head h / (H / KV), running max,
 // denominator and accumulator in fp32, rows with no visible key giving 0.
 //
-// Design.  One block per (batch * head, 64-row q tile).  The loop over kv
-// tiles inside the block takes the place of the Pallas kernel's sequential
-// ("arbitrary") kv grid axis; it starts at the window's lower limit and
-// stops at the causal limit, so fully masked tiles cost nothing.  On
-// request (a non-null `lse`) it also writes each row's log-sum-exp of the
-// scaled scores, fp32 (B, H, Sq), for the backward kernels in
-// flash_attention_bwd.cu; +inf for a row that sees no key, so that
-// exp(s - lse) is 0 there.  K and V tiles of 64 rows are staged in shared
-// memory.  q/k/v are read in their
-// (B, S, H, D) layout through the strides the wrapper passes; nothing is
-// transposed on the host.  Templates cover D in {16, 32, 64, 128}.
-//   * bf16: 4 warps, each owning 16 q rows.  S = Q K^T and O += P V run on
-//     the tensor cores with mma.sync m16n8k16 (bf16 in, fp32 accumulate);
-//     the S accumulator is re-packed in registers as the A operand of P V,
-//     so P is rounded to bf16 there (the JAX kernel keeps P in fp32).
-//   * f32: 8 warps, 4 threads per q row, plain fp32 FMAs on the CUDA cores
-//     (full fp32, no TF32).
+// Design.  On request (a non-null `lse`) the kernels also write each row's
+// log-sum-exp of the scaled scores, fp32 (B, H, Sq), for the backward
+// kernels in flash_attention_bwd.cu; +inf for a row that sees no key, so
+// that exp(s - lse) is 0 there.  q/k/v are read
+// in their (B, S, H, D) layout through the strides the wrapper passes;
+// nothing is transposed on the host.  The loop over kv tiles inside a
+// block takes the place of the Pallas kernel's sequential ("arbitrary") kv
+// grid axis; it starts at the window's lower limit and stops at the causal
+// limit, so fully masked tiles cost nothing.  The entry point picks the
+// kernel statically by (dtype, D):
+//   * bf16, D in {64, 128}: fa_fwd_wgmma, for Hopper.  One block per
+//     (batch * head, q tile): NWG consumer warpgroups of 64 q rows and a
+//     producer warpgroup that keeps a ring of 128-row K/V tiles filled
+//     with cp.async (128-byte-swizzled shared tiles, mbarrier completion),
+//     so copies overlap the products.  S = Q K^T and O += P V run on wgmma
+//     m64nNk16 (bf16 in, fp32 accumulate); P is the S accumulator
+//     converted to bf16 in registers, the A operand of P V (the JAX kernel
+//     keeps P in fp32).  The online softmax runs in fp32 registers on the
+//     raw scores' running max with one FFMA and one ex2 an element, its
+//     row max and sum in independent chains, and only tiles that straddle
+//     the causal diagonal, the window's lower edge or the end of the keys
+//     evaluate the mask.  D 64: three consumer warpgroups (192 q rows, 152
+//     registers a thread after setmaxnreg, producer 40) and three stages;
+//     D 128: two (128 q rows, 232 registers) and two stages, whose 64 + 64
+//     accumulator registers do not fit 152.  Each kept 0 spills.
+//   * bf16, D in {16, 32}: fa_fwd_bf16, 4 warps of 16 q rows each in a
+//     64-row block, mma.sync m16n8k16, synchronous tile loads.
+//   * f32: fa_fwd_f32, 8 warps, 4 threads per q row, plain fp32 FMAs on
+//     the CUDA cores (full fp32, no TF32).
 //
 // What bounds it.  At the serving prefill shape (B=4, S=2048, H=32, KV=8,
 // D=64, bf16, causal) one call does 4*B*H*D*S*(S+1)/2 = 68.7 GFLOP and
 // moves 84 MB (q, k, v read once, o written once): compute-bound, ~69 us at
-// the H100's 989 TFLOP/s bf16 peak against ~25 us of memory traffic.  This
-// first version uses mma.sync with synchronous tile loads and no
-// load/compute overlap; wgmma, TMA and a producer warp are later work.
+// the H100's 989 TFLOP/s bf16 peak against ~25 us of memory traffic.  At
+// D=64 the softmax's 16,384 ex2 per 128 x 128 tile take as long on the
+// SM's 16 special-function lanes as the tile's two products on the tensor
+// cores, so the softmax's instruction count and latency matter as much as
+// the products; a warpgroup here waits for its S before the softmax and
+// for P V after it, and overlaps only with the other warpgroups.
 //
 // Interface: plain C, loaded with ctypes.  The launch goes on the caller's
 // stream; the function returns cudaGetLastError() after the launch (0 on
@@ -39,6 +54,8 @@
 #include <cuda_runtime.h>
 #include <math.h>
 #include <stdint.h>
+
+#include "hopper.cuh"
 
 namespace {
 
@@ -356,6 +373,196 @@ __global__ void __launch_bounds__(128) fa_fwd_bf16(Params p) {
   }
 }
 
+// ------------------------------------------- bf16, D in {64, 128}: wgmma
+
+// One block per (batch * head, 64 NWG-row q tile): NWG consumer warpgroups
+// of 64 q rows each and one producer warpgroup.  The producer copies Q once
+// and the K and V tiles of BN rows through a ring of STAGES stages in
+// shared memory (cp.async into 128-byte-swizzled tiles, completion
+// reported to a "full" mbarrier; the consumers release a stage through an
+// "empty" one), so the next tiles' copies overlap this tile's products.
+// Per tile each consumer warpgroup runs S = Q K^T (wgmma, both operands
+// from shared memory), the online softmax in fp32 registers (the running
+// max of the raw scores, one FFMA and one ex2 an element with the scale
+// folded with log2 e; the per-element mask only on tiles that straddle the
+// causal diagonal, the window's lower edge or the end of the keys), then
+// O += P V (wgmma, P from registers as bf16, V read MN-major).  The
+// threads start at 65,536 / (128 (NWG + 1)) registers each; setmaxnreg
+// moves registers from the producer (PROD) to the consumers (CONS).
+template <int D, int BN, int NWG, int STAGES>
+__global__ void __launch_bounds__(128 * (NWG + 1), 1) fa_fwd_wgmma(Params p) {
+  using namespace hopper;
+  constexpr int BM = 64 * NWG;
+  constexpr int Q_BYTES = BM * D * 2, KV_BYTES = BN * D * 2;
+  // setmaxnreg.inc waits until the registers it asks for are free: NWG 128
+  // (CONS - start) must fit in 128 (start - PROD) plus the SM's spare
+  // (start 168 for NWG 2, 128 for NWG 3); 40 / 240 hung the card
+  constexpr int PROD = 40, CONS = NWG == 2 ? 232 : 152;
+  constexpr int CH = 4;  // independent chains of the row max / sum
+  static_assert(NWG == 2 || NWG == 3, "two or three consumer warpgroups");
+  extern __shared__ unsigned char smem_raw[];
+  unsigned char* Qs = align1024(smem_raw);
+  unsigned char* KVs = Qs + Q_BYTES;  // stage s: K at 2s, V at 2s + 1
+  uint64_t* bars = reinterpret_cast<uint64_t*>(KVs + STAGES * 2 * KV_BYTES);
+  uint64_t* q_full = bars;
+  uint64_t* full = bars + 1;
+  uint64_t* empty = bars + 1 + STAGES;
+
+  const int tid = threadIdx.x;
+  const int bh = blockIdx.x;
+  const int b = bh / p.H, h = bh % p.H, hk = h / p.G;
+  const int q0 = (gridDim.y - 1 - blockIdx.y) * BM;  // long tiles first
+  const int hi = p.causal ? min(p.Skv, q0 + BM) : p.Skv;
+  const int lo = p.window ? (max(0, q0 - p.window + 1) / BN) * BN : 0;
+  const int n_tiles = hi > lo ? (hi - lo + BN - 1) / BN : 0;
+
+  if (tid == 0) {
+    mbar_init(q_full, 128);
+    for (int s = 0; s < STAGES; ++s) {
+      mbar_init(&full[s], 128);       // one cp.async arrival per producer thread
+      mbar_init(&empty[s], 4 * NWG);  // one arrival per consumer warp
+    }
+    mbar_fence_init();
+  }
+  __syncthreads();
+
+  if (tid >= 128 * NWG) {  // ---------------------------------- producer
+    setmaxnreg_dec<PROD>();
+    const int pt = tid - 128 * NWG;
+    const __nv_bfloat16* q = static_cast<const __nv_bfloat16*>(p.q) + b * p.q_sb + h * p.q_sh;
+    const __nv_bfloat16* k = static_cast<const __nv_bfloat16*>(p.k) + b * p.k_sb + hk * p.k_sh;
+    const __nv_bfloat16* v = static_cast<const __nv_bfloat16*>(p.v) + b * p.v_sb + hk * p.v_sh;
+    copy_tile<BM, D>(Qs, q, p.q_ss, q0, p.Sq, pt);
+    cp_async_arrive(q_full);
+    for (int t = 0; t < n_tiles; ++t) {
+      const int st = t % STAGES;
+      if (t >= STAGES) mbar_wait(&empty[st], (t / STAGES - 1) & 1);
+      unsigned char* kd = KVs + (2 * st) * KV_BYTES;
+      copy_tile<BN, D>(kd, k, p.k_ss, lo + t * BN, p.Skv, pt);
+      copy_tile<BN, D>(kd + KV_BYTES, v, p.v_ss, lo + t * BN, p.Skv, pt);
+      cp_async_arrive(&full[st]);
+    }
+    cp_async_wait_all();
+  } else {  // ---------------------------------------------- consumers
+    setmaxnreg_inc<CONS>();
+    const int w = tid >> 7, warp = (tid >> 5) & 3, lane = tid & 31;
+    const int g = lane >> 2, qd = lane & 3;
+    const int r0 = q0 + 64 * w;                          // this warpgroup's first row
+    const int i_row[2] = {r0 + 16 * warp + g, r0 + 16 * warp + g + 8};
+    const float scale2 = p.scale * LOG2E;
+    float o[D / 2];
+#pragma unroll
+    for (int e = 0; e < D / 2; ++e) o[e] = 0.f;
+    float m[2] = {-INFINITY, -INFINITY}, l[2] = {0.f, 0.f};  // m of the raw scores; l per thread
+    const uint32_t q_addr = smem_u32(Qs) + w * 64 * 128;
+
+    mbar_wait(q_full, 0);
+    for (int t = 0; t < n_tiles; ++t) {
+      const int st = t % STAGES, k0 = lo + t * BN;
+      const uint32_t k_addr = smem_u32(KVs + (2 * st) * KV_BYTES);
+      const uint32_t v_addr = k_addr + KV_BYTES;
+      mbar_wait(&full[st], (t / STAGES) & 1);
+      fence_proxy_async();
+
+      float s[BN / 2];
+      wgmma_fence();
+#pragma unroll
+      for (int ks = 0; ks < D / 16; ++ks)
+        wgmma_ss<0, 0>(s, desc_b128(q_addr + (ks >> 2) * (BM * 128) + (ks & 3) * 32, 16, 1024),
+                       desc_b128(k_addr + (ks >> 2) * (BN * 128) + (ks & 3) * 32, 16, 1024),
+                       ks > 0);
+      wgmma_commit();
+      wgmma_wait<0>();
+      fence_regs(s);
+
+      // element e: row i_row[(e >> 1) & 1], key k0 + 8 (e / 4) + 2 qd + (e & 1)
+      const bool masked = k0 + BN > p.Skv || (p.causal && k0 + BN - 1 > r0) ||
+                          (p.window && k0 <= r0 + 63 - p.window);
+      if (masked) {
+#pragma unroll
+        for (int e = 0; e < BN / 2; ++e) {
+          const int i = i_row[(e >> 1) & 1], j = k0 + 8 * (e >> 2) + 2 * qd + (e & 1);
+          if (!visible(p, i, j)) s[e] = -INFINITY;
+        }
+      }
+      // Row maxima and sums over this thread's BN / 4 scores of each row, in
+      // CH independent chains: one serial chain of fmaxf / adds is latency-
+      // bound (it made the whole kernel 1.5x slower on the H100).
+      float mx[2][CH];
+#pragma unroll
+      for (int rr = 0; rr < 2; ++rr)
+#pragma unroll
+        for (int u = 0; u < CH; ++u) mx[rr][u] = -INFINITY;
+#pragma unroll
+      for (int e = 0; e < BN / 2; ++e)
+        mx[(e >> 1) & 1][(e >> 2) % CH] = fmaxf(mx[(e >> 1) & 1][(e >> 2) % CH], s[e]);
+      float m_scaled[2], alpha[2];
+#pragma unroll
+      for (int rr = 0; rr < 2; ++rr) {
+#pragma unroll
+        for (int u = CH / 2; u > 0; u /= 2)
+#pragma unroll
+          for (int x = 0; x < u; ++x) mx[rr][x] = fmaxf(mx[rr][x], mx[rr][x + u]);
+        float mt = mx[rr][0];
+        mt = fmaxf(mt, __shfl_xor_sync(0xffffffffu, mt, 1));
+        mt = fmaxf(mt, __shfl_xor_sync(0xffffffffu, mt, 2));
+        const float m_new = fmaxf(m[rr], mt);
+        m_scaled[rr] = m_new == -INFINITY ? 0.f : m_new * scale2;  // fully masked so far
+        alpha[rr] = m[rr] == -INFINITY ? 0.f : exp2_approx(m[rr] * scale2 - m_scaled[rr]);
+        m[rr] = m_new;
+      }
+      uint32_t pa[BN / 16][4];
+      float ls[2][CH] = {};
+#pragma unroll
+      for (int e = 0; e < BN / 2; e += 2) {
+        const int rr = (e >> 1) & 1;  // masked: exp2(-inf) = 0
+        const float p0 = exp2_approx(fmaf(s[e], scale2, -m_scaled[rr]));
+        const float p1 = exp2_approx(fmaf(s[e + 1], scale2, -m_scaled[rr]));
+        ls[rr][(e >> 2) % CH] += p0 + p1;
+        pa[e >> 3][(e >> 1) & 3] = pack_bf16x2(p0, p1);
+      }
+#pragma unroll
+      for (int rr = 0; rr < 2; ++rr) {
+#pragma unroll
+        for (int u = CH / 2; u > 0; u /= 2)
+#pragma unroll
+          for (int x = 0; x < u; ++x) ls[rr][x] += ls[rr][x + u];
+        l[rr] = l[rr] * alpha[rr] + ls[rr][0];
+      }
+#pragma unroll
+      for (int e = 0; e < D / 2; ++e) o[e] *= alpha[(e >> 1) & 1];
+
+      wgmma_fence();
+#pragma unroll
+      for (int kk = 0; kk < BN / 16; ++kk)
+        wgmma_rs<1>(o, pa[kk], desc_b128(v_addr + kk * 16 * 128, BN * 128, 1024), 1);
+      wgmma_commit();
+      wgmma_wait<0>();
+      fence_regs(o);
+      __syncwarp();
+      if (lane == 0) mbar_arrive(&empty[st]);
+    }
+
+    __nv_bfloat16* out = static_cast<__nv_bfloat16*>(p.o) + b * p.o_sb + h * p.o_sh;
+#pragma unroll
+    for (int rr = 0; rr < 2; ++rr) {
+      l[rr] += __shfl_xor_sync(0xffffffffu, l[rr], 1);
+      l[rr] += __shfl_xor_sync(0xffffffffu, l[rr], 2);
+      const int i = i_row[rr];
+      if (i >= p.Sq) continue;
+      const float inv = 1.f / fmaxf(l[rr], 1e-30f);
+      if (p.lse != nullptr && qd == 0)
+        p.lse[static_cast<long long>(bh) * p.Sq + i] =
+            m[rr] == -INFINITY ? INFINITY : m[rr] * p.scale + logf(l[rr]);
+      __nv_bfloat16* orow = out + i * p.o_ss + 2 * qd;
+#pragma unroll
+      for (int j = 0; j < D / 8; ++j)
+        *reinterpret_cast<__nv_bfloat162*>(orow + 8 * j) =
+            __floats2bfloat162_rn(o[4 * j + 2 * rr] * inv, o[4 * j + 2 * rr + 1] * inv);
+    }
+  }
+}
+
 // ---------------------------------------------------------------- launch
 
 template <int D>
@@ -373,6 +580,19 @@ cudaError_t launch_bf16(const Params& p, dim3 grid, cudaStream_t stream) {
   cudaError_t err = cudaFuncSetAttribute(fa_fwd_bf16<D>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (err != cudaSuccess) return err;
   fa_fwd_bf16<D><<<grid, 128, smem, stream>>>(p);
+  return cudaGetLastError();
+}
+
+template <int D, int BN, int NWG, int STAGES>
+cudaError_t launch_wgmma(const Params& p, int bh, cudaStream_t stream) {
+  // Q, the K/V ring, the mbarriers, and 1024 bytes to align the start
+  constexpr int smem = 1024 + 64 * NWG * D * 2 + STAGES * 2 * BN * D * 2 + 8 * (1 + 2 * STAGES);
+  static_assert(smem <= 232448, "more shared memory than a block can have");
+  cudaError_t err = cudaFuncSetAttribute(fa_fwd_wgmma<D, BN, NWG, STAGES>,
+                                         cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (err != cudaSuccess) return err;
+  const dim3 grid(bh, (p.Sq + 64 * NWG - 1) / (64 * NWG));
+  fa_fwd_wgmma<D, BN, NWG, STAGES><<<grid, 128 * (NWG + 1), smem, stream>>>(p);
   return cudaGetLastError();
 }
 
@@ -412,8 +632,8 @@ extern "C" int flash_attention_fwd(
     switch (D) {
       case 16: err = launch_bf16<16>(p, grid, st); break;
       case 32: err = launch_bf16<32>(p, grid, st); break;
-      case 64: err = launch_bf16<64>(p, grid, st); break;
-      case 128: err = launch_bf16<128>(p, grid, st); break;
+      case 64: err = launch_wgmma<64, 128, 3, 3>(p, B * H, st); break;
+      case 128: err = launch_wgmma<128, 128, 2, 2>(p, B * H, st); break;
       default: return -1;
     }
   } else {

@@ -15,32 +15,46 @@
 // for its P V product; here P and dS are rounded to bf16 only as the A
 // operands of the dV, dQ and dK products).
 //
-// Design.  Three launches on the caller's stream:
-//   1. delta: one warp per (b, i, h) row, D_i into an fp32 (B, H, Sq) scratch.
-//   2. dQ: one block per (batch * head, 64-row q tile), looping over the kv
-//      tiles the forward visits (the same kv_range), recomputing S and dP.
-//   3. dK/dV: one block per (batch * kv head, 64-row k tile), looping over
-//      the G query heads of that kv head and, for each, over the q tiles that
-//      can see the k tile (from k0 under the causal mask, up to k0 + 63 +
-//      window under a window).
-// Each gradient row is owned by one block, so GQA needs no atomics and the
-// result does not depend on scheduling.  Tiles of 64 rows are staged in
-// shared memory; q/k/v/o/dO are read in their (B, S, H, D) layout through
-// strides; dQ, dK, dV are written contiguous.  Templates cover D in
-// {16, 32, 64, 128}.
-//   * bf16: 4 warps, each owning 16 rows; every product on mma.sync m16n8k16
-//     (bf16 in, fp32 accumulate), with the fragment layouts of the forward:
-//     X Y^T reads both operands as rows, and a product with P or dS takes the
-//     fp32 accumulators re-packed to bf16 as its A operand.
-//   * f32: 8 warps, 4 threads per row, fp32 FMAs on the CUDA cores (no TF32).
+// Design.  Three launches on the caller's stream; which three is fixed by
+// (dtype, D):
+//   * bf16, D in {64, 128}, for Hopper:
+//     1. delta: D_i into the fp32 scratch, D / 8 lanes per row, 16-byte
+//        loads, several rows per warp;
+//     2. bwd_wgmma: one block per (batch * kv head, 128-row k tile), two
+//        consumer warpgroups of 64 k rows and a producer warpgroup.  It
+//        loops over the G query heads of the kv head and over the 64-row q
+//        tiles that can see the k tile (from k0 under the causal mask, up
+//        to k0 + 127 + window under a window); Q, dO, lse and delta come
+//        through a three-stage cp.async ring with mbarriers.  Five wgmma
+//        products per q tile: S^T = K Q^T and dP^T = V dO^T from shared
+//        memory; dV += P^T dO and dK += dS^T Q with P^T, dS^T from
+//        registers; dQ = dS K with dS^T staged in shared memory.  dQ is
+//        added with float2 atomics into a zeroed fp32 (B, Sq, H, D)
+//        accumulator that follows delta in the scratch, so its sum order,
+//        and its last bits, change from run to run;
+//     3. bwd_dq_finish: dq = scale * that accumulator, as bf16.
+//   * bf16, D in {16, 32}, and f32: delta (one warp per row for f32), then
+//     dQ: one block per (batch * head, 64-row q tile) over the kv tiles the
+//     forward visits, recomputing S and dP; then dK/dV: one block per
+//     (batch * kv head, 64-row k tile) over the G query heads and the q
+//     tiles that can see it.  Each gradient row has one owner, so these
+//     need no atomics and are deterministic; they run seven products where
+//     five would do.  bf16: 4 warps of 16 rows on mma.sync m16n8k16; f32:
+//     8 warps, 4 threads per row, fp32 FMAs (no TF32).
+// q/k/v/o/dO are read in their (B, S, H, D) layout through strides; dQ,
+// dK, dV are written contiguous.
 //
 // What bounds it.  The algorithm needs five products of 2·D flops per
 // visible (i, j) pair (S, dP, dV, dQ, dK), 2.5x the forward's two: at the
 // training shape (B=4, S=2048, H=32, KV=8, D=64, bf16, causal) 171.8 GFLOP,
 // ~0.17 ms at 989 TFLOP/s, against ~0.04 ms for the bytes (q, k, v, o, dO,
-// L read once; dQ, dK, dV written once): operations-bound.  This first
-// version runs seven products (S and dP in both kernels), loads tiles
-// synchronously and uses mma.sync, not wgmma/TMA.
+// L read once; dQ, dK, dV written once): operations-bound.  The wgmma
+// kernel runs those five products on the tensor cores with the copies in
+// the background; its dQ atomics (64 x D fp32 per q tile) go to L2.  On an
+// H100 at 700 W, taking parts out of it put ~0.2 ms of its ~0.77 ms at that
+// shape in the P / dS arithmetic and ~0.17 ms in dQ (product, barrier,
+// atomics): the two consumer warpgroups meet at a barrier every q tile, so
+// one's arithmetic seldom overlaps the other's products.
 //
 // Interface: plain C, loaded with ctypes.  Returns cudaGetLastError() after
 // the launches (0 on success), or -1 for a head dim / dtype it was not
@@ -50,6 +64,8 @@
 #include <cuda_runtime.h>
 #include <math.h>
 #include <stdint.h>
+
+#include "hopper.cuh"
 
 namespace {
 
@@ -100,12 +116,8 @@ __device__ __forceinline__ bool visible(const Params& p, int i, int j) {
   return ok;
 }
 
-__device__ __forceinline__ float to_f32(float v) { return v; }
-__device__ __forceinline__ float to_f32(__nv_bfloat16 v) { return __bfloat162float(v); }
-
 // ----------------------------------------------------------------- delta
 
-template <typename T>
 __global__ void __launch_bounds__(256) bwd_delta(Params p) {
   const long long rows = static_cast<long long>(p.B) * p.Sq * p.H;
   const long long row = static_cast<long long>(blockIdx.x) * 8 + (threadIdx.x >> 5);
@@ -114,10 +126,10 @@ __global__ void __launch_bounds__(256) bwd_delta(Params p) {
   const int h = static_cast<int>(row % p.H);
   const int i = static_cast<int>((row / p.H) % p.Sq);
   const int b = static_cast<int>(row / (static_cast<long long>(p.H) * p.Sq));
-  const T* o = static_cast<const T*>(p.o) + b * p.o_sb + i * p.o_ss + h * p.o_sh;
-  const T* d = static_cast<const T*>(p.dout) + b * p.do_sb + i * p.do_ss + h * p.do_sh;
+  const float* o = static_cast<const float*>(p.o) + b * p.o_sb + i * p.o_ss + h * p.o_sh;
+  const float* d = static_cast<const float*>(p.dout) + b * p.do_sb + i * p.do_ss + h * p.do_sh;
   float acc = 0.f;
-  for (int c = lane; c < p.D; c += 32) acc += to_f32(o[c]) * to_f32(d[c]);
+  for (int c = lane; c < p.D; c += 32) acc += o[c] * d[c];
 #pragma unroll
   for (int off = 16; off > 0; off >>= 1) acc += __shfl_xor_sync(0xffffffffu, acc, off);
   if (lane == 0) p.delta[(static_cast<long long>(b) * p.H + h) * p.Sq + i] = acc;
@@ -550,6 +562,267 @@ __global__ void __launch_bounds__(128) bwd_dkdv_bf16(Params p) {
   }
 }
 
+// ----------------------------------- bf16, D in {64, 128}: wgmma, five products
+
+namespace bw {
+
+constexpr int BN = 128;       // k rows per block: two consumer warpgroups of 64
+constexpr int BM = 64;        // q rows per tile of the ring
+constexpr int STAGES = 3;     // Q / dO / lse / delta ring depth
+constexpr int THREADS = 384;  // warpgroups 0-1 consume, warpgroup 2 produces
+
+// Offset of the fp32 dQ accumulator in the `delta` scratch: delta's
+// B * H * Sq floats rounded up to 4, so float2 atomics stay aligned.
+__host__ __device__ __forceinline__ long long dq_acc_offset(const Params& p) {
+  return ((static_cast<long long>(p.B) * p.H * p.Sq + 3) / 4) * 4;
+}
+
+}  // namespace bw
+
+// D_i = dO_i . O_i for bf16: D / 8 lanes per row, one 16-byte load of O
+// and of dO each, 32 / (D / 8) rows per warp.
+template <int D>
+__global__ void __launch_bounds__(256) bwd_delta_bf16(Params p) {
+  constexpr int TPR = D / 8, RPW = 32 / TPR;
+  const long long rows = static_cast<long long>(p.B) * p.Sq * p.H;
+  const int lane = threadIdx.x & 31, c = lane % TPR;
+  const long long row =
+      (static_cast<long long>(blockIdx.x) * 8 + (threadIdx.x >> 5)) * RPW + lane / TPR;
+  float acc = 0.f;
+  int b = 0, i = 0, h = 0;
+  if (row < rows) {
+    h = static_cast<int>(row % p.H);
+    i = static_cast<int>((row / p.H) % p.Sq);
+    b = static_cast<int>(row / (static_cast<long long>(p.H) * p.Sq));
+    const uint4 ov = *reinterpret_cast<const uint4*>(
+        static_cast<const __nv_bfloat16*>(p.o) + b * p.o_sb + i * p.o_ss + h * p.o_sh + 8 * c);
+    const uint4 dv = *reinterpret_cast<const uint4*>(static_cast<const __nv_bfloat16*>(p.dout) +
+                                                     b * p.do_sb + i * p.do_ss + h * p.do_sh +
+                                                     8 * c);
+    const __nv_bfloat162* o2 = reinterpret_cast<const __nv_bfloat162*>(&ov);
+    const __nv_bfloat162* d2 = reinterpret_cast<const __nv_bfloat162*>(&dv);
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      const float2 a = __bfloat1622float2(o2[e]), d = __bfloat1622float2(d2[e]);
+      acc += a.x * d.x + a.y * d.y;
+    }
+  }
+#pragma unroll
+  for (int off = TPR / 2; off > 0; off >>= 1) acc += __shfl_xor_sync(0xffffffffu, acc, off);
+  if (row < rows && c == 0) p.delta[(static_cast<long long>(b) * p.H + h) * p.Sq + i] = acc;
+}
+
+// One block per (batch * kv head, 128-row k tile): two consumer warpgroups
+// of 64 k rows each and one producer warpgroup.  The producer copies K and
+// V once, then, for each of the G query heads of the kv head and each
+// 64-row q tile that can see the k tile, the Q, dO, lse and delta tiles
+// through a three-stage ring (cp.async into swizzled tiles, "full" / "empty"
+// mbarriers).  Per q tile each consumer warpgroup runs
+//   S^T = K Q^T, dP^T = V dO^T       (wgmma, both from shared memory)
+//   P^T, dS^T = P^T (dP^T - delta)   (fp32 registers; the mask only on
+//                                     tiles that straddle an edge)
+//   dV += P^T dO, dK += dS^T Q       (wgmma, A from registers, B MN-major)
+// and stages dS^T (bf16) in shared memory; after a barrier over both
+// consumer warpgroups, each computes dQ = dS K for half of the head dim
+// (A = dS^T read MN-major, B = K read MN-major) and adds it with float2
+// atomics into the fp32 accumulator.  dS^T is double-buffered, so one
+// barrier per q tile suffices.
+template <int D>
+__global__ void __launch_bounds__(bw::THREADS, 1) bwd_wgmma(Params p) {
+  using namespace hopper;
+  constexpr int BN = bw::BN, BM = bw::BM, STAGES = bw::STAGES;
+  constexpr int KV_BYTES = BN * D * 2, QT_BYTES = BM * D * 2, DS_BYTES = BN * BM * 2;
+  extern __shared__ unsigned char smem_raw[];
+  unsigned char* Ks = align1024(smem_raw);
+  unsigned char* Vs = Ks + KV_BYTES;
+  unsigned char* QdO = Vs + KV_BYTES;                  // stage s: Q at 2s, dO at 2s + 1
+  unsigned char* dSs = QdO + STAGES * 2 * QT_BYTES;    // two dS^T buffers
+  float* LD = reinterpret_cast<float*>(dSs + 2 * DS_BYTES);  // stage s: lse at 2s, delta at 2s + 1
+  uint64_t* bars = reinterpret_cast<uint64_t*>(LD + STAGES * 2 * BM);
+  uint64_t* kv_full = bars;
+  uint64_t* full = bars + 1;
+  uint64_t* empty = bars + 1 + STAGES;
+
+  const int tid = threadIdx.x;
+  const int bk = blockIdx.x;
+  const int b = bk / p.KV, hk = bk % p.KV;
+  const int k0 = blockIdx.y * BN;  // under a causal mask the first tiles are the long ones
+  const int lo = p.causal ? k0 : 0;
+  const int hi = p.window ? min(p.Sq, k0 + BN - 1 + p.window) : p.Sq;
+  const int n_q = hi > lo ? (hi - lo + BM - 1) / BM : 0;
+  const int n_tiles = p.G * n_q;
+
+  if (tid == 0) {
+    mbar_init(kv_full, 128);
+    for (int s = 0; s < STAGES; ++s) {
+      mbar_init(&full[s], 128);
+      mbar_init(&empty[s], 8);
+    }
+    mbar_fence_init();
+  }
+  __syncthreads();
+
+  if (tid >= 256) {  // ---------------------------------------- producer
+    setmaxnreg_dec<40>();  // 256 x (232 - 168) consumer registers = 128 x (168 - 40)
+    const int pt = tid - 256;
+    copy_tile<BN, D>(Ks, static_cast<const __nv_bfloat16*>(p.k) + b * p.k_sb + hk * p.k_sh,
+                         p.k_ss, k0, p.Skv, pt);
+    copy_tile<BN, D>(Vs, static_cast<const __nv_bfloat16*>(p.v) + b * p.v_sb + hk * p.v_sh,
+                         p.v_ss, k0, p.Skv, pt);
+    cp_async_arrive(kv_full);
+    for (int t = 0; t < n_tiles; ++t) {
+      const int st = t % STAGES, h = hk * p.G + t / n_q, q0 = lo + (t % n_q) * BM;
+      if (t >= STAGES) mbar_wait(&empty[st], (t / STAGES - 1) & 1);
+      unsigned char* qd = QdO + (2 * st) * QT_BYTES;
+      copy_tile<BM, D>(qd, static_cast<const __nv_bfloat16*>(p.q) + b * p.q_sb + h * p.q_sh,
+                           p.q_ss, q0, p.Sq, pt);
+      copy_tile<BM, D>(qd + QT_BYTES,
+                           static_cast<const __nv_bfloat16*>(p.dout) + b * p.do_sb + h * p.do_sh,
+                           p.do_ss, q0, p.Sq, pt);
+      const long long row0 = (static_cast<long long>(b) * p.H + h) * p.Sq + q0;
+      const int r = pt & (BM - 1), i = q0 + r;
+      const float* src = (pt < BM ? p.lse : p.delta) + row0 + r;
+      cp_async4(smem_u32(LD + (2 * st + (pt >= BM)) * BM + r), i < p.Sq ? src : p.lse,
+                i < p.Sq ? 4 : 0);
+      cp_async_arrive(&full[st]);
+    }
+    cp_async_wait_all();
+  } else {  // ---------------------------------------------- consumers
+    setmaxnreg_inc<232>();
+    const int w = tid >> 7, warp = (tid >> 5) & 3, lane = tid & 31;
+    const int g = lane >> 2, qd = lane & 3;
+    const int kw0 = k0 + 64 * w;  // this warpgroup's first k row
+    const int j_row[2] = {kw0 + 16 * warp + g, kw0 + 16 * warp + g + 8};
+    const float scale2 = p.scale * LOG2E;
+    float* dq_acc = p.delta + bw::dq_acc_offset(p);
+    const uint32_t k_addr = smem_u32(Ks), v_addr = smem_u32(Vs);
+    const uint32_t kw_addr = k_addr + w * 64 * 128, vw_addr = v_addr + w * 64 * 128;
+    // this warpgroup's half of the head dim for dQ, inside K's column blocks
+    const uint32_t kq_addr = k_addr + ((w * D / 2) >> 6) * (BN * 128) + ((w * D / 2) & 63) * 2;
+    float dk[D / 2], dv[D / 2];
+#pragma unroll
+    for (int e = 0; e < D / 2; ++e) dk[e] = dv[e] = 0.f;
+
+    mbar_wait(kv_full, 0);
+    for (int t = 0; t < n_tiles; ++t) {
+      const int st = t % STAGES, h = hk * p.G + t / n_q, q0 = lo + (t % n_q) * BM;
+      const uint32_t q_addr = smem_u32(QdO + (2 * st) * QT_BYTES), do_addr = q_addr + QT_BYTES;
+      const float* Ls = LD + (2 * st) * BM;
+      const float* Dl = Ls + BM;
+      mbar_wait(&full[st], (t / STAGES) & 1);
+      fence_proxy_async();
+
+      float s[32], dp[32];  // S^T and dP^T: 64 k rows x 64 q columns
+      wgmma_fence();
+#pragma unroll
+      for (int ks = 0; ks < D / 16; ++ks)
+        wgmma_ss<0, 0>(s, desc_b128(kw_addr + (ks >> 2) * (BN * 128) + (ks & 3) * 32, 16, 1024),
+                       desc_b128(q_addr + (ks >> 2) * (BM * 128) + (ks & 3) * 32, 16, 1024),
+                       ks > 0);
+#pragma unroll
+      for (int ks = 0; ks < D / 16; ++ks)
+        wgmma_ss<0, 0>(dp, desc_b128(vw_addr + (ks >> 2) * (BN * 128) + (ks & 3) * 32, 16, 1024),
+                       desc_b128(do_addr + (ks >> 2) * (BM * 128) + (ks & 3) * 32, 16, 1024),
+                       ks > 0);
+      wgmma_commit();
+      wgmma_wait<0>();
+      fence_regs(s);
+      fence_regs(dp);
+
+      // element e: k row j_row[(e >> 1) & 1], q column c = 8 (e / 4) + 2 qd + (e & 1)
+      const bool masked = kw0 + 63 >= p.Skv || q0 + BM > p.Sq ||
+                          (p.causal && kw0 + 63 > q0) ||
+                          (p.window && kw0 <= q0 + BM - 1 - p.window);
+      if (masked) {
+#pragma unroll
+        for (int e = 0; e < 32; ++e)
+          if (!visible(p, q0 + 8 * (e >> 2) + 2 * qd + (e & 1), j_row[(e >> 1) & 1]))
+            s[e] = -INFINITY;  // P = exp2(-inf) = 0
+      }
+      uint32_t pa[4][4], da[4][4];
+      unsigned char* ds_buf = dSs + (t & 1) * DS_BYTES;
+#pragma unroll
+      for (int e = 0; e < 32; e += 2) {
+        const int c = 8 * (e >> 2) + 2 * qd, rr = (e >> 1) & 1;
+        const float2 lse2 = *reinterpret_cast<const float2*>(Ls + c);
+        const float2 dl2 = *reinterpret_cast<const float2*>(Dl + c);
+        const float p0 = exp2_approx(fmaf(s[e], scale2, -lse2.x * LOG2E));
+        const float p1 = exp2_approx(fmaf(s[e + 1], scale2, -lse2.y * LOG2E));
+        pa[e >> 3][(e >> 1) & 3] = pack_bf16x2(p0, p1);
+        const uint32_t dsw = pack_bf16x2(p0 * (dp[e] - dl2.x), p1 * (dp[e + 1] - dl2.y));
+        da[e >> 3][(e >> 1) & 3] = dsw;
+        const int r = 64 * w + 16 * warp + g + 8 * rr;  // row of dS^T: k row within the block
+        *reinterpret_cast<uint32_t*>(ds_buf + swz(r, c >> 3) + (c & 7) * 2) = dsw;
+      }
+      fence_proxy_async();
+
+      wgmma_fence();
+#pragma unroll
+      for (int kk = 0; kk < 4; ++kk)
+        wgmma_rs<1>(dv, pa[kk], desc_b128(do_addr + kk * 16 * 128, BM * 128, 1024), 1);
+#pragma unroll
+      for (int kk = 0; kk < 4; ++kk)
+        wgmma_rs<1>(dk, da[kk], desc_b128(q_addr + kk * 16 * 128, BM * 128, 1024), 1);
+      wgmma_commit();
+
+      named_bar_sync(1, 256);  // both warpgroups' rows of dS^T are in place
+      float dq[D / 4];
+      const uint32_t ds_addr = smem_u32(ds_buf);
+      wgmma_fence();
+#pragma unroll
+      for (int kk = 0; kk < BN / 16; ++kk)
+        wgmma_ss<1, 1>(dq, desc_b128(ds_addr + kk * 16 * 128, BN * 128, 1024),
+                       desc_b128(kq_addr + kk * 16 * 128, BN * 128, 1024), kk > 0);
+      wgmma_commit();
+      wgmma_wait<0>();
+      fence_regs(dv);
+      fence_regs(dk);
+      fence_regs(dq);
+      __syncwarp();
+      if (lane == 0) mbar_arrive(&empty[st]);
+
+      // dq element e: q row q0 + 16 warp + g + 8 ((e >> 1) & 1), column w D/2 + 8 (e / 4) + 2 qd
+#pragma unroll
+      for (int e = 0; e < D / 4; e += 2) {
+        const int i = q0 + 16 * warp + g + 8 * ((e >> 1) & 1);
+        if (i < p.Sq)
+          atomicAdd(reinterpret_cast<float2*>(
+                        dq_acc + ((static_cast<long long>(b) * p.Sq + i) * p.H + h) * D +
+                        w * D / 2 + 8 * (e >> 2) + 2 * qd),
+                    make_float2(dq[e], dq[e + 1]));
+      }
+    }
+
+#pragma unroll
+    for (int rr = 0; rr < 2; ++rr) {
+      if (j_row[rr] >= p.Skv) continue;
+      const long long off =
+          ((static_cast<long long>(b) * p.Skv + j_row[rr]) * p.KV + hk) * D + 2 * qd;
+      __nv_bfloat16* dkp = static_cast<__nv_bfloat16*>(p.dk) + off;
+      __nv_bfloat16* dvp = static_cast<__nv_bfloat16*>(p.dv) + off;
+#pragma unroll
+      for (int j = 0; j < D / 8; ++j) {
+        *reinterpret_cast<__nv_bfloat162*>(dkp + 8 * j) = __floats2bfloat162_rn(
+            dk[4 * j + 2 * rr] * p.scale, dk[4 * j + 2 * rr + 1] * p.scale);
+        *reinterpret_cast<__nv_bfloat162*>(dvp + 8 * j) =
+            __floats2bfloat162_rn(dv[4 * j + 2 * rr], dv[4 * j + 2 * rr + 1]);
+      }
+    }
+  }
+}
+
+// dq = scale * the fp32 accumulator, as bf16; four values a thread.
+__global__ void __launch_bounds__(256) bwd_dq_finish(Params p) {
+  const long long n4 = static_cast<long long>(p.B) * p.Sq * p.H * p.D / 4;
+  const long long idx = static_cast<long long>(blockIdx.x) * 256 + threadIdx.x;
+  if (idx >= n4) return;
+  const float4 a =
+      reinterpret_cast<const float4*>(p.delta + bw::dq_acc_offset(p))[idx];
+  __nv_bfloat162* out = reinterpret_cast<__nv_bfloat162*>(p.dq) + 2 * idx;
+  out[0] = __floats2bfloat162_rn(a.x * p.scale, a.y * p.scale);
+  out[1] = __floats2bfloat162_rn(a.z * p.scale, a.w * p.scale);
+}
+
 // ---------------------------------------------------------------- launch
 
 template <typename K>
@@ -583,13 +856,34 @@ cudaError_t launch_bf16(const Params& p, cudaStream_t st) {
                 tiles + 2 * 64 * static_cast<int>(sizeof(float)), p, st);
 }
 
+template <int D>
+cudaError_t launch_wgmma(const Params& p, cudaStream_t st) {
+  constexpr int smem = 1024 + 2 * bw::BN * D * 2 + bw::STAGES * 2 * bw::BM * D * 2 +
+                       2 * bw::BN * bw::BM * 2 + bw::STAGES * 2 * bw::BM * 4 + 64;
+  cudaError_t err = launch(bwd_wgmma<D>, dim3(p.B * p.KV, (p.Skv + bw::BN - 1) / bw::BN),
+                           bw::THREADS, smem, p, st);
+  if (err != cudaSuccess) return err;
+  const long long n4 = static_cast<long long>(p.B) * p.Sq * p.H * D / 4;
+  bwd_dq_finish<<<static_cast<unsigned>((n4 + 255) / 256), 256, 0, st>>>(p);
+  return cudaGetLastError();
+}
+
+template <int D>
+cudaError_t launch_delta_bf16(const Params& p, cudaStream_t st) {
+  const long long rows = static_cast<long long>(p.B) * p.Sq * p.H;
+  const long long per_block = 8 * (32 / (D / 8));
+  bwd_delta_bf16<D><<<static_cast<unsigned>((rows + per_block - 1) / per_block), 256, 0, st>>>(p);
+  return cudaGetLastError();
+}
+
 }  // namespace
 
 // dtype: 0 = float32, 1 = bfloat16, for q, k, v, o, dout, dq, dk, dv alike.
 // Strides are in elements; the last dim of q, k, v, o and dout is
-// contiguous.  lse and delta: B * H * Sq floats (delta is scratch); dq:
-// (B, Sq, H, D), dk and dv: (B, Skv, KV, D), contiguous.  Returns 0 on
-// success.
+// contiguous.  lse: B * H * Sq floats.  delta: fp32 scratch of B * H * Sq
+// floats; for bf16 at D 64 or 128 followed, from the next multiple of 4
+// floats, by a zeroed B * Sq * H * D accumulator for dQ.  dq: (B, Sq, H,
+// D), dk and dv: (B, Skv, KV, D), contiguous.  Returns 0 on success.
 extern "C" int flash_attention_bwd(
     const void* q, const void* k, const void* v, const void* o, const void* dout,
     const float* lse, float* delta, void* dq, void* dk, void* dv, int dtype,
@@ -614,12 +908,19 @@ extern "C" int flash_attention_bwd(
   p.scale = scale; p.causal = causal; p.window = window;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
 
-  const long long rows = static_cast<long long>(B) * Sq * H;
-  if (dtype == 0)
-    bwd_delta<float><<<static_cast<unsigned>((rows + 7) / 8), 256, 0, st>>>(p);
-  else
-    bwd_delta<__nv_bfloat16><<<static_cast<unsigned>((rows + 7) / 8), 256, 0, st>>>(p);
-  cudaError_t err = cudaGetLastError();
+  cudaError_t err;
+  if (dtype == 0) {
+    const long long rows = static_cast<long long>(B) * Sq * H;
+    bwd_delta<<<static_cast<unsigned>((rows + 7) / 8), 256, 0, st>>>(p);
+    err = cudaGetLastError();
+  } else {
+    switch (D) {
+      case 16: err = launch_delta_bf16<16>(p, st); break;
+      case 32: err = launch_delta_bf16<32>(p, st); break;
+      case 64: err = launch_delta_bf16<64>(p, st); break;
+      default: err = launch_delta_bf16<128>(p, st); break;
+    }
+  }
   if (err != cudaSuccess) return static_cast<int>(err);
 
   if (dtype == 0) {
@@ -633,8 +934,8 @@ extern "C" int flash_attention_bwd(
     switch (D) {
       case 16: err = launch_bf16<16>(p, st); break;
       case 32: err = launch_bf16<32>(p, st); break;
-      case 64: err = launch_bf16<64>(p, st); break;
-      default: err = launch_bf16<128>(p, st); break;
+      case 64: err = launch_wgmma<64>(p, st); break;
+      default: err = launch_wgmma<128>(p, st); break;
     }
   }
   return static_cast<int>(err);

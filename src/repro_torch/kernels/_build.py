@@ -1,10 +1,11 @@
 """Build a hand-written CUDA kernel at first use.
 
-Each kernel is one ``csrc/*.cu`` file with a plain C interface.  ``build``
-compiles it with ``nvcc`` for ``sm_90a`` into a shared library under
-``build/`` at the root of the checkout, named by the source's hash, so a
-library built from the same source is reused; the wrappers load it with
-``ctypes``.
+Each kernel is one ``csrc/*.cu`` file with a plain C interface; the
+sources may include the shared headers ``csrc/*.cuh``.  ``build`` compiles
+it with ``nvcc`` for ``sm_90a`` into a shared library under ``build/`` at
+the root of the checkout, named by the hash of the source and of every
+header, so a library built from the same sources is reused and an edit to
+a header rebuilds; the wrappers load it with ``ctypes``.
 """
 from __future__ import annotations
 
@@ -17,13 +18,21 @@ CSRC = Path(__file__).resolve().parents[1] / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build"
 
 
+def library_path(src: Path) -> Path:
+    """Where ``build`` puts the library of ``src``: named by the hash of
+    ``src`` and of every ``*.cuh`` header beside it."""
+    h = hashlib.sha256(src.read_bytes())
+    for header in sorted(src.parent.glob("*.cuh")):
+        h.update(header.name.encode() + b"\0" + header.read_bytes())
+    return BUILD_DIR / f"lib{src.stem}-{h.hexdigest()[:16]}.so"
+
+
 def build(src: Path) -> Path:
-    """Compile ``src`` unless a library built from this exact source is
+    """Compile ``src`` unless a library built from these exact sources is
     already in ``build/``; returns the library's path.  The compiler's
     output (``-Xptxas -v``: registers, shared memory, spills) is kept next
     to it as ``<library>.log``."""
-    digest = hashlib.sha256(src.read_bytes()).hexdigest()[:16]
-    lib = BUILD_DIR / f"lib{src.stem}-{digest}.so"
+    lib = library_path(src)
     if lib.exists():
         return lib
     from torch.utils.cpp_extension import CUDA_HOME

@@ -29,6 +29,7 @@ from repro_torch.kernels import _build
 SRC = _build.CSRC / "flash_attention.cu"
 BWD_SRC = _build.CSRC / "flash_attention_bwd.cu"
 HEAD_DIMS = (16, 32, 64, 128)
+WGMMA_HEAD_DIMS = (64, 128)   # bf16 head dims that run the wgmma kernels
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 
 
@@ -42,9 +43,9 @@ def build_bwd() -> Path:
     return _build.build(BWD_SRC)
 
 
-@functools.lru_cache(maxsize=None)
-def _entry():
-    fn = ctypes.CDLL(str(build())).flash_attention_fwd
+def load_fwd(lib: Path):
+    """The ``flash_attention_fwd`` entry point of a built library."""
+    fn = ctypes.CDLL(str(lib)).flash_attention_fwd
     fn.argtypes = ([ctypes.c_void_p] * 5 + [ctypes.c_int] * 7
                    + [ctypes.c_longlong] * 12
                    + [ctypes.c_float, ctypes.c_int, ctypes.c_int, ctypes.c_void_p])
@@ -52,14 +53,24 @@ def _entry():
     return fn
 
 
-@functools.lru_cache(maxsize=None)
-def _bwd_entry():
-    fn = ctypes.CDLL(str(build_bwd())).flash_attention_bwd
+def load_bwd(lib: Path):
+    """The ``flash_attention_bwd`` entry point of a built library."""
+    fn = ctypes.CDLL(str(lib)).flash_attention_bwd
     fn.argtypes = ([ctypes.c_void_p] * 10 + [ctypes.c_int] * 7
                    + [ctypes.c_longlong] * 15
                    + [ctypes.c_float, ctypes.c_int, ctypes.c_int, ctypes.c_void_p])
     fn.restype = ctypes.c_int
     return fn
+
+
+@functools.lru_cache(maxsize=None)
+def _entry():
+    return load_fwd(build())
+
+
+@functools.lru_cache(maxsize=None)
+def _bwd_entry():
+    return load_bwd(build_bwd())
 
 
 def _check(q, k, v, window, name):
@@ -105,6 +116,9 @@ def flash_attention_cuda(q, k, v, *, causal=True, window=0, scale=None, return_l
     window = _check(q, k, v, window, "flash_attention_cuda")
     _check_rows((q, k, v), "flash_attention_cuda")
     scale = float(scale) if scale is not None else 1.0 / (D ** 0.5)
+    if not scale > 0:
+        raise ValueError(f"scale must be positive (the kernels keep the raw scores' "
+                         f"running max), got {scale}")
     o = torch.empty((B, Sq, H, D), dtype=q.dtype, device=q.device)
     lse = (torch.empty((B, H, Sq), dtype=torch.float32, device=q.device)
            if return_lse else None)
@@ -125,14 +139,29 @@ def flash_attention_cuda(q, k, v, *, causal=True, window=0, scale=None, return_l
 flash_attention_cuda.launches = 0
 
 
+def _bwd_scratch(q):
+    """The backward's fp32 scratch: the row sums D = rowsum(dO * O), B * H *
+    Sq floats, and, for the bf16 wgmma kernels (D in ``WGMMA_HEAD_DIMS``),
+    after them (at the next multiple of 4 floats) the zeroed (B, Sq, H, D)
+    dQ accumulator that their atomics add into."""
+    B, Sq, H, D = q.shape
+    n = B * H * Sq
+    if q.dtype == torch.bfloat16 and D in WGMMA_HEAD_DIMS:
+        return torch.zeros(-(-n // 4) * 4 + B * Sq * H * D, dtype=torch.float32, device=q.device)
+    return torch.empty(n, dtype=torch.float32, device=q.device)
+
+
 def flash_attention_bwd_cuda(q, k, v, o, lse, do, *, causal=True, window=0, scale=None):
     """Gradients (dq, dk, dv) of ``flash_attention_cuda`` at (q, k, v), given
     its output ``o``, its ``lse`` and the output's gradient ``do`` (all on one
     CUDA device; o and do shaped and typed as q).  dk and dv are summed over
     the query heads of each kv head (GQA).
 
-    Adds one to ``flash_attention_bwd_cuda.launches`` per call (a call runs
-    three kernels: the row sums D = rowsum(dO * O), dQ, then dK/dV)."""
+    Adds one to ``flash_attention_bwd_cuda.launches`` per call.  A call runs
+    three kernels: the row sums D = rowsum(dO * O), then, for bf16 at D 64
+    or 128, the wgmma kernel (dK, dV, and dQ added with atomics into an fp32
+    accumulator) and the kernel that scales that into dq; otherwise dQ, then
+    dK/dV."""
     B, Sq, H, D = q.shape
     window = _check(q, k, v, window, "flash_attention_bwd_cuda")
     if tuple(o.shape) != tuple(q.shape) or tuple(do.shape) != tuple(q.shape):
@@ -150,7 +179,7 @@ def flash_attention_bwd_cuda(q, k, v, o, lse, do, *, causal=True, window=0, scal
     dv = torch.empty(v.shape, dtype=v.dtype, device=v.device)
     if dq.numel() == 0 or k.shape[1] == 0:
         return dq.zero_(), dk.zero_(), dv.zero_()
-    delta = torch.empty((B, H, Sq), dtype=torch.float32, device=q.device)
+    delta = _bwd_scratch(q)
     with torch.cuda.device(q.device):
         err = _bwd_entry()(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(), do.data_ptr(),

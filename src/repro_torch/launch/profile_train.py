@@ -35,7 +35,8 @@ ARCH, B, S, SEED = "llama3.2-1b", 4, 2048, 0   # the training slice's shape
 LR = 1e-5                                      # chip_smoke.py's TRAIN_LR
 KERNELS = {"k1": flash_attention_cuda, "k1b": flash_attention_bwd_cuda, "k2": quantize_cuda}
 # device-kernel names of the hand-written kernels (substrings of the profiler's keys)
-OWN = {"k1": ("fa_fwd_",), "k1b": ("bwd_delta", "bwd_dq_", "bwd_dkdv_"), "k2": ("quantize_kernel",)}
+OWN = {"k1": ("fa_fwd_",), "k1b": ("bwd_delta", "bwd_dq_", "bwd_dkdv_", "bwd_wgmma"),
+       "k2": ("quantize_kernel",)}
 WARM, TIMED = 2, 3
 
 

@@ -33,6 +33,14 @@ SHAPES = [
 DTYPES = ["float32", "bfloat16"]
 MASKS = [(True, None), (False, None), (True, 24)]
 TOL = {"float32": 1e-4, "bfloat16": 2e-2}
+# on the card, besides: D=128 with several full 128-row tiles (the bf16
+# wgmma kernels take D in {64, 128}), and the decode phase's Sq=1 and Sq=64
+# at llama3.2-1b's heads; the gradient also at G=8 and MQA, where many
+# query heads add into one kv head's dk/dv and the dQ atomics meet
+CARD_SHAPES = SHAPES + [(2, 200, 200, 8, 2, 128), (2, 512, 512, 8, 2, 128),
+                        (1, 1, 1, 32, 8, 64), (1, 64, 64, 32, 8, 64)]
+GRAD_SHAPES = CARD_SHAPES + [(1, 256, 256, 8, 1, 64), (2, 192, 192, 16, 2, 64)]
+CARD_MASKS = MASKS + [(False, 24), (True, 1 << 30)]
 
 
 @pytest.fixture(scope="module")
@@ -115,6 +123,30 @@ def test_cpu_path_grad_matches_jax_blocked_attention(jx, B, Sq, Skv, H, KV, D, c
         _close(g.numpy(), w, "float32")
 
 
+@pytest.mark.parametrize("dtype,D,accumulator", [("bfloat16", 64, True), ("bfloat16", 128, True),
+                                                ("bfloat16", 32, False), ("float32", 64, False)])
+def test_bwd_scratch_holds_delta_then_the_zeroed_dq_accumulator(dtype, D, accumulator):
+    """The backward's fp32 scratch: B * H * Sq row sums, and for the bf16
+    wgmma kernels (D 64, 128) the (B, Sq, H, D) dQ accumulator from the next
+    multiple of 4 floats (the kernels' dq_acc_offset), zeroed for their
+    atomics."""
+    q = torch.ones((2, 5, 3, D), dtype=getattr(torch, dtype))
+    scratch = fa._bwd_scratch(q)
+    assert scratch.dtype == torch.float32 and scratch.device == q.device
+    if accumulator:
+        assert scratch.numel() == 32 + 2 * 5 * 3 * D          # 30 row sums, padded to 32
+        assert bool((scratch == 0).all())
+    else:
+        assert scratch.numel() == 2 * 3 * 5
+
+
+def test_bench_attention_refuses_to_run_without_a_card(monkeypatch):
+    from repro_torch.launch import bench_attention
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(SystemExit, match="CUDA card"):
+        bench_attention.main([])
+
+
 def test_wrapper_refuses_cpu_tensors():
     q, k, v = (torch.from_numpy(a) for a in _inputs(1, 32, 32, 2, 2, 16))
     with pytest.raises(ValueError, match="CUDA"):
@@ -123,9 +155,9 @@ def test_wrapper_refuses_cpu_tensors():
 
 # ----------------------------------------------------------- on the card
 
-@pytest.mark.parametrize("B,Sq,Skv,H,KV,D", SHAPES + [(2, 200, 200, 8, 2, 128)])
+@pytest.mark.parametrize("B,Sq,Skv,H,KV,D", CARD_SHAPES)
 @pytest.mark.parametrize("dtype", DTYPES)
-@pytest.mark.parametrize("causal,window", MASKS + [(False, 24), (True, 1 << 30)])
+@pytest.mark.parametrize("causal,window", CARD_MASKS)
 def test_kernel_matches_plain_on_card(cuda, B, Sq, Skv, H, KV, D, dtype, causal, window):
     q, k, v = (torch.from_numpy(a).to(cuda, getattr(torch, dtype))
                for a in _inputs(B, Sq, Skv, H, KV, D))
@@ -172,9 +204,9 @@ def _kernel_and_plain_grads(q, k, v, do, **kw):
     return out
 
 
-@pytest.mark.parametrize("B,Sq,Skv,H,KV,D", SHAPES + [(2, 200, 200, 8, 2, 128)])
+@pytest.mark.parametrize("B,Sq,Skv,H,KV,D", GRAD_SHAPES)
 @pytest.mark.parametrize("dtype", DTYPES)
-@pytest.mark.parametrize("causal,window", MASKS + [(False, 24), (True, 1 << 30)])
+@pytest.mark.parametrize("causal,window", CARD_MASKS)
 def test_kernel_grad_matches_plain_on_card(cuda, B, Sq, Skv, H, KV, D, dtype, causal, window):
     q, k, v = (torch.from_numpy(a).to(cuda, getattr(torch, dtype))
                for a in _inputs(B, Sq, Skv, H, KV, D))
@@ -187,6 +219,22 @@ def test_kernel_grad_matches_plain_on_card(cuda, B, Sq, Skv, H, KV, D, dtype, ca
     for g, w in zip(got, want):
         assert g.dtype == q.dtype and g.shape == w.shape
         _grad_close(g, w, TOL[dtype])
+
+
+@pytest.mark.parametrize("D", [64, 128])
+def test_kernel_grad_runs_agree_on_card(cuda, D):
+    """The bf16 backward adds dq with atomics, so its sum order changes from
+    run to run: two runs on the same inputs agree within the bf16
+    tolerance, |d| <= 2e-2·(1+|g|)."""
+    q, k, v = (torch.from_numpy(a).to(cuda, torch.bfloat16)
+               for a in _inputs(2, 512, 512, 8, 2, D))
+    do = torch.from_numpy(_inputs(2, 512, 512, 8, 8, D, seed=1)[0]).to(cuda, torch.bfloat16)
+    o, lse = flash_attention_cuda(q, k, v, causal=True, return_lse=True)
+    first = fa.flash_attention_bwd_cuda(q, k, v, o, lse, do, causal=True)
+    second = fa.flash_attention_bwd_cuda(q, k, v, o, lse, do, causal=True)
+    torch.cuda.synchronize()
+    for a, b in zip(first, second):
+        _grad_close(a, b, TOL["bfloat16"])
 
 
 def test_kernel_grad_of_empty_rows_is_zero_on_card(cuda):
