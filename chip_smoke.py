@@ -14,9 +14,11 @@ Phases, each of which must pass:
              time at its main path's shape beside the plain version's, a
              library call's (where one PyTorch call computes the same) and
              the card's bound; two K1 backward runs must agree (dq adds with
-             atomics); K1's times and the library's are taken in turns, with
-             those of an earlier commit's K1 sources when they are copied
-             into build/parent/;
+             atomics); each K3 case names the route it must take (wgmma or
+             fma) and is checked to have taken it; K1's times and the
+             library's, and K3's and its plain version's, are taken in turns,
+             with those of an earlier commit's K1 and K3 sources when they
+             are copied into build/parent/;
   3. serve   llama3.2-1b, then mamba2-780m, at full width (batch 4, prompt
              2048, 32 new tokens) through ``repro_torch.launch.serve.main``,
              with the kernels' launch counts set to 0 just before and read
@@ -91,17 +93,29 @@ TRAIN_LR = 1e-5
 # every gradient leaf of the full-width step, flattened and padded to the
 # group as compress_tree hands them over; held to equality
 QUANT_CASES = [((64, 512), 256), ((3, 5, 256), 128), ((1024,), 256)]
-# K3: mamba2-780m prefill, batch 4 (b, s, h, p, g, n, chunk)
+# K3: mamba2-780m prefill, batch 4 (b, s, h, p, g, n, chunk); its bf16
+# route is bound at the bf16 tensor-core peak, the f32 route at the fp32 one
 SSD_SLICE = dict(b=4, s=2048, h=48, p=64, g=1, n=128, chunk=256)
 SSD_SWEEP = [(*shape, dtype)
              for shape in [(1, 32, 2, 8, 1, 8, 8), (2, 64, 4, 16, 2, 16, 16),
                            (1, 128, 4, 32, 1, 32, 32)]
              for dtype in ("float32", "bfloat16")]
 # the shapes the phases below drive K3 at: serve's prefill, then the decode
-# phase's forward over 64 tokens (chunk 64) and its prefill of one token
+# phase's forward over 64 tokens and its prefill of one token, which
+# ssm_forward pads to the same 64 rows (chunk 64); and chunk 1, the fma
+# route's least
 SSD_MODEL_CASES = [(*SSD_SLICE.values(), "bfloat16")] + [
     (1, S, 48, 64, 1, 128, S, dtype) for S in (64, 1) for dtype in ("float32", "bfloat16")]
 SSD_TOL = {"float32": 2e-3, "bfloat16": 2e-2}   # y; the float32 state is held to 2e-3
+
+
+def ssd_route_wanted(p, n, chunk, dtype):
+    """The route each K3 case must take: the wgmma kernels for bf16 at head
+    dim 64, n a multiple of 16 and a chunk a multiple of 64 (contiguous
+    inputs), the fma kernel otherwise."""
+    return "wgmma" if dtype == "bfloat16" and p == 64 and n % 16 == 0 and chunk % 64 == 0 else "fma"
+
+
 # max |logit| gap, 64 tokens: float32 sums in another order; bfloat16
 # re-rounding of the residual stream over the layers
 DECODE_TOL = {"float32": 2e-3, "bfloat16": 0.25}
@@ -116,29 +130,6 @@ DECODE_TOL = {"float32": 2e-3, "bfloat16": 0.25}
 # printed beside it: how far the chunked algorithm itself sits from the
 # recurrence.
 NOISE_HELD = {"mamba2-780m"}
-
-
-def cuda_ms(torch, fn, reps, warmup=2):
-    """Mean device time of ``fn`` over ``reps`` back-to-back calls."""
-    for _ in range(warmup):
-        fn()
-    torch.cuda.synchronize()
-    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
-    start.record()
-    for _ in range(reps):
-        fn()
-    end.record()
-    end.synchronize()
-    return start.elapsed_time(end) / reps
-
-
-def in_turns(torch, fns, reps):
-    """Mean device time (ms) of each named function, timed in the order
-    a, b, ..., ..., b, a; returns {name: [first, second]}."""
-    times = {name: [] for name, _ in fns}
-    for name, fn in fns + fns[::-1]:
-        times[name].append(cuda_ms(torch, fn, reps))
-    return times
 
 
 def visible_pairs(Sq, Skv, causal, window):
@@ -224,8 +215,9 @@ def main() -> int:
     from repro_torch.kernels import ops, ref
     from repro_torch.kernels import quantize as quant
     from repro_torch.kernels import ssd_scan as ssd
-    from repro_torch.launch import serve
+    from repro_torch.launch import bench_ssd, serve
     from repro_torch.launch import train as launch_train
+    from repro_torch.launch.bench_attention import cuda_ms, in_turns
     from repro_torch.models.registry import build
     from repro_torch.optim.adamw import AdamW
     from repro_torch.storage.fsapi import NVCacheFS
@@ -250,7 +242,7 @@ def main() -> int:
            "launches": 0, "max_abs_err": None, "ms": None, "plain_ms": None,
            "bound_ms": None, "bound_by": None, "library_ms": None}
     k2 = {"name": "quantize_int8", "route": "cuda", "source": "src/repro_torch/csrc/quantize.cu",
-          "replaces": "src/repro/kernels/quantize.py:54", "launches": 0,
+          "replaces": "src/repro/kernels/quantize.py:29", "launches": 0,
           "max_abs_err": None, "ms": None, "plain_ms": None, "bound_ms": None,
           "bound_by": None, "library_ms": None}   # no single PyTorch call group-quantizes
     k3 = {"name": "ssd_scan", "route": "cuda", "source": "src/repro_torch/csrc/ssd_scan.cu",
@@ -265,6 +257,7 @@ def main() -> int:
     def zero_counts():
         for _, fn in kernels.values():
             fn.launches = 0
+        ssd.ssd_cuda.routes = dict.fromkeys(ssd.ROUTES, 0)
 
     def read_counts(path):
         counts = {key: fn.launches for key, (_, fn) in kernels.items()}
@@ -283,7 +276,9 @@ def main() -> int:
             failures.append(f"{name}: {exc!r}")
             print(f"[{name}] FAILED: {exc!r}", flush=True)
 
-    parent = {}   # entry-point name in fa -> the stashed earlier kernel's entry point
+    # the stashed earlier kernels: entry-point name in fa -> its entry point,
+    # and "ssd" -> a function that runs the earlier K3
+    parent = {}
 
     def with_entry(name, entry, call):
         """``call`` with fa's library entry ``name`` pointing at ``entry``."""
@@ -299,15 +294,25 @@ def main() -> int:
     # ---------------------------------------------------------------- build
     def build_kernels():
         t0 = time.perf_counter()
-        builders = [fa.build, fa.build_bwd, quant.build, ssd.build]
-        stashed = [PARENT_DIR / name for name in ("flash_attention.cu", "flash_attention_bwd.cu")]
-        if all(src.exists() for src in stashed):
-            builders += [lambda src=src: _build.build(src) for src in stashed]
+        builders = {"k1": fa.build, "k1b": fa.build_bwd, "k2": quant.build, "k3": ssd.build}
+        stashed = {"_entry": PARENT_DIR / "flash_attention.cu",
+                   "_bwd_entry": PARENT_DIR / "flash_attention_bwd.cu",
+                   "ssd": PARENT_DIR / "ssd_scan.cu"}
+        if not (stashed["_entry"].exists() and stashed["_bwd_entry"].exists()):
+            del stashed["_entry"], stashed["_bwd_entry"]
+        stashed = {key: src for key, src in stashed.items() if src.exists()}
+        for key, src in stashed.items():
+            builders[key] = lambda src=src: _build.build(src)
         with ThreadPoolExecutor(len(builders)) as pool:   # one nvcc per source, together
-            libs = list(pool.map(lambda build_one: build_one(), builders))
-        if len(libs) > 4:
-            parent["_entry"], parent["_bwd_entry"] = fa.load_fwd(libs[4]), fa.load_bwd(libs[5])
-            print(f"  stashed earlier attention kernels from {PARENT_DIR}")
+            libs = dict(zip(builders, pool.map(lambda build_one: build_one(), builders.values())))
+        if "_entry" in stashed:
+            parent["_entry"] = fa.load_fwd(libs["_entry"])
+            parent["_bwd_entry"] = fa.load_bwd(libs["_bwd_entry"])
+        if "ssd" in stashed:
+            parent["ssd"] = bench_ssd.runner(stashed["ssd"], libs["ssd"])
+        if stashed:
+            print(f"  stashed earlier kernels from {PARENT_DIR}: {sorted(stashed)}")
+        libs = list(libs.values())
         print(f"build: {', '.join(lib.name for lib in libs)} in "
               f"{time.perf_counter() - t0:.2f} s")
         for lib in libs:
@@ -355,14 +360,14 @@ def main() -> int:
         fns = [("kernel", lambda: fa.flash_attention_cuda(q, k, v, causal=True)),
                ("sdpa", lambda: F.scaled_dot_product_attention(qt, kt, vt, is_causal=True,
                                                                 scale=scale))]
-        if parent:
+        if "_entry" in parent:
             fns.append(("earlier kernel", with_entry("_entry", parent["_entry"], fns[0][1])))
-        times = in_turns(torch, fns, 20)
+        times = in_turns(fns, 20)
         k1["ms"] = sum(times["kernel"]) / 2
         k1["library_ms"] = sum(times["sdpa"]) / 2
-        if parent:
+        if "_entry" in parent:
             k1["earlier_ms"] = sum(times["earlier kernel"]) / 2
-        k1["plain_ms"] = cuda_ms(torch, lambda: ref.attention_ref(q, k, v, causal=True), 5)
+        k1["plain_ms"] = cuda_ms(lambda: ref.attention_ref(q, k, v, causal=True), 5)
         k1["bound_ms"], k1["bound_by"] = attention_bound(
             *SLICE.values(), 2, True, 0, PEAK_BF16_FLOPS)
         print(f"  K1 at {SLICE} bf16 causal, in turns: "
@@ -378,33 +383,45 @@ def main() -> int:
         for case in SSD_SWEEP + SSD_MODEL_CASES:
             b, s, h, p, g, n, chunk, dtype = case
             cdt = getattr(torch, dtype)
-            x = torch.randn((b, s, h, p), generator=gen, device=dev).to(cdt)
-            dt = F.softplus(torch.randn((b, s, h), generator=gen, device=dev))
-            A = -torch.randn((h,), generator=gen, device=dev).exp()
-            B = torch.randn((b, s, g, n), generator=gen, device=dev).to(cdt)
-            C = torch.randn((b, s, g, n), generator=gen, device=dev).to(cdt)
+            x, dt, A, B, C = bench_ssd.inputs(gen, dev, b, s, h, p, g, n, cdt)
+            want = ssd_route_wanted(p, n, chunk, dtype)
+            before = dict(ssd.ssd_cuda.routes)
             y, st = ssd.ssd_cuda(x, dt, A, B, C, chunk=chunk)
+            took = [r for r, k in ssd.ssd_cuda.routes.items() if k != before[r]]
             wy, wst = ref.ssd_ref(x, dt, A, B, C, chunk=chunk)
             torch.cuda.synchronize()
             dy, ds = (y.float() - wy.float()).abs(), (st - wst).abs()
             errs[case] = max(float(dy.max()), float(ds.max()))
             ok = (bool((dy <= SSD_TOL[dtype] * (1 + wy.float().abs())).all())
-                  and bool((ds <= SSD_TOL["float32"] * (1 + wst.abs())).all()))
-            print(f"  K3 b={b} s={s} h={h} p={p} g={g} n={n} chunk={chunk} {dtype}: "
-                  f"max_abs_err y {float(dy.max()):.3e} state {float(ds.max()):.3e} "
-                  f"tol {SSD_TOL[dtype]}/{SSD_TOL['float32']} {'ok' if ok else 'MISMATCH'}")
+                  and bool((ds <= SSD_TOL["float32"] * (1 + wst.abs())).all())
+                  and took == [want] and ssd.ssd_route(x, B, C, chunk) == want)
+            print(f"  K3 b={b} s={s} h={h} p={p} g={g} n={n} chunk={chunk} {dtype}: route "
+                  f"{took} (want {want}), max_abs_err y {float(dy.max()):.3e} state "
+                  f"{float(ds.max()):.3e} tol {SSD_TOL[dtype]}/{SSD_TOL['float32']} "
+                  f"{'ok' if ok else 'MISMATCH'}")
             if not ok:
                 bad.append(case)
             if case == SSD_MODEL_CASES[0]:
                 slice_args = x, dt, A, B, C
         k3["max_abs_err"] = errs[SSD_MODEL_CASES[0]]   # at the serving prefill shape
         chunk = SSD_SLICE["chunk"]
-        k3["ms"] = cuda_ms(torch, lambda: ssd.ssd_cuda(*slice_args, chunk=chunk), 20)
-        k3["plain_ms"] = cuda_ms(torch, lambda: ref.ssd_ref(*slice_args, chunk=chunk), 5)
-        k3["bound_ms"], k3["bound_by"] = ssd_bound(*SSD_SLICE.values(), 2, PEAK_F32_FLOPS)
-        print(f"  K3 at {SSD_SLICE} bf16: kernel {k3['ms']:.4f} ms, plain "
-              f"{k3['plain_ms']:.4f} ms, library none, bound {k3['bound_ms']:.4f} ms "
-              f"({k3['bound_by']})")
+        fns = [("kernel", lambda: ssd.ssd_cuda(*slice_args, chunk=chunk)),
+               ("plain", lambda: ref.ssd_ref(*slice_args, chunk=chunk))]
+        if "ssd" in parent:
+            fns.append(("earlier kernel", lambda: parent["ssd"](*slice_args, chunk=chunk)))
+        times = in_turns(fns, 20)
+        k3["ms"] = sum(times["kernel"]) / 2
+        k3["plain_ms"] = sum(times["plain"]) / 2
+        if "ssd" in parent:
+            k3["earlier_ms"] = sum(times["earlier kernel"]) / 2
+        # the main path's route (bf16) at the bf16 tensor-core peak; the fma
+        # route's bound (fp32 operations) beside it
+        k3["bound_ms"], k3["bound_by"] = ssd_bound(*SSD_SLICE.values(), 2, PEAK_BF16_FLOPS)
+        bound_f32, by_f32 = ssd_bound(*SSD_SLICE.values(), 2, PEAK_F32_FLOPS)
+        print(f"  K3 at {SSD_SLICE} bf16 (wgmma route), in turns: "
+              + ", ".join(f"{name} {a:.4f}/{b:.4f} ms" for name, (a, b) in times.items())
+              + f"; library none, bound {k3['bound_ms']:.4f} ms ({k3['bound_by']}, bf16), "
+              f"{bound_f32:.4f} ms ({by_f32}, at the fp32 peak)")
         if bad:
             raise AssertionError(f"K3 disagrees with ssd_ref in {bad}")
 
@@ -458,7 +475,7 @@ def main() -> int:
         del runs
         leaves = [t.clone().requires_grad_() for t in (q, k, v)]
         out = ref.attention_ref(*leaves, causal=True)
-        k1b["plain_ms"] = cuda_ms(torch, lambda: torch.autograd.grad(
+        k1b["plain_ms"] = cuda_ms(lambda: torch.autograd.grad(
             out, leaves, do, retain_graph=True), 3, warmup=1)
         del out
         # SDPA over the kv heads repeated to H (as the forward's yardstick);
@@ -472,13 +489,13 @@ def main() -> int:
         fns = [("kernel", lambda: fa.flash_attention_bwd_cuda(q, k, v, o, lse, do, causal=True)),
                ("sdpa backward", lambda: torch.autograd.grad(sdpa, (qt, kt, vt), dot,
                                                              retain_graph=True))]
-        if parent:
+        if "_bwd_entry" in parent:
             fns.append(("earlier kernel", with_entry("_bwd_entry", parent["_bwd_entry"],
                                                      fns[0][1])))
-        times = in_turns(torch, fns, 20)
+        times = in_turns(fns, 20)
         k1b["ms"] = sum(times["kernel"]) / 2
         k1b["library_ms"] = sum(times["sdpa backward"]) / 2
-        if parent:
+        if "_bwd_entry" in parent:
             k1b["earlier_ms"] = sum(times["earlier kernel"]) / 2
         k1b["bound_ms"], k1b["bound_by"] = attention_bwd_bound(
             *TRAIN.values(), 2, True, 0, PEAK_BF16_FLOPS)
@@ -522,8 +539,8 @@ def main() -> int:
                 bad.append(name)
         k2["max_abs_err"] = 0.0 if not bad else None
         emb = next(x for name, x, _ in cases if "leaf embed" in name)
-        k2["ms"] = cuda_ms(torch, lambda: quant.quantize_cuda(emb, group=group), 20)
-        k2["plain_ms"] = cuda_ms(torch, lambda: ref.quantize_ref(emb, group=group), 5)
+        k2["ms"] = cuda_ms(lambda: quant.quantize_cuda(emb, group=group), 20)
+        k2["plain_ms"] = cuda_ms(lambda: ref.quantize_ref(emb, group=group), 5)
         k2["bound_ms"], k2["bound_by"] = quantize_bound(emb.numel(), group, 4)
         print(f"  K2 at the embedding leaf ({emb.numel()} f32 values, group {group}): kernel "
               f"{k2['ms']:.4f} ms, plain {k2['plain_ms']:.4f} ms, library none, bound "
@@ -553,6 +570,10 @@ def main() -> int:
               f"peak memory {peak:.2f} GiB, launches {counts}")
         want = {key: cfg.n_layers if key == own else 0 for key in kernels}
         assert counts == want, f"{arch}: kernel launches {counts} in one request, want {want}"
+        if own == "k3":   # every prefill layer on the wgmma route
+            routes = dict(ssd.ssd_cuda.routes)
+            print(f"  K3 routes: {routes}")
+            assert routes == {"fma": 0, "wgmma": cfg.n_layers}, routes
         assert res.tokens.shape == (B, T) and bool(torch.isfinite(res.logits).all())
         assert int(res.tokens.min()) >= 0 and int(res.tokens.max()) < cfg.vocab
         lines = [json.loads(x) for x in res.log.decode().splitlines()]
@@ -575,6 +596,7 @@ def main() -> int:
                 params = model.init(gen)
                 toks = torch.randint(1, cfg.vocab - 1, (1, S), generator=gen, device=dev,
                                      dtype=torch.int32)
+                before = dict(ssd.ssd_cuda.routes)
                 full, _ = model.forward(params, {"tokens": toks})
                 if dtype == "float32" and arch in NOISE_HELD:
                     kernel_ssd, ops.ssd = ops.ssd, ref.ssd_ref
@@ -583,6 +605,13 @@ def main() -> int:
                     finally:
                         ops.ssd = kernel_ssd
                 _, cache = model.prefill(params, {"tokens": toks[:, :1]}, S + 2)
+                # K3 per layer for the forward and the one-token prefill
+                # (padded to 64 rows): the wgmma route in bf16, fma in f32
+                took = {r: k - before[r] for r, k in ssd.ssd_cuda.routes.items()}
+                want = dict.fromkeys(ssd.ROUTES, 0)
+                if ARCHS[arch] == "k3":
+                    want["wgmma" if dtype == "bfloat16" else "fma"] = 2 * cfg.n_layers
+                assert took == want, f"{dtype}: K3 routes {took}, want {want}"
                 outs = []
                 for t in range(1, S):
                     lg, cache = model.decode_step(params, cache, toks[:, t:t + 1])

@@ -1,8 +1,9 @@
-// Hopper (sm_90a) building blocks shared by the flash-attention kernels:
-// mbarriers, cp.async copies that report to an mbarrier, 128-byte-swizzled
-// shared tiles, wgmma descriptors and the wgmma m64nNk16 bf16 -> fp32
-// products (A from shared memory or from registers), register hand-over
-// between warpgroups (setmaxnreg) and named barriers.
+// Hopper (sm_90a) building blocks shared by the flash-attention and SSD
+// kernels: mbarriers, cp.async copies that report to an mbarrier or to
+// commit groups, 128-byte-swizzled shared tiles, wgmma descriptors and the
+// wgmma m64nNk16 bf16 -> fp32 products (A from shared memory or from
+// registers), register hand-over between warpgroups (setmaxnreg) and
+// named barriers.
 //
 // Shared tiles.  A tile of R rows of C bf16 (C a multiple of 64) is kept as
 // C / 64 column blocks of R rows x 128 bytes, each 1024-byte aligned; in a
@@ -93,6 +94,18 @@ __device__ __forceinline__ void cp_async_arrive(uint64_t* bar) {
 // Waits until all of this thread's cp.async copies have landed.
 __device__ __forceinline__ void cp_async_wait_all() {
   asm volatile("cp.async.wait_all;\n" ::: "memory");
+}
+
+// Closes a group of this thread's cp.async copies (cp_async_wait_group
+// counts groups).
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+
+// Waits until at most N of this thread's committed groups are in flight.
+template <int N>
+__device__ __forceinline__ void cp_async_wait_group() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
 }
 
 // Copies rows [row0, row0 + R) of a (S, D) bf16 slice (row stride rs, in

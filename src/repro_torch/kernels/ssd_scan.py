@@ -1,10 +1,12 @@
 """Mamba-2 SSD chunked scan (forward) as a hand-written CUDA kernel for Hopper.
 
-Port of ``repro.kernels.ssd_scan.ssd_pallas``; the kernel is
+Port of ``repro.kernels.ssd_scan.ssd_pallas``; the kernels are in
 ``repro_torch/csrc/ssd_scan.cu`` (design and bound in its header).
 ``repro_torch.kernels._build`` compiles it with ``nvcc`` for ``sm_90a`` into
 a shared library with a plain C interface at first use, under ``build/`` at
-the root of the checkout; it is called through ``ctypes``.
+the root of the checkout; it is called through ``ctypes``.  ``ssd_route``
+picks one of its two routes before launch: the chunk-parallel ``wgmma``
+kernels for the main path's bf16 case, the ``fma`` kernel for the rest.
 
 The plain version of the same function is
 ``repro_torch.kernels.ref.ssd_ref``; ``repro_torch.kernels.ops`` sends CPU
@@ -23,6 +25,25 @@ from repro_torch.kernels import _build
 SRC = _build.CSRC / "ssd_scan.cu"
 MAX_P, MAX_N, MAX_CHUNK = 64, 128, 1024
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
+ROUTES = ("fma", "wgmma")   # the C entry's route codes, in order
+
+
+def ssd_route(x, B, C, chunk: int) -> str:
+    """The route a call takes, from dtype, shape and layout alone: "wgmma"
+    for bfloat16 x/B/C with head dim p = 64, state n a multiple of 16 up to
+    128, a chunk that is a multiple of 64 (up to 1024) and a non-empty
+    sequence, where each of x, B, C has a contiguous last dim and a 16-byte
+    aligned start and other strides (the main path's views of one
+    projection do); "fma" for every other input the wrapper takes."""
+    n = B.shape[3]
+    if not (x.dtype == B.dtype == C.dtype == torch.bfloat16 and x.shape[3] == 64
+            and n % 16 == 0 and 16 <= n <= MAX_N and chunk % 64 == 0
+            and 0 < chunk <= MAX_CHUNK and x.shape[1] > 0):
+        return "fma"
+    for t in (x, B, C):
+        if t.stride(3) != 1 or t.data_ptr() % 16 or any(st % 8 for st in t.stride()[:3]):
+            return "fma"
+    return "wgmma"
 
 
 def build() -> Path:
@@ -32,11 +53,42 @@ def build() -> Path:
 
 @functools.lru_cache(maxsize=None)
 def _entry():
-    fn = ctypes.CDLL(str(build())).ssd_scan_fwd
-    fn.argtypes = ([ctypes.c_void_p] * 7 + [ctypes.c_int] * 8
+    return load(build())
+
+
+def load(lib: Path):
+    """The C entry point of a library built from ``ssd_scan.cu``."""
+    fn = ctypes.CDLL(str(lib)).ssd_scan_fwd
+    fn.argtypes = ([ctypes.c_void_p] * 8 + [ctypes.c_int] * 9
                    + [ctypes.c_longlong] * 19 + [ctypes.c_void_p])
     fn.restype = ctypes.c_int
     return fn
+
+
+def launch(entry, x, dt, A, B, C, chunk, stream):
+    """Run a library's C entry point (from ``load``) on inputs ``ssd_cuda``
+    has checked, on the stream handle ``stream``: allocates y, the final
+    state and the wgmma route's scratch beside x and returns (route, y,
+    state).  Raises if the entry reports an error.  Counts nothing."""
+    b, s, h, p = x.shape
+    g, n = B.shape[2], B.shape[3]
+    route = ssd_route(x, B, C, chunk)
+    y = torch.empty((b, s, h, p), dtype=x.dtype, device=x.device)
+    state = torch.empty((b, h, p, n), dtype=torch.float32, device=x.device)
+    if b * h == 0:
+        return route, y, state
+    scratch = None
+    if route == "wgmma":   # per (batch, head): each chunk's state and decay, cums and dt
+        scratch = torch.empty((b * h * ((s // chunk) * (p * n + 1) + 3 * s),),
+                              dtype=torch.float32, device=x.device)
+    err = entry(x.data_ptr(), dt.data_ptr(), A.data_ptr(), B.data_ptr(), C.data_ptr(),
+                y.data_ptr(), state.data_ptr(), None if scratch is None else scratch.data_ptr(),
+                ROUTES.index(route),
+                _DTYPE_CODE[x.dtype], b, s, h, p, g, n, chunk, *x.stride(), *dt.stride(),
+                A.stride(0), *B.stride(), *C.stride(), *y.stride()[:3], stream)
+    if err != 0:
+        raise RuntimeError(f"ssd_scan_fwd ({route} route) launch failed (CUDA error {err})")
+    return route, y, state
 
 
 def ssd_cuda(x, dt, A, B, C, *, chunk=256):
@@ -46,8 +98,9 @@ def ssd_cuda(x, dt, A, B, C, *, chunk=256):
     n <= 128, 1 <= chunk <= 1024.  Returns (y: (b, s, h, p) in x.dtype,
     final_state: (b, h, p, n) float32), the state starting at 0.
 
-    Adds one to ``ssd_cuda.launches`` per kernel launch.  Forward only:
-    inputs that require grad are refused."""
+    Adds one to ``ssd_cuda.launches`` per call, whatever number of CUDA
+    kernels its route runs, and one to ``ssd_cuda.routes[ssd_route(...)]``.
+    Forward only: inputs that require grad are refused."""
     b, s, h, p = x.shape
     g, n = B.shape[2], B.shape[3]
     if any(t.device != x.device for t in (dt, A, B, C)) or x.device.type != "cuda":
@@ -71,21 +124,13 @@ def ssd_cuda(x, dt, A, B, C, *, chunk=256):
     if any(t.requires_grad for t in (x, dt, A, B, C)):
         raise NotImplementedError("ssd_cuda is forward-only (the JAX package has no "
                                   "SSD backward kernel either)")
-    y = torch.empty((b, s, h, p), dtype=x.dtype, device=x.device)
-    state = torch.empty((b, h, p, n), dtype=torch.float32, device=x.device)
-    if b * h == 0:
-        return y, state
     with torch.cuda.device(x.device):
-        err = _entry()(
-            x.data_ptr(), dt.data_ptr(), A.data_ptr(), B.data_ptr(), C.data_ptr(),
-            y.data_ptr(), state.data_ptr(), _DTYPE_CODE[x.dtype],
-            b, s, h, p, g, n, chunk, *x.stride(), *dt.stride(), A.stride(0),
-            *B.stride(), *C.stride(), *y.stride()[:3],
-            torch.cuda.current_stream(x.device).cuda_stream)
-    if err != 0:
-        raise RuntimeError(f"ssd_scan_fwd launch failed (CUDA error {err})")
+        route, y, state = launch(_entry(), x, dt, A, B, C, chunk,
+                                 torch.cuda.current_stream(x.device).cuda_stream)
     ssd_cuda.launches += 1
+    ssd_cuda.routes[route] += 1
     return y, state
 
 
 ssd_cuda.launches = 0
+ssd_cuda.routes = dict.fromkeys(ROUTES, 0)

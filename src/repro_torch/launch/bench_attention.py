@@ -33,8 +33,9 @@ from repro_torch.kernels import flash_attention as fa
 SHAPES = [(4, 2048, 32, 8, 64), (2, 2048, 16, 4, 128)]
 
 
-def _ms(fn, reps=20):
-    for _ in range(3):
+def cuda_ms(fn, reps=20, warmup=2):
+    """Mean device time (ms) of ``fn`` over ``reps`` back-to-back calls."""
+    for _ in range(warmup):
         fn()
     torch.cuda.synchronize()
     start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
@@ -46,10 +47,12 @@ def _ms(fn, reps=20):
     return start.elapsed_time(end) / reps
 
 
-def _in_turns(fns):
+def in_turns(fns, reps=20):
+    """{name: [first, second]} mean ms of each named function, timed in the
+    order a, b, ..., ..., b, a."""
     times = {name: [] for name, _ in fns}
     for name, fn in fns + fns[::-1]:
-        times[name].append(round(_ms(fn), 4))
+        times[name].append(cuda_ms(fn, reps))
     return times
 
 
@@ -98,7 +101,7 @@ def main(argv=None):
                   for t in (k, v))
         sdpa = lambda: F.scaled_dot_product_attention(qt, kt, vt, is_causal=True)  # noqa: E731
         with torch.no_grad():
-            times = _in_turns(list(fwd.items()) + [("sdpa", sdpa)])
+            times = in_turns(list(fwd.items()) + [("sdpa", sdpa)])
         print(json.dumps({"shape": [B, S, H, KV, D], "direction": "forward", "ms": times}))
         o, lse = fa.flash_attention_cuda(q, k, v, causal=True, return_lse=True)
         bwd = [(name, _with("_bwd_entry", entry, lambda: fa.flash_attention_bwd_cuda(
@@ -107,7 +110,7 @@ def main(argv=None):
         bwd.append(("sdpa backward",
                     lambda: torch.autograd.grad(out, (qt, kt, vt), dot, retain_graph=True)))
         print(json.dumps({"shape": [B, S, H, KV, D], "direction": "backward",
-                          "ms": _in_turns(bwd)}), flush=True)
+                          "ms": in_turns(bwd)}), flush=True)
 
 
 if __name__ == "__main__":

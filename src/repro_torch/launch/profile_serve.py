@@ -9,9 +9,11 @@ width (batch 4, prompt 2048, 32 new tokens, seed 0) with
 synchronised work, and one under ``torch.profiler`` for the device time by
 kernel.  For each it prints the warm prefill time, the decode time per
 step, the device-busy share of each (device kernel time over the timed
-run's wall time), the kernels that take the most device time and the
-hand-written kernels' launches per prefill, then one JSON line with those
-numbers and the card's name and power limit.  Needs a CUDA card.
+run's wall time), the kernels that take the most device time, the
+hand-written kernels' launches per prefill and, summed over the CUDA
+kernels each of them runs (``OWN``), their device time per prefill and
+share of the prefill's device time, then one JSON line with those numbers
+and the card's name and power limit.  Needs a CUDA card.
 """
 from __future__ import annotations
 
@@ -31,6 +33,8 @@ from repro_torch.models.registry import build
 ARCHS = ("llama3.2-1b", "mamba2-780m")
 B, P, T, SEED = 4, 2048, 32, 0   # the slices' serving shape
 KERNELS = {"k1": flash_attention_cuda, "k3": ssd_cuda}
+# device-kernel names of the hand-written kernels (substrings of the profiler's keys)
+OWN = {"k1": ("fa_fwd_",), "k3": ("ssd_fwd", "ssd_chunk_state", "ssd_carry", "ssd_chunk_out")}
 TOP = 12                         # kernels listed per phase
 
 
@@ -91,6 +95,14 @@ def profile_arch(arch: str, card: str):
         for key, ms in rows[:TOP]:
             print(f"  {ms / steps:9.3f} ms  {ms / dev_ms:6.1%}  {key[:100]}")
         result[f"{name}_top"] = [[key[:100], ms / steps] for key, ms in rows[:TOP]]
+        if name == "prefill":
+            for k, names in OWN.items():
+                ms = sum(v for key, v in rows if any(n in key for n in names))
+                result[f"{k}_ms_per_prefill"] = ms
+                result[f"{k}_share_of_prefill"] = ms / dev_ms
+                if ms:
+                    print(f"  {k}: {ms:.3f} ms per prefill over its CUDA kernels, "
+                          f"{ms / dev_ms:.1%} of the prefill's device time")
     result["decode_tokens_per_s"] = B * T / decode_s
     result["peak_memory_gib"] = torch.cuda.max_memory_allocated() / 2**30
     result["card"] = card

@@ -76,8 +76,11 @@ def ssm_forward(cfg: ModelConfig, p, x, *, return_state=False):
     # The JAX version's ssm_pad_heads_to and sharding constraints only steer
     # how heads are split across a mesh; on one device they change nothing
     # (and mamba2-780m's 48 heads are a multiple of 16 anyway).
-    # pad sequence to a chunk multiple: dt = 0 there leaves the state as it is
-    chunk = min(cfg.ssm_chunk, S)
+    # pad sequence to a chunk multiple: dt = 0 there leaves y and the state
+    # as they are.  A prompt shorter than ssm_chunk gets one chunk rounded up
+    # to a multiple of 64, the kernel's wgmma tile, so that every bf16
+    # prefill takes that route (ops.ssd_route); the JAX version uses S.
+    chunk = min(cfg.ssm_chunk, -(-S // 64) * 64)
     pad = (-S) % chunk
     if pad:
         xs = F.pad(xs, (0, 0, 0, 0, 0, pad))

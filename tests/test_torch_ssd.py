@@ -1,8 +1,9 @@
 """K3, the SSD scan: the port's CPU path of ``ops.ssd`` against the Pallas
 kernel (interpret mode) and the JAX oracle over the sweep of
 ``tests/test_kernels.py``, the port's ``ssd_ref``/``ssd_decode_ref``
-against JAX's, and, on a CUDA card, the hand-written kernel against its
-plain version.
+against JAX's, the kernel's route choice and its wgmma route's precision
+plan emulated in plain torch, and, on a CUDA card, the hand-written kernel
+against its plain version on the route each case names.
 
 Tolerances: 2e-3 for float32 y and state, as the JAX suite holds K3
 (``tests/test_kernels.py:49-50``); 2e-2 for y from bfloat16 x/B/C (one
@@ -20,7 +21,7 @@ import torch
 
 from repro_torch.kernels import ops
 from repro_torch.kernels import ref as tref
-from repro_torch.kernels.ssd_scan import ssd_cuda
+from repro_torch.kernels.ssd_scan import ssd_cuda, ssd_route
 
 SWEEP = [
     (1, 32, 2, 8, 1, 8, 8),
@@ -159,6 +160,115 @@ def test_wrapper_refuses_cpu_tensors():
         ssd_cuda(*_torch(_inputs(1, 32, 2, 8, 1, 8)), chunk=8)
 
 
+def _projection_views(b, s, h, p, g, n, dtype=torch.bfloat16, offset=0, device="cpu"):
+    """x, B and C as ``ssm_forward`` hands them over: views of one
+    (b, s, offset + h p + 2 g n) projection row (3328 wide for mamba2-780m),
+    starting ``offset`` elements in."""
+    rng = np.random.default_rng(6)
+    width = offset + h * p + 2 * g * n
+    xbc = torch.from_numpy(rng.normal(size=(b, s, width)).astype(np.float32)).to(device, dtype)
+    x = xbc[..., offset:offset + h * p].reshape(b, s, h, p)
+    B = xbc[..., offset + h * p:offset + h * p + g * n].reshape(b, s, g, n)
+    C = xbc[..., offset + h * p + g * n:].reshape(b, s, g, n)
+    return x, B, C
+
+
+def _contiguous(b, s, h, p, g, n, dtype=torch.bfloat16):
+    return (torch.zeros((b, s, h, p), dtype=dtype), torch.zeros((b, s, g, n), dtype=dtype),
+            torch.zeros((b, s, g, n), dtype=dtype))
+
+
+ROUTE_CASES = [
+    ("views of one 3328-wide projection, chunk 64", lambda: _projection_views(1, 64, 48, 64, 1, 128), 64, "wgmma"),
+    ("views of one 3328-wide projection, chunk 256", lambda: _projection_views(1, 256, 48, 64, 1, 128), 256, "wgmma"),
+    ("contiguous, g=2, n=64", lambda: _contiguous(2, 128, 8, 64, 2, 64), 128, "wgmma"),
+    ("float32", lambda: _contiguous(1, 256, 4, 64, 1, 128, torch.float32), 256, "fma"),
+    ("chunk 1 (the one-token prefill)", lambda: _projection_views(1, 1, 48, 64, 1, 128), 1, "fma"),
+    ("chunk 100", lambda: _contiguous(1, 200, 4, 64, 1, 128), 100, "fma"),
+    ("p=24", lambda: _contiguous(1, 130, 3, 24, 3, 40, torch.bfloat16), 65, "fma"),
+    ("n=40", lambda: _contiguous(1, 128, 2, 64, 1, 40), 64, "fma"),
+    ("p=24 at chunk 64", lambda: _contiguous(1, 128, 3, 24, 1, 128), 64, "fma"),
+    ("rows not 16-byte aligned", lambda: _projection_views(1, 64, 4, 64, 1, 128, offset=4), 64, "fma"),
+    ("last dim strided", lambda: tuple(t.transpose(2, 3) for t in _contiguous(1, 64, 64, 2, 128, 1)), 64, "fma"),
+]
+
+
+@pytest.mark.parametrize("what,make,chunk,route", ROUTE_CASES, ids=[c[0] for c in ROUTE_CASES])
+def test_route_is_chosen_from_dtype_shape_and_layout(what, make, chunk, route):
+    """The wgmma route takes the main path's bf16 case, p = 64, n a multiple
+    of 16 up to 128, chunk a multiple of 64, read through its views as they
+    are; everything else keeps the fma kernel."""
+    x, B, C = make()
+    assert ssd_route(x, B, C, chunk) == route
+
+
+def test_bench_ssd_refuses_to_run_without_a_card(monkeypatch):
+    from repro_torch.launch import bench_ssd
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(SystemExit, match="CUDA card"):
+        bench_ssd.main([])
+
+
+def _terms(v, split):
+    """An fp32 operand as the wgmma route feeds it to the tensor cores: hi =
+    bf16(v) and lo = bf16(v - hi) (``split``), or hi alone."""
+    hi = v.to(torch.bfloat16).float()
+    return (hi, (v - hi).to(torch.bfloat16).float()) if split else (hi,)
+
+
+def _emulate_wgmma_route(x, dt, A, B, C, chunk, split):
+    """The wgmma route's arithmetic in plain torch: bf16 x/B/C exact, each
+    fp32 operand of a product as bf16 terms, every product summed in fp32;
+    the chunk states, the carry across chunks, then the outputs.  cums in
+    fp64 and L masked before the exp, per element, as the kernel does."""
+    b, s, h, p = x.shape
+    g, n = B.shape[2:]
+    nc, Q = s // chunk, chunk
+    xf = x.float().reshape(b, nc, Q, h, p)
+    Bf = B.float().repeat_interleave(h // g, dim=2).reshape(b, nc, Q, h, n)
+    Cf = C.float().repeat_interleave(h // g, dim=2).reshape(b, nc, Q, h, n)
+    dtc = dt.reshape(b, nc, Q, h)
+    cums = torch.cumsum((dt * A).double().reshape(b, nc, Q, h), dim=2)
+    total = cums[:, :, -1]                                              # (b, nc, h)
+    w = dtc * torch.exp((total[:, :, None] - cums).float())
+    U = sum(torch.einsum("bcjhp,bcjhn->bchpn", t, Bf) for t in _terms(xf * w[..., None], split))
+    S, prev = torch.zeros((b, h, p, n)), []
+    for c in range(nc):
+        prev.append(S)
+        S = S * torch.exp(total[:, c].float())[..., None, None] + U[:, c]
+    prev = torch.stack(prev, 1)                                         # (b, nc, h, p, n)
+    G = torch.einsum("bcihn,bcjhn->bchij", Cf, Bf)
+    diff = cums.permute(0, 1, 3, 2)[..., :, None] - cums.permute(0, 1, 3, 2)[..., None, :]
+    tri = torch.ones((Q, Q), dtype=torch.bool).tril()
+    L = torch.exp(diff.masked_fill(~tri, -float("inf")).float())
+    score = G * L * dtc.permute(0, 1, 3, 2)[..., None, :]
+    y = sum(torch.einsum("bchij,bcjhp->bcihp", t, xf) for t in _terms(score, split))
+    inter = sum(torch.einsum("bcihn,bchpn->bcihp", Cf, t) for t in _terms(prev, split))
+    y = y + inter * torch.exp(cums.float())[..., None]
+    return y.reshape(b, s, h, p).to(x.dtype), S
+
+
+def test_wgmma_precision_plan_holds_the_tolerances():
+    """Two bf16 terms per fp32 operand keep the wgmma route within the
+    tolerances of ``ssd_ref`` (y 2e-2, state 2e-3, both ·(1+|ref|)) at the
+    serving chunk, with fast-decaying heads (|cums| in the hundreds within
+    a chunk); one term each errs more, the state by about the tolerance."""
+    b, s, h, p, g, n, chunk = 1, 512, 2, 64, 1, 128, 256
+    x, dt, A, B, C = _torch(_inputs(b, s, h, p, g, n, seed=7), "bfloat16")
+    A = torch.tensor([-0.5, -8.0])                       # a slow and a fast head
+    wy, wst = tref.ssd_ref(x, dt, A, B, C, chunk=chunk)
+    assert float((dt * A).sum(1).min()) < -500           # the fast head's cums
+    errs = {}
+    for split in (True, False):
+        y, st = _emulate_wgmma_route(x, dt, A, B, C, chunk, split)
+        errs[split] = (float(((y.float() - wy.float()).abs() / (1 + wy.float().abs())).max()),
+                       float(((st - wst).abs() / (1 + wst.abs())).max()))
+    print(f"max |d|/(1+|ref|): two terms y {errs[True][0]:.3e} state {errs[True][1]:.3e}; "
+          f"one term y {errs[False][0]:.3e} state {errs[False][1]:.3e}")
+    assert errs[True][0] <= TOL["bfloat16"] and errs[True][1] <= TOL["float32"]
+    assert errs[False][1] > 10 * errs[True][1]
+
+
 # ----------------------------------------------------------- on the card
 
 CARD_CASES = [(*shape, dtype) for shape in SWEEP + [
@@ -170,17 +280,66 @@ CARD_CASES = [(*shape, dtype) for shape in SWEEP + [
 ] for dtype in ("float32", "bfloat16")]
 
 
+def _want_route(p, n, chunk, dtype):
+    """The route each card case must take (``ssd_route``'s rule, restated)."""
+    return "wgmma" if dtype == "bfloat16" and p == 64 and n % 16 == 0 and chunk % 64 == 0 else "fma"
+
+
+def _run_on_route(route, *args, chunk):
+    """ssd_cuda, checking that it took ``route`` with one launch."""
+    before, on_route = ssd_cuda.launches, ssd_cuda.routes[route]
+    y, st = ssd_cuda(*args, chunk=chunk)
+    torch.cuda.synchronize()
+    assert ssd_cuda.launches == before + 1 and ssd_cuda.routes[route] == on_route + 1
+    return y, st
+
+
 @pytest.mark.parametrize("b,s,h,p,g,n,chunk,dtype", CARD_CASES)
 def test_kernel_matches_plain_on_card(cuda, b, s, h, p, g, n, chunk, dtype):
     x, dt, A, B, C = _torch(_inputs(b, s, h, p, g, n), dtype, cuda)
-    before = ssd_cuda.launches
-    y, st = ssd_cuda(x, dt, A, B, C, chunk=chunk)
-    torch.cuda.synchronize()
-    assert ssd_cuda.launches == before + 1
+    y, st = _run_on_route(_want_route(p, n, chunk, dtype), x, dt, A, B, C, chunk=chunk)
     wy, wst = tref.ssd_ref(x, dt, A, B, C, chunk=chunk)
     assert y.dtype == x.dtype and bool(torch.isfinite(y.float()).all())
     _close(_f32(y), _f32(wy), TOL[dtype])
     _close(_f32(st), _f32(wst), TOL["float32"])
+
+
+# the wgmma route: the serving shape (mamba2-780m prefill, batch 4), two
+# groups of four heads, and fast-decaying heads at the serving chunk
+WGMMA_CASES = [(4, 2048, 48, 64, 1, 128, 256, 1.0), (2, 512, 8, 64, 2, 128, 256, 1.0),
+               (1, 1024, 4, 64, 1, 64, 128, 16.0)]
+
+
+@pytest.mark.parametrize("b,s,h,p,g,n,chunk,decay", WGMMA_CASES)
+def test_wgmma_route_matches_plain_on_card(cuda, b, s, h, p, g, n, chunk, decay):
+    x, dt, A, B, C = _torch(_inputs(b, s, h, p, g, n, seed=8), "bfloat16", cuda)
+    A = A * decay
+    y, st = _run_on_route("wgmma", x, dt, A, B, C, chunk=chunk)
+    wy, wst = tref.ssd_ref(x, dt, A, B, C, chunk=chunk)
+    assert bool(torch.isfinite(y.float()).all())
+    _close(_f32(y), _f32(wy), TOL["bfloat16"])
+    _close(_f32(st), _f32(wst), TOL["float32"])
+
+
+def test_wgmma_route_reads_projection_views_on_card(cuda):
+    """Full-width x, B and C as views of one (b, s, 3328) projection, as
+    mamba2-780m's ``ssm_forward`` hands them over, at chunk 256: read in
+    place, no copy."""
+    b, s, h, p, g, n = 2, 512, 48, 64, 1, 128
+    x, B, C = _projection_views(b, s, h, p, g, n, device=cuda)
+    assert x.stride(1) == B.stride(1) == C.stride(1) == 3328
+    _, dt, A, _, _ = _torch(_inputs(b, s, h, p, g, n), "float32", cuda)
+    y, st = _run_on_route("wgmma", x, dt, A, B, C, chunk=256)
+    wy, wst = tref.ssd_ref(x, dt, A, B, C, chunk=256)
+    _close(_f32(y), _f32(wy), TOL["bfloat16"])
+    _close(_f32(st), _f32(wst), TOL["float32"])
+
+
+def test_wgmma_route_is_deterministic_on_card(cuda):
+    """No atomics on the wgmma route: two runs give the same bits."""
+    x, dt, A, B, C = _torch(_inputs(2, 1024, 8, 64, 1, 128, seed=9), "bfloat16", cuda)
+    (y1, s1), (y2, s2) = (_run_on_route("wgmma", x, dt, A, B, C, chunk=256) for _ in range(2))
+    assert torch.equal(y1, y2) and torch.equal(s1, s2)
 
 
 def test_kernel_reads_strided_views_on_card(cuda):
@@ -192,7 +351,7 @@ def test_kernel_reads_strided_views_on_card(cuda):
     B = xbc[..., h * p:h * p + n].reshape(b, s, 1, n)
     C = xbc[..., h * p + n:].reshape(b, s, 1, n)
     _, dt, A, _, _ = _torch(_inputs(b, s, h, p, 1, n), "float32", cuda)
-    y, st = ssd_cuda(x, dt, A, B, C, chunk=16)
+    y, st = _run_on_route("fma", x, dt, A, B, C, chunk=16)
     wy, wst = tref.ssd_ref(x, dt, A, B, C, chunk=16)
     _close(_f32(y), _f32(wy), TOL["float32"])
     _close(_f32(st), _f32(wst), TOL["float32"])

@@ -14,8 +14,10 @@ import torch
 
 from repro.configs.registry import get_smoke as jax_smoke
 from repro.models import ssm as jssm
-from repro_torch.configs.registry import get_smoke
+from repro_torch.configs.registry import get_config, get_smoke
 from repro_torch.convert import params_from_numpy
+from repro_torch.kernels import ops, ref
+from repro_torch.kernels.ssd_scan import ssd_route
 from repro_torch.models import ssm as tssm
 
 ARCH = "mamba2-780m"
@@ -75,6 +77,27 @@ def test_ssm_forward_with_state_matches_jax(np_params, S):
     _close(conv, wconv)
     plain = tssm.ssm_forward(tc, params_from_numpy(np_params, "cpu"), torch.from_numpy(x))
     assert torch.equal(plain, got)
+
+
+@pytest.mark.parametrize("S", [1, 100, 200, 300, 2048])
+def test_bf16_prefill_reaches_the_wgmma_route(monkeypatch, S):
+    """At mamba2-780m's scan widths (p 64, n 128, ssm_chunk 256; d_model cut
+    to 64, so 2 heads), ssm_forward pads a ragged or short prompt to a chunk
+    that is a multiple of 64: every bf16 prefill the kernel sees takes its
+    wgmma route, reading the projection's views in place when nothing is
+    padded."""
+    cfg = dataclasses.replace(get_config(ARCH), d_model=64, compute_dtype="bfloat16")
+    params = tssm.ssm_init(cfg, torch.Generator("cpu").manual_seed(0))
+    seen = []
+
+    def spy(x, dt, A, B, C, *, chunk):
+        seen.append((ssd_route(x, B, C, chunk), x.shape[1] % chunk, x.is_contiguous()))
+        return ref.ssd_ref(x, dt, A, B, C, chunk=chunk)
+
+    monkeypatch.setattr(ops, "ssd", spy)
+    out = tssm.ssm_forward(cfg, params, torch.from_numpy(_x(1, S, cfg.d_model)).bfloat16())
+    assert out.shape == (1, S, cfg.d_model) and bool(out.float().isfinite().all())
+    assert seen == [("wgmma", 0, S % 256 != 0)]
 
 
 def test_ssm_decode_matches_jax(np_params):
