@@ -10,29 +10,37 @@ Phases, each of which must pass:
   2. kernels each kernel (K1 flash attention and its backward, K2 int8
              quantize, K3 SSD scan) against its plain PyTorch version on the
              card, on the sweep of the CPU tests, at every shape the later
-             phases drive it at and, for K1, at bf16 head dim 128, with its
-             time at its main path's shape beside the plain version's, a
+             phases drive it at and, for K1, at bf16 head dim 128 and at
+             MLA's q/k head dim 96 with v head dim 64 (SMOKE: 24 and 16),
+             with its time at its main path's shape beside the plain version's, a
              library call's (where one PyTorch call computes the same) and
              the card's bound; two K1 backward runs must agree (dq adds with
-             atomics); each K3 case names the route it must take (wgmma or
-             fma) and is checked to have taken it; K1's times and the
-             library's, and K3's and its plain version's, are taken in turns,
-             with those of an earlier commit's K1 and K3 sources when they
-             are copied into build/parent/;
-  3. serve   llama3.2-1b, then mamba2-780m, at full width (batch 4, prompt
-             2048, 32 new tokens) through ``repro_torch.launch.serve.main``,
-             with the kernels' launch counts set to 0 just before and read
+             atomics); each K1 and K3 case names the route it must take and
+             is checked to have taken it; K1's times and the library's
+             (at llama's and at minicpm3's prefill), and K3's and its plain
+             version's, are taken in turns, with those of an earlier
+             commit's K1 and K3 sources when they are copied into
+             build/parent/ (an older K1, whose C interface has no Dv, is
+             timed at llama's shape only);
+  3. serve   llama3.2-1b, mamba2-780m, then minicpm3-4b, at full width
+             (batch 4, prompt 2048, 32 new tokens) through
+             ``repro_torch.launch.serve.main``, with the kernels' launch
+             counts (and K1's and K3's routes) set to 0 just before and read
              just after each run, and the request log read back through the
              port's NVCacheFS;
   4. decode  teacher-forced decode against the full-sequence forward at full
-             width, for each model, in float32 and in bfloat16;
+             width, for each model, in float32 and in bfloat16 (MLA: the
+             absorbed latent decode against the expanded forward);
   5. train   llama3.2-1b at full width (batch 4 x 2048, bf16 compute, f32
              parameters, AdamW, int8-compressed gradients) for a few steps
              through ``init_train_state``/``make_train_step``, with exact
-             launch counts per step and a falling loss; then the training
-             loop at SMOKE size through ``repro_torch.launch.train.main``,
-             and a crash, NVMM-log recovery and resume that lands on the
-             exact step.
+             launch counts per step and a falling loss; minicpm3-4b at SMOKE
+             size: its loss and gradients on the card against the CPU route
+             from the same parameters, then one step and the launcher's
+             loop with exact launch counts; then the training loop at
+             SMOKE size through
+             ``repro_torch.launch.train.main``, and a crash, NVMM-log
+             recovery and resume that lands on the exact step.
 Prints a ``{"kernels": [...]}`` line, the card's name and power limit, and,
 last, ``{"ok": true, "device": {...}}``.  Exits non-zero, printing no
 result, when there is no CUDA card or a phase fails.
@@ -52,23 +60,37 @@ from pathlib import Path
 PEAK_BF16_FLOPS = 989e12      # H100 SXM dense bf16 tensor-core peak
 PEAK_F32_FLOPS = 67e12        # H100 SXM fp32 on the CUDA cores
 PEAK_BYTES = 3.35e12          # H100 SXM HBM3
-ARCHS = {"llama3.2-1b": "k1", "mamba2-780m": "k3"}   # each model's serving kernel
-SLICE = dict(B=4, Sq=2048, Skv=2048, H=32, KV=8, D=64)   # llama3.2-1b prefill, batch 4
-SWEEP = [(B, Sq, Skv, H, KV, D, dtype, causal, window)
+ARCHS = {"llama3.2-1b": "k1", "mamba2-780m": "k3", "minicpm3-4b": "k1"}   # serving kernels
+# K1 cases: (B, Sq, Skv, H, KV, D, Dv, dtype, causal, window), D of q/k, Dv of v
+SLICE = dict(B=4, Sq=2048, Skv=2048, H=32, KV=8, D=64, Dv=64)   # llama3.2-1b prefill, batch 4
+MASKS = [(True, None), (False, None), (True, 24)]
+SWEEP = [(B, Sq, Skv, H, KV, D, D, dtype, causal, window)
          for B, Sq, Skv, H, KV, D in [(1, 32, 32, 2, 2, 16), (2, 64, 64, 4, 2, 32),
                                       (1, 48, 96, 4, 1, 64)]
          for dtype in ("float32", "bfloat16")
-         for causal, window in [(True, None), (False, None), (True, 24)]]
+         for causal, window in MASKS]
 # the shapes the phases below drive K1 at: serve's prefill, then the decode
 # phase's forward over 64 tokens and its prefill of one token, in both dtypes
 MODEL_CASES = [(*SLICE.values(), "bfloat16", True, None)] + [
-    (1, S, S, 32, 8, 64, dtype, True, None)
+    (1, S, S, 32, 8, 64, 64, dtype, True, None)
     for S in (64, 1) for dtype in ("float32", "bfloat16")]
 TOL = {"float32": 1e-4, "bfloat16": 2e-2}
 # the bf16 wgmma kernels' other head dim, forward and backward: several full
 # 128-row tiles, and a window
-D128_CASES = [(2, 2048, 2048, 16, 4, 128, "bfloat16", True, None),
-              (2, 200, 200, 8, 2, 128, "bfloat16", True, 24)]
+D128_CASES = [(2, 2048, 2048, 16, 4, 128, 128, "bfloat16", True, None),
+              (2, 200, 200, 8, 2, 128, 128, "bfloat16", True, 24)]
+# MLA (minicpm3-4b): q/k head dim 96 (nope 64 + rope 32) with v head dim 64,
+# all 40 heads their own kv head.  Serve's prefill, the decode phase's
+# forward over 64 tokens and its one-token prefill in both dtypes, then
+# SMOKE's 24 / 16 in both dtypes and every mask, MQA with Skv != Sq among them
+MLA = dict(B=4, Sq=2048, Skv=2048, H=40, KV=40, D=96, Dv=64)   # minicpm3-4b prefill, batch 4
+MLA_CASES = [(*MLA.values(), "bfloat16", True, None)] + [
+    (1, S, S, 40, 40, 96, 64, dtype, True, None)
+    for S in (64, 1) for dtype in ("float32", "bfloat16")] + [
+    (B, Sq, Skv, H, KV, 24, 16, dtype, causal, window)
+    for B, Sq, Skv, H, KV in [(2, 64, 64, 4, 4), (1, 48, 96, 4, 1)]
+    for dtype in ("float32", "bfloat16")
+    for causal, window in MASKS]
 # The attention sources of an earlier commit, when they are stashed here
 # (build/ is not committed): phase 2 then times them beside the kernels of
 # this tree and the library call, in turns, in this one process.
@@ -79,10 +101,20 @@ PARENT_DIR = Path(__file__).resolve().parent / "build" / "parent"
 BWD_TOL = {"float32": 1e-4, "bfloat16": 2e-2}
 # the shapes the train phases drive the backward at: the full-width step
 # and the SMOKE loop (batch 2, seq 64, 4 heads on 2 kv heads of 16)
-TRAIN = dict(B=4, Sq=2048, Skv=2048, H=32, KV=8, D=64)
+TRAIN = dict(B=4, Sq=2048, Skv=2048, H=32, KV=8, D=64, Dv=64)
 BWD_CASES = [(*TRAIN.values(), "bfloat16", True, None),
-             (2, 64, 64, 4, 2, 16, "bfloat16", True, None),
-             (2, 32, 32, 4, 2, 16, "bfloat16", True, None)]
+             (2, 64, 64, 4, 2, 16, 16, "bfloat16", True, None),
+             (2, 32, 32, 4, 2, 16, 16, "bfloat16", True, None)]
+# the backward at minicpm3's full shape (timed, and run twice), and at the
+# SMOKE step of phase 5 (batch 2, seq 32, 4 heads of 24 / 16)
+MLA_BWD_CASES = [(*MLA.values(), "bfloat16", True, None),
+                 (2, 32, 32, 4, 4, 24, 16, "bfloat16", True, None)]
+# phase 5's minicpm3 SMOKE step on the card against the CPU route, same
+# parameters and tokens: float32 sums in another order (the card's float32
+# products in full fp32); bfloat16 rounds P and dS in the kernels and the
+# activations at other places, as the CPU tests' bf16 bounds against JAX:
+# loss |d| <= tol, gradients |d| <= tol·(1+|ref|)
+STEP_TOL = {"float32": (1e-4, 1e-4), "bfloat16": (5e-3, 1e-2)}   # (loss, gradients)
 TRAIN_STEPS = 4
 # Adam's first steps move every weight by about lr, so a layer's output
 # moves by about lr * d_model: at d_model 2048, lr 1e-3 (SMOKE's, d_model 64)
@@ -117,7 +149,12 @@ def ssd_route_wanted(p, n, chunk, dtype):
 
 
 # max |logit| gap, 64 tokens: float32 sums in another order; bfloat16
-# re-rounding of the residual stream over the layers
+# re-rounding of the residual stream over the layers.  minicpm3-4b (62
+# layers) is held to the same rule: its absorbed decode reorders the bf16
+# products, and on the CPU at SMOKE widths and full depth its bf16 max gap
+# is 0.117 with the mean gap at its bf16 noise (so the noise rule below does
+# not fit it), its float32 gap 4.4e-6
+# (tests/test_torch_mla.py::test_mla_decode_gap_at_full_depth)
 DECODE_TOL = {"float32": 2e-3, "bfloat16": 0.25}
 # Random-weight mamba2 amplifies bfloat16 rounding with depth, in the JAX
 # model as in the port (tests/test_torch_lm.py::
@@ -142,12 +179,13 @@ def visible_pairs(Sq, Skv, causal, window):
     return pairs
 
 
-def attention_bound(B, Sq, Skv, H, KV, D, itemsize, causal, window, peak_flops):
+def attention_bound(B, Sq, Skv, H, KV, D, Dv, itemsize, causal, window, peak_flops):
     """Least time (ms) for one attention call: the larger of the operations
-    the visible (query, key) pairs need over the peak rate and the bytes of
-    q, k, v read once and o written once over the memory rate."""
-    flops = 4 * B * H * D * visible_pairs(Sq, Skv, causal, window)
-    nbytes = itemsize * (2 * B * Sq * H * D + 2 * B * Skv * KV * D)
+    the visible (query, key) pairs need (Q K^T over D, P V over Dv) over the
+    peak rate and the bytes of q, k (D), v and o (Dv) read once and written
+    once over the memory rate."""
+    flops = 2 * B * H * (D + Dv) * visible_pairs(Sq, Skv, causal, window)
+    nbytes = itemsize * (B * Sq * H * (D + Dv) + B * Skv * KV * (D + Dv))
     t_ops, t_bytes = flops / peak_flops * 1e3, nbytes / PEAK_BYTES * 1e3
     return (t_ops, "operations") if t_ops >= t_bytes else (t_bytes, "bytes")
 
@@ -167,14 +205,15 @@ def ssd_bound(b, s, h, p, g, n, chunk, itemsize, peak_flops):
     return (t_ops, "operations") if t_ops >= t_bytes else (t_bytes, "bytes")
 
 
-def attention_bwd_bound(B, Sq, Skv, H, KV, D, itemsize, causal, window, peak_flops):
-    """Least time (ms) for one attention backward: five products (S, dP,
-    dV, dQ, dK) of 2·D flops per visible pair, 2.5x the forward's, against
+def attention_bwd_bound(B, Sq, Skv, H, KV, D, Dv, itemsize, causal, window, peak_flops):
+    """Least time (ms) for one attention backward: five products per visible
+    pair, S, dQ, dK over D and dP, dV over Dv, 2·(3D + 2Dv) flops, against
     the bytes of q, k, v, o, dO and the float32 log-sum-exp read once and
     dq, dk, dv written once."""
-    flops = 10 * B * H * D * visible_pairs(Sq, Skv, causal, window)
-    # read q, o, dO and write dq: 4 (B, Sq, H, D); read k, v and write dk, dv
-    nbytes = itemsize * (4 * B * Sq * H * D + 4 * B * Skv * KV * D) + 4 * B * H * Sq
+    flops = 2 * B * H * (3 * D + 2 * Dv) * visible_pairs(Sq, Skv, causal, window)
+    # read q, dO, o and write dq: (B, Sq, H, D + 2 Dv + D); k, v, dk, dv likewise
+    nbytes = (itemsize * (2 * B * Sq * H * (D + Dv) + 2 * B * Skv * KV * (D + Dv))
+              + 4 * B * H * Sq)
     t_ops, t_bytes = flops / peak_flops * 1e3, nbytes / PEAK_BYTES * 1e3
     return (t_ops, "operations") if t_ops >= t_bytes else (t_bytes, "bytes")
 
@@ -208,6 +247,7 @@ def main() -> int:
 
     from repro_torch.checkpoint.manager import flatten
     from repro_torch.configs.registry import get_config, get_smoke
+    from repro_torch.convert import params_from_numpy, params_to_numpy
     from repro_torch.core import NVCache, Policy, recover
     from repro_torch.data.pipeline import SyntheticTokens
     from repro_torch.kernels import _build
@@ -219,7 +259,7 @@ def main() -> int:
     from repro_torch.launch import train as launch_train
     from repro_torch.launch.bench_attention import cuda_ms, in_turns
     from repro_torch.models.registry import build
-    from repro_torch.optim.adamw import AdamW
+    from repro_torch.optim.adamw import AdamW, tree_leaves
     from repro_torch.storage.fsapi import NVCacheFS
     from repro_torch.storage.tiers import DRAM, Tier
     from repro_torch.train import loop as train_loop
@@ -258,6 +298,8 @@ def main() -> int:
         for _, fn in kernels.values():
             fn.launches = 0
         ssd.ssd_cuda.routes = dict.fromkeys(ssd.ROUTES, 0)
+        fa.flash_attention_cuda.routes = dict.fromkeys(fa.ROUTES, 0)
+        fa.flash_attention_bwd_cuda.routes = dict.fromkeys(fa.ROUTES, 0)
 
     def read_counts(path):
         counts = {key: fn.launches for key, (_, fn) in kernels.items()}
@@ -291,6 +333,17 @@ def main() -> int:
                 setattr(fa, name, saved)
         return run
 
+    def load_parent(load, lib, src, dv_at):
+        """A stashed K1 library's entry point.  An older source takes one
+        head dim, without the Dv argument at position ``dv_at``: it is
+        called with that argument dropped (it runs only Dv == D)."""
+        entry = load(lib)
+        parent["k1_takes_dv"] = "int D, int Dv" in src.read_text()
+        if parent["k1_takes_dv"]:
+            return entry
+        entry.argtypes = entry.argtypes[:dv_at] + entry.argtypes[dv_at + 1:]
+        return lambda *args: entry(*args[:dv_at], *args[dv_at + 1:])
+
     # ---------------------------------------------------------------- build
     def build_kernels():
         t0 = time.perf_counter()
@@ -306,8 +359,9 @@ def main() -> int:
         with ThreadPoolExecutor(len(builders)) as pool:   # one nvcc per source, together
             libs = dict(zip(builders, pool.map(lambda build_one: build_one(), builders.values())))
         if "_entry" in stashed:
-            parent["_entry"] = fa.load_fwd(libs["_entry"])
-            parent["_bwd_entry"] = fa.load_bwd(libs["_bwd_entry"])
+            parent["_entry"] = load_parent(fa.load_fwd, libs["_entry"], stashed["_entry"], 12)
+            parent["_bwd_entry"] = load_parent(fa.load_bwd, libs["_bwd_entry"],
+                                               stashed["_bwd_entry"], 17)
         if "ssd" in stashed:
             parent["ssd"] = bench_ssd.runner(stashed["ssd"], libs["ssd"])
         if stashed:
@@ -328,52 +382,75 @@ def main() -> int:
         return 1
 
     # -------------------------------------------------------------- kernels
+    def attention_inputs(gen, B, Sq, Skv, H, KV, D, Dv, dtype):
+        dt = getattr(torch, dtype)
+        return tuple(torch.randn(shape, generator=gen, device=dev).to(dt)
+                     for shape in ((B, Sq, H, D), (B, Skv, KV, D), (B, Skv, KV, Dv)))
+
+    def sdpa_args(q, k, v):
+        """q, k, v as scaled_dot_product_attention takes them: (B, H, S, D),
+        the kv heads repeated to H."""
+        G = q.shape[2] // k.shape[2]
+        return (q.transpose(1, 2), k.repeat_interleave(G, dim=2).transpose(1, 2),
+                v.repeat_interleave(G, dim=2).transpose(1, 2))
+
+    def sdpa_backend(qt, kt, vt):
+        """The backend PyTorch's default dispatch of scaled_dot_product_attention
+        picks for these inputs (v's head dim may differ from q's)."""
+        from torch.nn.attention import SDPBackend
+        names = {getattr(SDPBackend, n).value: n for n in dir(SDPBackend) if n.isupper()}
+        return names.get(int(torch._fused_sdp_choice(qt, kt, vt, is_causal=True)), "unknown")
+
+    def time_forward(entry, shape, q, k, v):
+        """K1 and SDPA in turns (with the stashed earlier K1 when there is
+        one), the plain version and the bound, at ``shape``, into ``entry``."""
+        qt, kt, vt = sdpa_args(q, k, v)
+        fns = [("kernel", lambda: fa.flash_attention_cuda(q, k, v, causal=True)),
+               ("sdpa", lambda: F.scaled_dot_product_attention(qt, kt, vt, is_causal=True))]
+        earlier = "_entry" in parent and (parent["k1_takes_dv"] or shape["D"] == shape["Dv"])
+        if earlier:
+            fns.append(("earlier kernel", with_entry("_entry", parent["_entry"], fns[0][1])))
+        times = in_turns(fns, 20)
+        entry["ms"] = sum(times["kernel"]) / 2
+        entry["library_ms"] = sum(times["sdpa"]) / 2
+        entry["sdpa_backend"] = backend = sdpa_backend(qt, kt, vt)
+        if earlier:
+            entry["earlier_ms"] = sum(times["earlier kernel"]) / 2
+        entry["plain_ms"] = cuda_ms(lambda: ref.attention_ref(q, k, v, causal=True), 5)
+        entry["bound_ms"], entry["bound_by"] = attention_bound(
+            *shape.values(), 2, True, 0, PEAK_BF16_FLOPS)
+        print(f"  K1 at {shape} bf16 causal, in turns: "
+              + ", ".join(f"{name} {a:.4f}/{b:.4f} ms" for name, (a, b) in times.items())
+              + f" (SDPA backend {backend}); plain {entry['plain_ms']:.4f} ms, bound "
+              f"{entry['bound_ms']:.4f} ms ({entry['bound_by']})")
+
     def check_kernels():
         gen = torch.Generator(dev).manual_seed(0)
-        bad, errs = [], {}
-        for case in SWEEP + MODEL_CASES + D128_CASES:
-            B, Sq, Skv, H, KV, D, dtype, causal, window = case
-            dt = getattr(torch, dtype)
-            q = torch.randn((B, Sq, H, D), generator=gen, device=dev).to(dt)
-            k = torch.randn((B, Skv, KV, D), generator=gen, device=dev).to(dt)
-            v = torch.randn((B, Skv, KV, D), generator=gen, device=dev).to(dt)
+        bad, errs, slices = [], {}, {}
+        for case in SWEEP + MODEL_CASES + D128_CASES + MLA_CASES:
+            B, Sq, Skv, H, KV, D, Dv, dtype, causal, window = case
+            q, k, v = attention_inputs(gen, B, Sq, Skv, H, KV, D, Dv, dtype)
+            want_route = fa.route(q.dtype, D, Dv)
+            before = dict(fa.flash_attention_cuda.routes)
             got = fa.flash_attention_cuda(q, k, v, causal=causal, window=window)
+            took = [r for r, n in fa.flash_attention_cuda.routes.items() if n != before[r]]
             want = ref.attention_ref(q, k, v, causal=causal, window=window or 0)
             torch.cuda.synchronize()
             diff = (got.float() - want.float()).abs()
             errs[case] = float(diff.max())
-            ok = bool((diff <= TOL[dtype] * (1 + want.float().abs())).all())
-            print(f"  K1 B={B} Sq={Sq} Skv={Skv} H={H} KV={KV} D={D} {dtype} causal={causal} "
-                  f"window={window}: max_abs_err={errs[case]:.3e} tol={TOL[dtype]} "
-                  f"{'ok' if ok else 'MISMATCH'}")
+            ok = (bool((diff <= TOL[dtype] * (1 + want.float().abs())).all())
+                  and got.shape == (B, Sq, H, Dv) and took == [want_route])
+            print(f"  K1 B={B} Sq={Sq} Skv={Skv} H={H} KV={KV} D={D} Dv={Dv} {dtype} "
+                  f"causal={causal} window={window}: route {took} (want {want_route}), "
+                  f"max_abs_err={errs[case]:.3e} tol={TOL[dtype]} {'ok' if ok else 'MISMATCH'}")
             if not ok:
                 bad.append(case)
-            if case == MODEL_CASES[0]:
-                slice_qkv = q, k, v
-        k1["max_abs_err"] = errs[MODEL_CASES[0]]   # at the serving prefill shape
-        q, k, v = slice_qkv
-        scale = 1.0 / SLICE["D"] ** 0.5
-        G = SLICE["H"] // SLICE["KV"]
-        qt = q.transpose(1, 2)
-        kt = k.repeat_interleave(G, dim=2).transpose(1, 2)
-        vt = v.repeat_interleave(G, dim=2).transpose(1, 2)
-        fns = [("kernel", lambda: fa.flash_attention_cuda(q, k, v, causal=True)),
-               ("sdpa", lambda: F.scaled_dot_product_attention(qt, kt, vt, is_causal=True,
-                                                                scale=scale))]
-        if "_entry" in parent:
-            fns.append(("earlier kernel", with_entry("_entry", parent["_entry"], fns[0][1])))
-        times = in_turns(fns, 20)
-        k1["ms"] = sum(times["kernel"]) / 2
-        k1["library_ms"] = sum(times["sdpa"]) / 2
-        if "_entry" in parent:
-            k1["earlier_ms"] = sum(times["earlier kernel"]) / 2
-        k1["plain_ms"] = cuda_ms(lambda: ref.attention_ref(q, k, v, causal=True), 5)
-        k1["bound_ms"], k1["bound_by"] = attention_bound(
-            *SLICE.values(), 2, True, 0, PEAK_BF16_FLOPS)
-        print(f"  K1 at {SLICE} bf16 causal, in turns: "
-              + ", ".join(f"{name} {a:.4f}/{b:.4f} ms" for name, (a, b) in times.items())
-              + f"; plain {k1['plain_ms']:.4f} ms, bound {k1['bound_ms']:.4f} ms "
-              f"({k1['bound_by']})")
+            if case in (MODEL_CASES[0], MLA_CASES[0]):
+                slices[case] = q, k, v
+        k1["max_abs_err"] = errs[MODEL_CASES[0]]   # at llama's serving prefill shape
+        k1["mla"] = {"shape": MLA, "max_abs_err": errs[MLA_CASES[0]]}
+        time_forward(k1, SLICE, *slices[MODEL_CASES[0]])
+        time_forward(k1["mla"], MLA, *slices[MLA_CASES[0]])
         if bad:
             raise AssertionError(f"K1 disagrees with attention_ref in {bad}")
 
@@ -425,41 +502,11 @@ def main() -> int:
         if bad:
             raise AssertionError(f"K3 disagrees with ssd_ref in {bad}")
 
-    def check_attention_bwd():
-        gen = torch.Generator(dev).manual_seed(2)
-        bad, errs = [], {}
-        for case in SWEEP + BWD_CASES + D128_CASES:
-            B, Sq, Skv, H, KV, D, dtype, causal, window = case
-            dt = getattr(torch, dtype)
-            q, k, v, do = (torch.randn(shape, generator=gen, device=dev).to(dt)
-                           for shape in ((B, Sq, H, D), (B, Skv, KV, D), (B, Skv, KV, D),
-                                         (B, Sq, H, D)))
-            o, lse = fa.flash_attention_cuda(q, k, v, causal=causal, window=window,
-                                             return_lse=True)
-            got = fa.flash_attention_bwd_cuda(q, k, v, o, lse, do, causal=causal,
-                                              window=window)
-            leaves = [t.clone().requires_grad_() for t in (q, k, v)]
-            want = torch.autograd.grad(
-                ref.attention_ref(*leaves, causal=causal, window=window or 0), leaves, do)
-            torch.cuda.synchronize()
-            err, ok = 0.0, True
-            for g, w in zip(got, want):
-                diff = (g.float() - w.float()).abs()
-                err = max(err, float(diff.max()))
-                ok &= bool((diff <= BWD_TOL[dtype] * (1 + w.float().abs())).all())
-            errs[case] = err
-            print(f"  K1 bwd B={B} Sq={Sq} Skv={Skv} H={H} KV={KV} D={D} {dtype} "
-                  f"causal={causal} window={window}: max_abs_err dq/dk/dv {err:.3e} "
-                  f"tol {BWD_TOL[dtype]} {'ok' if ok else 'MISMATCH'}")
-            if not ok:
-                bad.append(case)
-            if case == BWD_CASES[0]:
-                train_args = q, k, v, o, lse, do
-            del want, leaves
-        k1b["max_abs_err"] = errs[BWD_CASES[0]]    # at the training shape
-        q, k, v, o, lse, do = train_args
-        # dq's atomics add in an order that changes from run to run: two runs
-        # agree within the bf16 tolerance
+    def time_backward(entry, shape, q, k, v, o, lse, do):
+        """Two K1 backward runs against each other (dq adds with atomics);
+        then the backward and SDPA's in turns (with the stashed earlier one
+        when there is one), the plain version and the bound, into ``entry``.
+        Returns whether the two runs agree."""
         runs = [fa.flash_attention_bwd_cuda(q, k, v, o, lse, do, causal=True) for _ in range(2)]
         torch.cuda.synchronize()
         gap = max(float((a.float() - b.float()).abs().max()) for a, b in zip(*runs))
@@ -467,42 +514,78 @@ def main() -> int:
                           <= BWD_TOL["bfloat16"] * (1 + b.float().abs())).all())
                     for a, b in zip(*runs))
         same = all(torch.equal(a, b) for a, b in zip(*runs))
-        print(f"  K1 bwd run twice at {TRAIN}: max |gap| {gap:.3e}, bitwise "
+        print(f"  K1 bwd run twice at {shape}: max |gap| {gap:.3e}, bitwise "
               f"{'equal' if same else 'different'}, tol {BWD_TOL['bfloat16']} "
               f"{'ok' if agree else 'MISMATCH'}")
-        if not agree:
-            bad.append("run twice")
         del runs
         leaves = [t.clone().requires_grad_() for t in (q, k, v)]
         out = ref.attention_ref(*leaves, causal=True)
-        k1b["plain_ms"] = cuda_ms(lambda: torch.autograd.grad(
+        entry["plain_ms"] = cuda_ms(lambda: torch.autograd.grad(
             out, leaves, do, retain_graph=True), 3, warmup=1)
-        del out
-        # SDPA over the kv heads repeated to H (as the forward's yardstick);
-        # only its backward is timed
-        G = TRAIN["H"] // TRAIN["KV"]
-        qt = q.transpose(1, 2).detach().requires_grad_()
-        kt, vt = (t.repeat_interleave(G, dim=2).transpose(1, 2).detach().requires_grad_()
-                  for t in (k, v))
+        del out, leaves
+        # SDPA over the kv heads repeated to H (as the forward's yardstick),
+        # as its default dispatch picks; only its backward is timed
+        qt, kt, vt = (t.detach().requires_grad_() for t in sdpa_args(q, k, v))
         sdpa = F.scaled_dot_product_attention(qt, kt, vt, is_causal=True)
         dot = do.transpose(1, 2)
         fns = [("kernel", lambda: fa.flash_attention_bwd_cuda(q, k, v, o, lse, do, causal=True)),
                ("sdpa backward", lambda: torch.autograd.grad(sdpa, (qt, kt, vt), dot,
                                                              retain_graph=True))]
-        if "_bwd_entry" in parent:
+        earlier = "_bwd_entry" in parent and (parent["k1_takes_dv"] or shape["D"] == shape["Dv"])
+        if earlier:
             fns.append(("earlier kernel", with_entry("_bwd_entry", parent["_bwd_entry"],
                                                      fns[0][1])))
         times = in_turns(fns, 20)
-        k1b["ms"] = sum(times["kernel"]) / 2
-        k1b["library_ms"] = sum(times["sdpa backward"]) / 2
-        if "_bwd_entry" in parent:
-            k1b["earlier_ms"] = sum(times["earlier kernel"]) / 2
-        k1b["bound_ms"], k1b["bound_by"] = attention_bwd_bound(
-            *TRAIN.values(), 2, True, 0, PEAK_BF16_FLOPS)
-        print(f"  K1 bwd at {TRAIN} bf16 causal, in turns: "
+        entry["ms"] = sum(times["kernel"]) / 2
+        entry["library_ms"] = sum(times["sdpa backward"]) / 2
+        entry["sdpa_backend"] = backend = sdpa_backend(qt, kt, vt)
+        if earlier:
+            entry["earlier_ms"] = sum(times["earlier kernel"]) / 2
+        entry["bound_ms"], entry["bound_by"] = attention_bwd_bound(
+            *shape.values(), 2, True, 0, PEAK_BF16_FLOPS)
+        print(f"  K1 bwd at {shape} bf16 causal, in turns: "
               + ", ".join(f"{name} {a:.4f}/{b:.4f} ms" for name, (a, b) in times.items())
-              + f"; plain {k1b['plain_ms']:.4f} ms, bound {k1b['bound_ms']:.4f} ms "
-              f"({k1b['bound_by']})")
+              + f" (SDPA backend {backend}); plain {entry['plain_ms']:.4f} ms, bound "
+              f"{entry['bound_ms']:.4f} ms ({entry['bound_by']})")
+        return agree
+
+    def check_attention_bwd():
+        gen = torch.Generator(dev).manual_seed(2)
+        bad, errs, timed = [], {}, {}
+        for case in SWEEP + BWD_CASES + D128_CASES + MLA_BWD_CASES + MLA_CASES[5:]:
+            B, Sq, Skv, H, KV, D, Dv, dtype, causal, window = case
+            q, k, v = attention_inputs(gen, B, Sq, Skv, H, KV, D, Dv, dtype)
+            do = torch.randn((B, Sq, H, Dv), generator=gen, device=dev).to(q.dtype)
+            o, lse = fa.flash_attention_cuda(q, k, v, causal=causal, window=window,
+                                             return_lse=True)
+            want_route = fa.route(q.dtype, D, Dv)
+            before = dict(fa.flash_attention_bwd_cuda.routes)
+            got = fa.flash_attention_bwd_cuda(q, k, v, o, lse, do, causal=causal,
+                                              window=window)
+            took = [r for r, n in fa.flash_attention_bwd_cuda.routes.items() if n != before[r]]
+            leaves = [t.clone().requires_grad_() for t in (q, k, v)]
+            want = torch.autograd.grad(
+                ref.attention_ref(*leaves, causal=causal, window=window or 0), leaves, do)
+            torch.cuda.synchronize()
+            err, ok = 0.0, took == [want_route]
+            for g, w in zip(got, want):
+                diff = (g.float() - w.float()).abs()
+                err = max(err, float(diff.max()))
+                ok &= g.shape == w.shape and bool((diff <= BWD_TOL[dtype] * (1 + w.float().abs())).all())
+            errs[case] = err
+            print(f"  K1 bwd B={B} Sq={Sq} Skv={Skv} H={H} KV={KV} D={D} Dv={Dv} {dtype} "
+                  f"causal={causal} window={window}: route {took} (want {want_route}), "
+                  f"max_abs_err dq/dk/dv {err:.3e} tol {BWD_TOL[dtype]} {'ok' if ok else 'MISMATCH'}")
+            if not ok:
+                bad.append(case)
+            if case in (BWD_CASES[0], MLA_BWD_CASES[0]):
+                timed[case] = q, k, v, o, lse, do
+            del want, leaves
+        k1b["max_abs_err"] = errs[BWD_CASES[0]]    # at llama's training shape
+        k1b["mla"] = {"shape": MLA, "max_abs_err": errs[MLA_BWD_CASES[0]]}
+        for entry, shape, case in ((k1b, TRAIN, BWD_CASES[0]), (k1b["mla"], MLA, MLA_BWD_CASES[0])):
+            if not time_backward(entry, shape, *timed.pop(case)):
+                bad.append(f"run twice at {shape}")
         if bad:
             raise AssertionError(f"K1 backward disagrees with autograd of attention_ref in {bad}")
 
@@ -570,10 +653,11 @@ def main() -> int:
               f"peak memory {peak:.2f} GiB, launches {counts}")
         want = {key: cfg.n_layers if key == own else 0 for key in kernels}
         assert counts == want, f"{arch}: kernel launches {counts} in one request, want {want}"
-        if own == "k3":   # every prefill layer on the wgmma route
-            routes = dict(ssd.ssd_cuda.routes)
-            print(f"  K3 routes: {routes}")
-            assert routes == {"fma": 0, "wgmma": cfg.n_layers}, routes
+        # every prefill layer on the wgmma route (K1: bf16 at head dims 64, or
+        # MLA's 96 and 64)
+        routes = dict((ssd.ssd_cuda if own == "k3" else fa.flash_attention_cuda).routes)
+        print(f"  {own.upper()} routes: {routes}")
+        assert routes == {**dict.fromkeys(routes, 0), "wgmma": cfg.n_layers}, routes
         assert res.tokens.shape == (B, T) and bool(torch.isfinite(res.logits).all())
         assert int(res.tokens.min()) >= 0 and int(res.tokens.max()) < cfg.vocab
         lines = [json.loads(x) for x in res.log.decode().splitlines()]
@@ -721,7 +805,73 @@ def main() -> int:
         assert len(hist1) == 17 and len(hist2) == 3 and pipe2.step == 20
         assert int(state2["opt"]["step"]) == 20 and state2["params"]["embed"].is_cuda
 
+    def train_mla_smoke():
+        """minicpm3-4b SMOKE (K1 and its backward at head dims 24 / 16): the
+        loss and every gradient on the card against the CPU route, from the
+        same parameters and tokens, in float32 and bfloat16; then one
+        optimizer step on the card with int8-compressed gradients."""
+        base = get_smoke("minicpm3-4b")
+        toks = torch.from_numpy(SyntheticTokens(base.vocab, 2, 32, seed=0).next()["tokens"])
+        cpu = torch.device("cpu")
+
+        def loss_and_grads(model, params, device):
+            leaves = list(tree_leaves(params))
+            for t in leaves:
+                t.requires_grad_(True)
+            loss, _ = model.loss(params, {"tokens": toks.to(device)})
+            grads = torch.autograd.grad(loss, leaves)
+            for t in leaves:
+                t.requires_grad_(False)
+            return float(loss), [g.float().cpu() for g in grads]
+
+        for dtype in ("float32", "bfloat16"):
+            cfg = dataclasses.replace(base, compute_dtype=dtype)
+            model = build(cfg)
+            np_params = params_to_numpy(model.init(torch.Generator(cpu).manual_seed(0)))
+            want_loss, want = loss_and_grads(model, params_from_numpy(np_params, cpu), cpu)
+            zero_counts()
+            loss, got = loss_and_grads(model, params_from_numpy(np_params, dev), dev)
+            counts = read_counts(f"train minicpm3-4b SMOKE {dtype}")
+            routes = dict(fa.flash_attention_cuda.routes), dict(fa.flash_attention_bwd_cuda.routes)
+            route = fa.route(cfg.cdt, cfg.head_dim, cfg.v_head_dim)
+            loss_tol, grad_tol = STEP_TOL[dtype]
+            err = max(float(((g - w).abs() / (1 + w.abs())).max()) for g, w in zip(got, want))
+            print(f"  minicpm3-4b SMOKE {dtype}: loss card {loss:.6f} cpu {want_loss:.6f} "
+                  f"(tol {loss_tol}), {len(got)} gradients max |d|/(1+|ref|) {err:.3e} "
+                  f"(tol {grad_tol}), launches {counts}, K1 routes {routes[0]} / {routes[1]}")
+            assert abs(loss - want_loss) <= loss_tol, (loss, want_loss)
+            assert len(got) == len(want) == 14 and err <= grad_tol, err
+            # K1 once per layer in the forward and once in the remat recompute
+            want_counts = {"k1": 2 * cfg.n_layers, "k1b": cfg.n_layers, "k2": 0, "k3": 0}
+            assert counts == want_counts, (counts, want_counts)
+            assert routes == tuple({**dict.fromkeys(fa.ROUTES, 0), route: n}
+                                   for n in (2 * cfg.n_layers, cfg.n_layers)), routes
+        opt = AdamW(lr=1e-3)
+        state = {"params": params_from_numpy(np_params, dev)}
+        state["opt"] = opt.init(state["params"])
+        zero_counts()
+        metrics = tsteps.make_train_step(model, opt, compress=True)(
+            state, {"tokens": toks.to(dev)})
+        counts = read_counts("train minicpm3-4b SMOKE")
+        want_counts = {"k1": 2 * base.n_layers, "k1b": base.n_layers, "k2": 14, "k3": 0}
+        print(f"  one bf16 step on the card, compressed gradients: loss "
+              f"{float(metrics['loss']):.6f}, launches {counts}")
+        assert counts == want_counts, (counts, want_counts)
+        assert math.isfinite(float(metrics["loss"]))
+        # the launcher itself, with checkpoints through NVCacheFS
+        steps = 6
+        zero_counts()
+        out = launch_train.main(["--arch", "minicpm3-4b", "--smoke", "--steps", str(steps),
+                                 "--ckpt-every", "5", "--compress-grads"])
+        counts = read_counts("train loop minicpm3-4b SMOKE")
+        want_counts = {key: steps * n for key, n in want_counts.items()}
+        print(f"  launch.train --arch minicpm3-4b --smoke: {out['steps']} steps, loss "
+              f"{out['first_loss']:.4f} -> {out['last_loss']:.4f}, launches {counts}")
+        assert counts == want_counts, (counts, want_counts)
+        assert out["steps"] == steps and math.isfinite(out["last_loss"])
+
     phase("train llama3.2-1b", train_full_width)
+    phase("train minicpm3-4b SMOKE", train_mla_smoke)
     phase("train loop SMOKE", train_loop_smoke)
 
     print(json.dumps({"kernels": [k1, k1b, k2, k3]}))

@@ -11,6 +11,7 @@ from repro_torch.models.common import ModelConfig
 ARCHS = {
     "llama3.2-1b": "llama3_2_1b",
     "mamba2-780m": "mamba2_780m",
+    "minicpm3-4b": "minicpm3_4b",
 }
 
 

@@ -45,7 +45,8 @@ def params_to_numpy(tree):
 
 def cache_from_numpy(cache, device="cuda"):
     """Decode cache from numpy arrays: ``pos`` and the stacked ``(L, ...)``
-    entries, ``k``/``v`` (dense) or ``ssm_state``/``conv_state`` (ssm)."""
+    entries, ``k``/``v`` (dense GQA), ``ckv``/``krope`` (MLA's latent) or
+    ``ssm_state``/``conv_state`` (ssm)."""
     return params_from_numpy(cache, device)
 
 

@@ -3,8 +3,10 @@
 // Replaces src/repro/kernels/flash_attention.py::flash_attention_pallas
 // (the Pallas TPU kernel K1): attention with an online softmax, causal,
 // sliding-window (key j visible to query i iff j > i - window) and key-
-// padding masks, GQA head h reading kv head h / (H / KV), running max,
-// denominator and accumulator in fp32, rows with no visible key giving 0.
+// padding masks, GQA head h reading kv head h / (H / KV), q and k of head
+// dim D and v and the output of their own head dim Dv (MLA: 96 and 64),
+// running max, denominator and accumulator in fp32, rows with no visible
+// key giving 0.
 //
 // Design.  On request (a non-null `lse`) the kernels also write each row's
 // log-sum-exp of the scaled scores, fp32 (B, H, Sq), for the backward
@@ -14,9 +16,13 @@
 // nothing is transposed on the host.  The loop over kv tiles inside a
 // block takes the place of the Pallas kernel's sequential ("arbitrary") kv
 // grid axis; it starts at the window's lower limit and stops at the causal
-// limit, so fully masked tiles cost nothing.  The entry point picks the
-// kernel statically by (dtype, D):
-//   * bf16, D in {64, 128}: fa_fwd_wgmma, for Hopper.  One block per
+// limit, so fully masked tiles cost nothing.  Each kernel is built for a
+// pair of widths (D, DV) and runs a head dim at the next width up, with
+// zero-filled columns (head_dims.cuh); every D, Dv <= 128 runs.  The entry
+// point picks the kernel statically by dtype and widths:
+//   * bf16, D or Dv above 32: fa_fwd_wgmma, for Hopper, at D in
+//     {64, 96, 128} and DV in {64, 128} (a narrower head dim rounds up to
+//     64).  One block per
 //     (batch * head, q tile): NWG consumer warpgroups of 64 q rows and a
 //     producer warpgroup that keeps a ring of 128-row K/V tiles filled
 //     with cp.async (128-byte-swizzled shared tiles, mbarrier completion),
@@ -27,19 +33,28 @@
 //     raw scores' running max with one FFMA and one ex2 an element, its
 //     row max and sum in independent chains, and only tiles that straddle
 //     the causal diagonal, the window's lower edge or the end of the keys
-//     evaluate the mask.  D 64: three consumer warpgroups (192 q rows, 152
+//     evaluate the mask.  DV 64: three consumer warpgroups (192 q rows, 152
 //     registers a thread after setmaxnreg, producer 40) and three stages;
-//     D 128: two (128 q rows, 232 registers) and two stages, whose 64 + 64
-//     accumulator registers do not fit 152.  Each kept 0 spills.
-//   * bf16, D in {16, 32}: fa_fwd_bf16, 4 warps of 16 q rows each in a
-//     64-row block, mma.sync m16n8k16, synchronous tile loads.
+//     DV 128: two (128 q rows, 232 registers) and two stages, whose 64 + 64
+//     accumulator registers do not fit 152.  D sets only the number of k16
+//     steps of Q K^T.  D 96 keeps Q and K as two 128-byte-swizzled column
+//     blocks, the second holding columns 64-95 in its first half: Q K^T
+//     issues 6 k16 steps, steps 4 and 5 at +0 and +32 bytes in block 1, and
+//     the second half is never read (the same descriptors as at D 128; a
+//     64-byte swizzle for the remainder would save 16 KB of Q and 16 KB a
+//     K stage, which the 227 KB fit without).  K and V stages differ in
+//     size when D != DV.
+//   * bf16, D and Dv at most 32: fa_fwd_bf16, 4 warps of 16 q rows each in
+//     a 64-row block, mma.sync m16n8k16, synchronous tile loads.
 //   * f32: fa_fwd_f32, 8 warps, 4 threads per q row, plain fp32 FMAs on
 //     the CUDA cores (full fp32, no TF32).
 //
 // What bounds it.  At the serving prefill shape (B=4, S=2048, H=32, KV=8,
 // D=64, bf16, causal) one call does 4*B*H*D*S*(S+1)/2 = 68.7 GFLOP and
 // moves 84 MB (q, k, v read once, o written once): compute-bound, ~69 us at
-// the H100's 989 TFLOP/s bf16 peak against ~25 us of memory traffic.  At
+// the H100's 989 TFLOP/s bf16 peak against ~25 us of memory traffic (at
+// minicpm3's prefill, H = KV = 40, D 96, Dv 64: 2·B·H·(D+Dv)·pairs = 107.4
+// GFLOP, ~109 us, against ~63 us of bytes).  At
 // D=64 the softmax's 16,384 ex2 per 128 x 128 tile take as long on the
 // SM's 16 special-function lanes as the tile's two products on the tensor
 // cores, so the softmax's instruction count and latency matter as much as
@@ -55,6 +70,7 @@
 #include <math.h>
 #include <stdint.h>
 
+#include "head_dims.cuh"
 #include "hopper.cuh"
 
 namespace {
@@ -69,6 +85,7 @@ struct Params {
   void* o;
   float* lse;  // (B, H, Sq) or null
   int Sq, Skv, H, G;
+  int D, Dv;  // the real head dims of q/k and of v/o (at most the kernel's widths)
   long long q_sb, q_ss, q_sh;
   long long k_sb, k_ss, k_sh;
   long long v_sb, v_ss, v_sh;
@@ -96,16 +113,17 @@ __device__ __forceinline__ bool visible(const Params& p, int i, int j) {
 
 // ------------------------------------------------------------------ f32
 
-template <int D>
+template <int D, int DV>
 __global__ void __launch_bounds__(256) fa_fwd_f32(Params p) {
   constexpr int LD = D + 1;        // padded row stride: no bank conflicts
+  constexpr int LDV = DV + 1;
   constexpr int LP = BLOCK_N + 1;
   constexpr int NT = 256;
   extern __shared__ float smem_f32[];
   float* Qs = smem_f32;            // BLOCK_M x LD
   float* Ks = Qs + BLOCK_M * LD;   // BLOCK_N x LD
-  float* Vs = Ks + BLOCK_N * LD;   // BLOCK_N x LD
-  float* Ps = Vs + BLOCK_N * LD;   // BLOCK_M x LP
+  float* Vs = Ks + BLOCK_N * LD;   // BLOCK_N x LDV
+  float* Ps = Vs + BLOCK_N * LDV;  // BLOCK_M x LP
 
   const int tid = threadIdx.x;
   const int bh = blockIdx.x;
@@ -117,16 +135,16 @@ __global__ void __launch_bounds__(256) fa_fwd_f32(Params p) {
 
   for (int idx = tid; idx < BLOCK_M * D; idx += NT) {
     const int r = idx / D, d = idx % D, i = q0 + r;
-    Qs[r * LD + d] = i < p.Sq ? q[i * p.q_ss + d] : 0.f;
+    Qs[r * LD + d] = i < p.Sq && d < p.D ? q[i * p.q_ss + d] : 0.f;
   }
 
   const int r = tid >> 2;   // the q row this thread owns
   const int qd = tid & 3;   // its quarter: score columns qd + 4c, output columns qd + 4c
   const int i = q0 + r;
   float m = -INFINITY, l = 0.f;
-  float acc[D / 4];
+  float acc[DV / 4];
 #pragma unroll
-  for (int c = 0; c < D / 4; ++c) acc[c] = 0.f;
+  for (int c = 0; c < DV / 4; ++c) acc[c] = 0.f;
 
   int lo, hi;
   kv_range(p, q0, lo, hi);
@@ -134,9 +152,11 @@ __global__ void __launch_bounds__(256) fa_fwd_f32(Params p) {
     __syncthreads();  // Qs written / previous tile fully read
     for (int idx = tid; idx < BLOCK_N * D; idx += NT) {
       const int c = idx / D, d = idx % D, j = k0 + c;
-      const bool ok = j < p.Skv;
-      Ks[c * LD + d] = ok ? k[j * p.k_ss + d] : 0.f;
-      Vs[c * LD + d] = ok ? v[j * p.v_ss + d] : 0.f;
+      Ks[c * LD + d] = j < p.Skv && d < p.D ? k[j * p.k_ss + d] : 0.f;
+    }
+    for (int idx = tid; idx < BLOCK_N * DV; idx += NT) {
+      const int c = idx / DV, d = idx % DV, j = k0 + c;
+      Vs[c * LDV + d] = j < p.Skv && d < p.Dv ? v[j * p.v_ss + d] : 0.f;
     }
     __syncthreads();
 
@@ -175,12 +195,12 @@ __global__ void __launch_bounds__(256) fa_fwd_f32(Params p) {
     __syncwarp();  // row r of Ps is written and read by the same 4 lanes
 
 #pragma unroll
-    for (int c = 0; c < D / 4; ++c) acc[c] *= alpha;
+    for (int c = 0; c < DV / 4; ++c) acc[c] *= alpha;
 #pragma unroll 4
     for (int c = 0; c < BLOCK_N; ++c) {
       const float pv = Ps[r * LP + c];
 #pragma unroll
-      for (int dd = 0; dd < D / 4; ++dd) acc[dd] += pv * Vs[c * LD + qd + 4 * dd];
+      for (int dd = 0; dd < DV / 4; ++dd) acc[dd] += pv * Vs[c * LDV + qd + 4 * dd];
     }
   }
 
@@ -188,7 +208,8 @@ __global__ void __launch_bounds__(256) fa_fwd_f32(Params p) {
     const float den = fmaxf(l, 1e-30f);
     float* o = static_cast<float*>(p.o) + b * p.o_sb + i * p.o_ss + h * p.o_sh;
 #pragma unroll
-    for (int dd = 0; dd < D / 4; ++dd) o[qd + 4 * dd] = acc[dd] / den;
+    for (int dd = 0; dd < DV / 4; ++dd)
+      if (qd + 4 * dd < p.Dv) o[qd + 4 * dd] = acc[dd] / den;
     if (p.lse != nullptr && qd == 0)
       p.lse[static_cast<long long>(bh) * p.Sq + i] = m == -INFINITY ? INFINITY : m + logf(l);
   }
@@ -221,30 +242,32 @@ __device__ __forceinline__ void mma_bf16(float (&c)[4], const uint32_t (&a)[4],
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
 }
 
-// Copy `rows` rows of D bf16 (16-byte chunks; the wrapper checks the
-// alignment) into a shared tile with row stride LD, zero past `limit`.
+// Copy 64 rows of D bf16 (16-byte chunks; the wrapper checks the
+// alignment) into a shared tile with row stride LD, zero past `limit` and
+// in the columns from `cols` (a multiple of 8) to D.
 template <int D, int LD, int NT>
 __device__ __forceinline__ void load_tile(__nv_bfloat16* dst, const __nv_bfloat16* src,
                                           long long row_stride, int row0, int limit,
-                                          int tid) {
+                                          int cols, int tid) {
   constexpr int CH = D / 8;
   for (int idx = tid; idx < BLOCK_N * CH; idx += NT) {
     const int r = idx / CH, c = idx % CH, row = row0 + r;
     uint4 val = make_uint4(0u, 0u, 0u, 0u);
-    if (row < limit) val = *reinterpret_cast<const uint4*>(src + row * row_stride + c * 8);
+    if (row < limit && c * 8 < cols) val = *reinterpret_cast<const uint4*>(src + row * row_stride + c * 8);
     *reinterpret_cast<uint4*>(dst + r * LD + c * 8) = val;
   }
 }
 
-template <int D>
+template <int D, int DV>
 __global__ void __launch_bounds__(128) fa_fwd_bf16(Params p) {
   static_assert(BLOCK_M == 64 && BLOCK_N == 64, "4 warps x 16 rows, 8 n-tiles");
   constexpr int LD = D + 8;  // 16-byte pad: rows stay 16-byte aligned, banks spread
+  constexpr int LDV = DV + 8;
   constexpr int NT = 128;
   extern __shared__ __align__(16) unsigned char smem_bf16[];
   __nv_bfloat16* Qs = reinterpret_cast<__nv_bfloat16*>(smem_bf16);
   __nv_bfloat16* Ks = Qs + BLOCK_M * LD;
-  __nv_bfloat16* Vs = Ks + BLOCK_N * LD;
+  __nv_bfloat16* Vs = Ks + BLOCK_N * LD;  // BLOCK_N x LDV
 
   const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
   const int g = lane >> 2, t = lane & 3;  // mma fragment row group / thread in group
@@ -255,7 +278,7 @@ __global__ void __launch_bounds__(128) fa_fwd_bf16(Params p) {
   const __nv_bfloat16* k = static_cast<const __nv_bfloat16*>(p.k) + b * p.k_sb + hk * p.k_sh;
   const __nv_bfloat16* v = static_cast<const __nv_bfloat16*>(p.v) + b * p.v_sb + hk * p.v_sh;
 
-  load_tile<D, LD, NT>(Qs, q, p.q_ss, q0, p.Sq, tid);
+  load_tile<D, LD, NT>(Qs, q, p.q_ss, q0, p.Sq, p.D, tid);
   __syncthreads();
 
   // this warp's 16 q rows as mma A fragments, kept in registers
@@ -271,9 +294,9 @@ __global__ void __launch_bounds__(128) fa_fwd_bf16(Params p) {
 
   const int i_row[2] = {q0 + qr, q0 + qr + 8};
   float m[2] = {-INFINITY, -INFINITY}, l[2] = {0.f, 0.f};
-  float acc[D / 8][4];
+  float acc[DV / 8][4];
 #pragma unroll
-  for (int dt = 0; dt < D / 8; ++dt)
+  for (int dt = 0; dt < DV / 8; ++dt)
 #pragma unroll
     for (int e = 0; e < 4; ++e) acc[dt][e] = 0.f;
 
@@ -281,8 +304,8 @@ __global__ void __launch_bounds__(128) fa_fwd_bf16(Params p) {
   kv_range(p, q0, lo, hi);
   for (int k0 = lo; k0 < hi; k0 += BLOCK_N) {
     __syncthreads();  // previous tile fully read
-    load_tile<D, LD, NT>(Ks, k, p.k_ss, k0, p.Skv, tid);
-    load_tile<D, LD, NT>(Vs, v, p.v_ss, k0, p.Skv, tid);
+    load_tile<D, LD, NT>(Ks, k, p.k_ss, k0, p.Skv, p.D, tid);
+    load_tile<DV, LDV, NT>(Vs, v, p.v_ss, k0, p.Skv, p.Dv, tid);
     __syncthreads();
 
     // S = Q K^T: 16 rows x 64 keys per warp, as 8 n-tiles of 8 keys
@@ -334,7 +357,7 @@ __global__ void __launch_bounds__(128) fa_fwd_bf16(Params p) {
       l[rr] = l[rr] * alpha[rr] + ls[rr];
     }
 #pragma unroll
-    for (int dt = 0; dt < D / 8; ++dt) {
+    for (int dt = 0; dt < DV / 8; ++dt) {
       acc[dt][0] *= alpha[0];
       acc[dt][1] *= alpha[0];
       acc[dt][2] *= alpha[1];
@@ -350,9 +373,9 @@ __global__ void __launch_bounds__(128) fa_fwd_bf16(Params p) {
                              pack_f32(s[2 * kk + 1][0], s[2 * kk + 1][1]),
                              pack_f32(s[2 * kk + 1][2], s[2 * kk + 1][3])};
 #pragma unroll
-      for (int dt = 0; dt < D / 8; ++dt) {
-        const __nv_bfloat16* vp = Vs + (kk * 16 + 2 * t) * LD + dt * 8 + g;
-        mma_bf16(acc[dt], a, pack_bf16(vp[0], vp[LD]), pack_bf16(vp[8 * LD], vp[9 * LD]));
+      for (int dt = 0; dt < DV / 8; ++dt) {
+        const __nv_bfloat16* vp = Vs + (kk * 16 + 2 * t) * LDV + dt * 8 + g;
+        mma_bf16(acc[dt], a, pack_bf16(vp[0], vp[LDV]), pack_bf16(vp[8 * LDV], vp[9 * LDV]));
       }
     }
   }
@@ -367,18 +390,19 @@ __global__ void __launch_bounds__(128) fa_fwd_bf16(Params p) {
           m[rr] == -INFINITY ? INFINITY : m[rr] + logf(l[rr]);
     __nv_bfloat16* orow = o + i_row[rr] * p.o_ss + 2 * t;
 #pragma unroll
-    for (int dt = 0; dt < D / 8; ++dt)
-      *reinterpret_cast<__nv_bfloat162*>(orow + dt * 8) =
-          __floats2bfloat162_rn(acc[dt][2 * rr] / den, acc[dt][2 * rr + 1] / den);
+    for (int dt = 0; dt < DV / 8; ++dt)
+      if (dt * 8 < p.Dv)
+        *reinterpret_cast<__nv_bfloat162*>(orow + dt * 8) =
+            __floats2bfloat162_rn(acc[dt][2 * rr] / den, acc[dt][2 * rr + 1] / den);
   }
 }
 
-// ------------------------------------------- bf16, D in {64, 128}: wgmma
+// --------------------------- bf16, D in {64, 96, 128}, DV in {64, 128}: wgmma
 
 // One block per (batch * head, 64 NWG-row q tile): NWG consumer warpgroups
 // of 64 q rows each and one producer warpgroup.  The producer copies Q once
-// and the K and V tiles of BN rows through a ring of STAGES stages in
-// shared memory (cp.async into 128-byte-swizzled tiles, completion
+// and the K (D wide) and V (DV wide) tiles of BN rows through a ring of
+// STAGES stages in shared memory (cp.async into 128-byte-swizzled tiles, completion
 // reported to a "full" mbarrier; the consumers release a stage through an
 // "empty" one), so the next tiles' copies overlap this tile's products.
 // Per tile each consumer warpgroup runs S = Q K^T (wgmma, both operands
@@ -389,11 +413,14 @@ __global__ void __launch_bounds__(128) fa_fwd_bf16(Params p) {
 // O += P V (wgmma, P from registers as bf16, V read MN-major).  The
 // threads start at 65,536 / (128 (NWG + 1)) registers each; setmaxnreg
 // moves registers from the producer (PROD) to the consumers (CONS).
-template <int D, int BN, int NWG, int STAGES>
+template <int D, int DV, int BN, int NWG, int STAGES>
 __global__ void __launch_bounds__(128 * (NWG + 1), 1) fa_fwd_wgmma(Params p) {
   using namespace hopper;
   constexpr int BM = 64 * NWG;
-  constexpr int Q_BYTES = BM * D * 2, KV_BYTES = BN * D * 2;
+  // 64-column blocks of Q/K (D 96 fills half of its second) and of V
+  constexpr int DB = (D + 63) / 64, DVB = DV / 64;
+  constexpr int Q_BYTES = BM * DB * 128, K_BYTES = BN * DB * 128, V_BYTES = BN * DVB * 128;
+  constexpr int STAGE_BYTES = K_BYTES + V_BYTES;
   // setmaxnreg.inc waits until the registers it asks for are free: NWG 128
   // (CONS - start) must fit in 128 (start - PROD) plus the SM's spare
   // (start 168 for NWG 2, 128 for NWG 3); 40 / 240 hung the card
@@ -402,8 +429,8 @@ __global__ void __launch_bounds__(128 * (NWG + 1), 1) fa_fwd_wgmma(Params p) {
   static_assert(NWG == 2 || NWG == 3, "two or three consumer warpgroups");
   extern __shared__ unsigned char smem_raw[];
   unsigned char* Qs = align1024(smem_raw);
-  unsigned char* KVs = Qs + Q_BYTES;  // stage s: K at 2s, V at 2s + 1
-  uint64_t* bars = reinterpret_cast<uint64_t*>(KVs + STAGES * 2 * KV_BYTES);
+  unsigned char* KVs = Qs + Q_BYTES;  // stage s: K at s STAGE_BYTES, V after it
+  uint64_t* bars = reinterpret_cast<uint64_t*>(KVs + STAGES * STAGE_BYTES);
   uint64_t* q_full = bars;
   uint64_t* full = bars + 1;
   uint64_t* empty = bars + 1 + STAGES;
@@ -432,14 +459,14 @@ __global__ void __launch_bounds__(128 * (NWG + 1), 1) fa_fwd_wgmma(Params p) {
     const __nv_bfloat16* q = static_cast<const __nv_bfloat16*>(p.q) + b * p.q_sb + h * p.q_sh;
     const __nv_bfloat16* k = static_cast<const __nv_bfloat16*>(p.k) + b * p.k_sb + hk * p.k_sh;
     const __nv_bfloat16* v = static_cast<const __nv_bfloat16*>(p.v) + b * p.v_sb + hk * p.v_sh;
-    copy_tile<BM, D>(Qs, q, p.q_ss, q0, p.Sq, pt);
+    copy_tile<BM, D>(Qs, q, p.q_ss, q0, p.Sq, p.D, pt);
     cp_async_arrive(q_full);
     for (int t = 0; t < n_tiles; ++t) {
       const int st = t % STAGES;
       if (t >= STAGES) mbar_wait(&empty[st], (t / STAGES - 1) & 1);
-      unsigned char* kd = KVs + (2 * st) * KV_BYTES;
-      copy_tile<BN, D>(kd, k, p.k_ss, lo + t * BN, p.Skv, pt);
-      copy_tile<BN, D>(kd + KV_BYTES, v, p.v_ss, lo + t * BN, p.Skv, pt);
+      unsigned char* kd = KVs + st * STAGE_BYTES;
+      copy_tile<BN, D>(kd, k, p.k_ss, lo + t * BN, p.Skv, p.D, pt);
+      copy_tile<BN, DV>(kd + K_BYTES, v, p.v_ss, lo + t * BN, p.Skv, p.Dv, pt);
       cp_async_arrive(&full[st]);
     }
     cp_async_wait_all();
@@ -450,17 +477,17 @@ __global__ void __launch_bounds__(128 * (NWG + 1), 1) fa_fwd_wgmma(Params p) {
     const int r0 = q0 + 64 * w;                          // this warpgroup's first row
     const int i_row[2] = {r0 + 16 * warp + g, r0 + 16 * warp + g + 8};
     const float scale2 = p.scale * LOG2E;
-    float o[D / 2];
+    float o[DV / 2];
 #pragma unroll
-    for (int e = 0; e < D / 2; ++e) o[e] = 0.f;
+    for (int e = 0; e < DV / 2; ++e) o[e] = 0.f;
     float m[2] = {-INFINITY, -INFINITY}, l[2] = {0.f, 0.f};  // m of the raw scores; l per thread
     const uint32_t q_addr = smem_u32(Qs) + w * 64 * 128;
 
     mbar_wait(q_full, 0);
     for (int t = 0; t < n_tiles; ++t) {
       const int st = t % STAGES, k0 = lo + t * BN;
-      const uint32_t k_addr = smem_u32(KVs + (2 * st) * KV_BYTES);
-      const uint32_t v_addr = k_addr + KV_BYTES;
+      const uint32_t k_addr = smem_u32(KVs + st * STAGE_BYTES);
+      const uint32_t v_addr = k_addr + K_BYTES;
       mbar_wait(&full[st], (t / STAGES) & 1);
       fence_proxy_async();
 
@@ -530,7 +557,7 @@ __global__ void __launch_bounds__(128 * (NWG + 1), 1) fa_fwd_wgmma(Params p) {
         l[rr] = l[rr] * alpha[rr] + ls[rr][0];
       }
 #pragma unroll
-      for (int e = 0; e < D / 2; ++e) o[e] *= alpha[(e >> 1) & 1];
+      for (int e = 0; e < DV / 2; ++e) o[e] *= alpha[(e >> 1) & 1];
 
       wgmma_fence();
 #pragma unroll
@@ -556,88 +583,93 @@ __global__ void __launch_bounds__(128 * (NWG + 1), 1) fa_fwd_wgmma(Params p) {
             m[rr] == -INFINITY ? INFINITY : m[rr] * p.scale + logf(l[rr]);
       __nv_bfloat16* orow = out + i * p.o_ss + 2 * qd;
 #pragma unroll
-      for (int j = 0; j < D / 8; ++j)
-        *reinterpret_cast<__nv_bfloat162*>(orow + 8 * j) =
-            __floats2bfloat162_rn(o[4 * j + 2 * rr] * inv, o[4 * j + 2 * rr + 1] * inv);
+      for (int j = 0; j < DV / 8; ++j)
+        if (8 * j < p.Dv)
+          *reinterpret_cast<__nv_bfloat162*>(orow + 8 * j) =
+              __floats2bfloat162_rn(o[4 * j + 2 * rr] * inv, o[4 * j + 2 * rr + 1] * inv);
     }
   }
 }
 
 // ---------------------------------------------------------------- launch
 
-template <int D>
+template <int D, int DV>
 cudaError_t launch_f32(const Params& p, dim3 grid, cudaStream_t stream) {
-  const int smem = (3 * 64 * (D + 1) + 64 * (BLOCK_N + 1)) * static_cast<int>(sizeof(float));
-  cudaError_t err = cudaFuncSetAttribute(fa_fwd_f32<D>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  const int smem = (64 * (2 * (D + 1) + DV + 1) + 64 * (BLOCK_N + 1)) * static_cast<int>(sizeof(float));
+  cudaError_t err = cudaFuncSetAttribute(fa_fwd_f32<D, DV>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (err != cudaSuccess) return err;
-  fa_fwd_f32<D><<<grid, 256, smem, stream>>>(p);
+  fa_fwd_f32<D, DV><<<grid, 256, smem, stream>>>(p);
   return cudaGetLastError();
 }
 
-template <int D>
+template <int D, int DV>
 cudaError_t launch_bf16(const Params& p, dim3 grid, cudaStream_t stream) {
-  const int smem = 3 * 64 * (D + 8) * static_cast<int>(sizeof(__nv_bfloat16));
-  cudaError_t err = cudaFuncSetAttribute(fa_fwd_bf16<D>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  const int smem = 64 * (2 * (D + 8) + DV + 8) * static_cast<int>(sizeof(__nv_bfloat16));
+  cudaError_t err = cudaFuncSetAttribute(fa_fwd_bf16<D, DV>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (err != cudaSuccess) return err;
-  fa_fwd_bf16<D><<<grid, 128, smem, stream>>>(p);
+  fa_fwd_bf16<D, DV><<<grid, 128, smem, stream>>>(p);
   return cudaGetLastError();
 }
 
-template <int D, int BN, int NWG, int STAGES>
+template <int D, int DV, int BN, int NWG, int STAGES>
 cudaError_t launch_wgmma(const Params& p, int bh, cudaStream_t stream) {
   // Q, the K/V ring, the mbarriers, and 1024 bytes to align the start
-  constexpr int smem = 1024 + 64 * NWG * D * 2 + STAGES * 2 * BN * D * 2 + 8 * (1 + 2 * STAGES);
+  constexpr int DB = (D + 63) / 64, DVB = DV / 64;
+  constexpr int smem = 1024 + 64 * NWG * DB * 128 + STAGES * BN * (DB + DVB) * 128 + 8 * (1 + 2 * STAGES);
   static_assert(smem <= 232448, "more shared memory than a block can have");
-  cudaError_t err = cudaFuncSetAttribute(fa_fwd_wgmma<D, BN, NWG, STAGES>,
+  cudaError_t err = cudaFuncSetAttribute(fa_fwd_wgmma<D, DV, BN, NWG, STAGES>,
                                          cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (err != cudaSuccess) return err;
   const dim3 grid(bh, (p.Sq + 64 * NWG - 1) / (64 * NWG));
-  fa_fwd_wgmma<D, BN, NWG, STAGES><<<grid, 128 * (NWG + 1), smem, stream>>>(p);
+  fa_fwd_wgmma<D, DV, BN, NWG, STAGES><<<grid, 128 * (NWG + 1), smem, stream>>>(p);
   return cudaGetLastError();
 }
 
+// The kernel of a (dtype, widths) pair: f32 FMA; bf16 mma.sync when both
+// widths are at most 32, else wgmma at D >= 64 and DV >= 64 (three consumer
+// warpgroups and stages at DV 64, two at DV 128).
+struct Launch {
+  const Params& p;
+  int dtype, bh;
+  dim3 grid;
+  cudaStream_t stream;
+  template <int D, int DV>
+  cudaError_t run() const {
+    if (dtype == 0) return launch_f32<D, DV>(p, grid, stream);
+    if constexpr (D <= 32 && DV <= 32) {
+      return launch_bf16<D, DV>(p, grid, stream);
+    } else {
+      constexpr int DW = D < 64 ? 64 : D;
+      if constexpr (DV <= 64) return launch_wgmma<DW, 64, 128, 3, 3>(p, bh, stream);
+      else return launch_wgmma<DW, 128, 128, 2, 2>(p, bh, stream);
+    }
+  }
+};
+
 }  // namespace
 
-// dtype: 0 = float32, 1 = bfloat16.  Strides are in elements; the last dim
-// of q, k, v and o is contiguous.  lse: null, or B * H * Sq floats.
-// Returns 0 on success.
+// dtype: 0 = float32, 1 = bfloat16.  D is the head dim of q and k, Dv that
+// of v and o, each at most 128.  Strides are in elements; the last dim of
+// q, k, v and o is contiguous.  lse: null, or B * H * Sq floats.  Returns 0
+// on success.
 extern "C" int flash_attention_fwd(
     const void* q, const void* k, const void* v, void* o, float* lse, int dtype,
-    int B, int Sq, int Skv, int H, int KV, int D,
+    int B, int Sq, int Skv, int H, int KV, int D, int Dv,
     long long q_sb, long long q_ss, long long q_sh,
     long long k_sb, long long k_ss, long long k_sh,
     long long v_sb, long long v_ss, long long v_sh,
     long long o_sb, long long o_ss, long long o_sh,
     float scale, int causal, int window, void* stream) {
+  if (dtype != 0 && dtype != 1) return -1;
   Params p;
   p.q = q; p.k = k; p.v = v; p.o = o; p.lse = lse;
-  p.Sq = Sq; p.Skv = Skv; p.H = H; p.G = H / KV;
+  p.Sq = Sq; p.Skv = Skv; p.H = H; p.G = H / KV; p.D = D; p.Dv = Dv;
   p.q_sb = q_sb; p.q_ss = q_ss; p.q_sh = q_sh;
   p.k_sb = k_sb; p.k_ss = k_ss; p.k_sh = k_sh;
   p.v_sb = v_sb; p.v_ss = v_ss; p.v_sh = v_sh;
   p.o_sb = o_sb; p.o_ss = o_ss; p.o_sh = o_sh;
   p.scale = scale; p.causal = causal; p.window = window;
-  const dim3 grid(B * H, (Sq + BLOCK_M - 1) / BLOCK_M);
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
-  cudaError_t err;
-  if (dtype == 0) {
-    switch (D) {
-      case 16: err = launch_f32<16>(p, grid, st); break;
-      case 32: err = launch_f32<32>(p, grid, st); break;
-      case 64: err = launch_f32<64>(p, grid, st); break;
-      case 128: err = launch_f32<128>(p, grid, st); break;
-      default: return -1;
-    }
-  } else if (dtype == 1) {
-    switch (D) {
-      case 16: err = launch_bf16<16>(p, grid, st); break;
-      case 32: err = launch_bf16<32>(p, grid, st); break;
-      case 64: err = launch_wgmma<64, 128, 3, 3>(p, B * H, st); break;
-      case 128: err = launch_wgmma<128, 128, 2, 2>(p, B * H, st); break;
-      default: return -1;
-    }
-  } else {
-    return -1;
-  }
-  return static_cast<int>(err);
+  const Launch launch{p, dtype, B * H, dim3(B * H, (Sq + BLOCK_M - 1) / BLOCK_M),
+                      static_cast<cudaStream_t>(stream)};
+  return head_dims::with_widths(D, Dv, launch);
 }

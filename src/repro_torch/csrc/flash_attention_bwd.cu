@@ -5,8 +5,9 @@
 // (src/repro/models/layers.py::blocked_attention) with autodiff.  The port
 // runs attention through K1 on the card, so its gradient is a kernel too.
 // Same masks as the forward (causal j <= i, window j > i - window, keys past
-// Skv), GQA head h on kv head h / (H / KV).  With the forward's log-sum-exp
-// L_i of the scaled scores and D_i = sum_d dO_id O_id:
+// Skv), GQA head h on kv head h / (H / KV), q/k of head dim D and v/o of
+// their own Dv.  With the forward's log-sum-exp L_i of the scaled scores
+// and D_i = sum_d dO_id O_id (over Dv):
 //   P_ij  = exp(scale q_i.k_j - L_i)          (0 where masked)
 //   dP_ij = dO_i . v_j
 //   dS_ij = P_ij (dP_ij - D_i)
@@ -16,9 +17,12 @@
 // operands of the dV, dQ and dK products).
 //
 // Design.  Three launches on the caller's stream; which three is fixed by
-// (dtype, D):
-//   * bf16, D in {64, 128}, for Hopper:
-//     1. delta: D_i into the fp32 scratch, D / 8 lanes per row, 16-byte
+// the dtype and the widths (D, DV) the head dims run at (head_dims.cuh:
+// each rounds up to a width the kernels are built for; the extra columns
+// are zero-filled in the tiles and never stored):
+//   * bf16, D or Dv above 32, for Hopper, at D in {64, 96, 128} and DV in
+//     {64, 128}:
+//     1. delta: D_i into the fp32 scratch, DV / 8 lanes per row, 16-byte
 //        loads, several rows per warp;
 //     2. bwd_wgmma: one block per (batch * kv head, 128-row k tile), two
 //        consumer warpgroups of 64 k rows and a producer warpgroup.  It
@@ -31,9 +35,13 @@
 //        registers; dQ = dS K with dS^T staged in shared memory.  dQ is
 //        added with float2 atomics into a zeroed fp32 (B, Sq, H, D)
 //        accumulator that follows delta in the scratch, so its sum order,
-//        and its last bits, change from run to run;
+//        and its last bits, change from run to run.  The products of N = D
+//        (dK, and dQ split between the two warpgroups) each read whole or
+//        leading parts of 64-column blocks: at D 96, dK is one n64 and one
+//        n32 product (column blocks 0 and 1) and dQ is n64 on warpgroup 0
+//        and n32 on warpgroup 1; S^T and dP^T take 6 and DV / 16 k16 steps;
 //     3. bwd_dq_finish: dq = scale * that accumulator, as bf16.
-//   * bf16, D in {16, 32}, and f32: delta (one warp per row for f32), then
+//   * bf16, D and Dv at most 32, and f32: delta (one warp per row for f32), then
 //     dQ: one block per (batch * head, 64-row q tile) over the kv tiles the
 //     forward visits, recomputing S and dP; then dK/dV: one block per
 //     (batch * kv head, 64-row k tile) over the G query heads and the q
@@ -41,8 +49,8 @@
 //     need no atomics and are deterministic; they run seven products where
 //     five would do.  bf16: 4 warps of 16 rows on mma.sync m16n8k16; f32:
 //     8 warps, 4 threads per row, fp32 FMAs (no TF32).
-// q/k/v/o/dO are read in their (B, S, H, D) layout through strides; dQ,
-// dK, dV are written contiguous.
+// q/k/v/o/dO are read in their (B, S, H, D or Dv) layout through strides;
+// dQ, dK, dV are written contiguous.
 //
 // What bounds it.  The algorithm needs five products of 2·D flops per
 // visible (i, j) pair (S, dP, dV, dQ, dK), 2.5x the forward's two: at the
@@ -50,7 +58,10 @@
 // ~0.17 ms at 989 TFLOP/s, against ~0.04 ms for the bytes (q, k, v, o, dO,
 // L read once; dQ, dK, dV written once): operations-bound.  The wgmma
 // kernel runs those five products on the tensor cores with the copies in
-// the background; its dQ atomics (64 x D fp32 per q tile) go to L2.  On an
+// the background; its dQ atomics (64 x D fp32 per q tile) go to L2.  With
+// Dv != D the products take 2·B·H·(3D + 2Dv) flops a visible pair (S, dQ,
+// dK over D; dP, dV over Dv): at minicpm3's shape (B 4, S 2048, H = KV =
+// 40, D 96, Dv 64, causal) 279 GFLOP, ~0.28 ms.  On an
 // H100 at 700 W, taking parts out of it put ~0.2 ms of its ~0.77 ms at that
 // shape in the P / dS arithmetic and ~0.17 ms in dQ (product, barrier,
 // atomics): the two consumer warpgroups meet at a barrier every q tile, so
@@ -65,6 +76,7 @@
 #include <math.h>
 #include <stdint.h>
 
+#include "head_dims.cuh"
 #include "hopper.cuh"
 
 namespace {
@@ -82,8 +94,9 @@ struct Params {
   float* delta;      // (B, H, Sq)
   void* dq;          // (B, Sq, H, D) contiguous
   void* dk;          // (B, Skv, KV, D) contiguous
-  void* dv;
-  int B, Sq, Skv, H, KV, G, D;
+  void* dv;          // (B, Skv, KV, Dv) contiguous
+  int B, Sq, Skv, H, KV, G;
+  int D, Dv;         // the real head dims of q/k and of v/o (at most the kernel's widths)
   long long q_sb, q_ss, q_sh;
   long long k_sb, k_ss, k_sh;
   long long v_sb, v_ss, v_sh;
@@ -129,7 +142,7 @@ __global__ void __launch_bounds__(256) bwd_delta(Params p) {
   const float* o = static_cast<const float*>(p.o) + b * p.o_sb + i * p.o_ss + h * p.o_sh;
   const float* d = static_cast<const float*>(p.dout) + b * p.do_sb + i * p.do_ss + h * p.do_sh;
   float acc = 0.f;
-  for (int c = lane; c < p.D; c += 32) acc += o[c] * d[c];
+  for (int c = lane; c < p.Dv; c += 32) acc += o[c] * d[c];
 #pragma unroll
   for (int off = 16; off > 0; off >>= 1) acc += __shfl_xor_sync(0xffffffffu, acc, off);
   if (lane == 0) p.delta[(static_cast<long long>(b) * p.H + h) * p.Sq + i] = acc;
@@ -137,34 +150,35 @@ __global__ void __launch_bounds__(256) bwd_delta(Params p) {
 
 // ------------------------------------------------------------------- f32
 
-// rows [row0, row0 + 64) of a (S, D) slice with row stride `rs` into a
-// shared tile with row stride LD, zero past `limit`
+// rows [row0, row0 + 64) of a (S, cols) slice with row stride `rs` into a
+// D-wide shared tile with row stride LD, zero past `limit` and from column
+// `cols` on
 template <int D, int LD>
 __device__ __forceinline__ void load_f32(float* dst, const float* src, long long rs,
-                                         int row0, int limit, int tid) {
+                                         int row0, int limit, int cols, int tid) {
   for (int idx = tid; idx < 64 * D; idx += 256) {
     const int r = idx / D, d = idx % D, row = row0 + r;
-    dst[r * LD + d] = row < limit ? src[row * rs + d] : 0.f;
+    dst[r * LD + d] = row < limit && d < cols ? src[row * rs + d] : 0.f;
   }
 }
 
-template <int D>
+template <int D, int DV>
 __global__ void __launch_bounds__(256) bwd_dq_f32(Params p) {
-  constexpr int LD = D + 1, LP = BLOCK_N + 1;
+  constexpr int LD = D + 1, LDV = DV + 1, LP = BLOCK_N + 1;
   extern __shared__ float smem_f32[];
   float* Qs = smem_f32;
-  float* dOs = Qs + BLOCK_M * LD;
-  float* Ks = dOs + BLOCK_M * LD;
-  float* Vs = Ks + BLOCK_N * LD;
-  float* dSs = Vs + BLOCK_N * LD;  // BLOCK_M x LP
+  float* dOs = Qs + BLOCK_M * LD;    // BLOCK_M x LDV
+  float* Ks = dOs + BLOCK_M * LDV;
+  float* Vs = Ks + BLOCK_N * LD;     // BLOCK_N x LDV
+  float* dSs = Vs + BLOCK_N * LDV;   // BLOCK_M x LP
 
   const int tid = threadIdx.x, bh = blockIdx.x;
   const int b = bh / p.H, h = bh % p.H, hk = h / p.G;
   const int q0 = (gridDim.y - 1 - blockIdx.y) * BLOCK_M;  // long tiles first
   load_f32<D, LD>(Qs, static_cast<const float*>(p.q) + b * p.q_sb + h * p.q_sh, p.q_ss,
-                  q0, p.Sq, tid);
-  load_f32<D, LD>(dOs, static_cast<const float*>(p.dout) + b * p.do_sb + h * p.do_sh,
-                  p.do_ss, q0, p.Sq, tid);
+                  q0, p.Sq, p.D, tid);
+  load_f32<DV, LDV>(dOs, static_cast<const float*>(p.dout) + b * p.do_sb + h * p.do_sh,
+                    p.do_ss, q0, p.Sq, p.Dv, tid);
   const float* k = static_cast<const float*>(p.k) + b * p.k_sb + hk * p.k_sh;
   const float* v = static_cast<const float*>(p.v) + b * p.v_sb + hk * p.v_sh;
 
@@ -179,8 +193,8 @@ __global__ void __launch_bounds__(256) bwd_dq_f32(Params p) {
   kv_range(p, q0, lo, hi);
   for (int k0 = lo; k0 < hi; k0 += BLOCK_N) {
     __syncthreads();  // Qs/dOs written / previous tile fully read
-    load_f32<D, LD>(Ks, k, p.k_ss, k0, p.Skv, tid);
-    load_f32<D, LD>(Vs, v, p.v_ss, k0, p.Skv, tid);
+    load_f32<D, LD>(Ks, k, p.k_ss, k0, p.Skv, p.D, tid);
+    load_f32<DV, LDV>(Vs, v, p.v_ss, k0, p.Skv, p.Dv, tid);
     __syncthreads();
 
     float s[BLOCK_N / 4], dp[BLOCK_N / 4];
@@ -188,12 +202,15 @@ __global__ void __launch_bounds__(256) bwd_dq_f32(Params p) {
     for (int c = 0; c < BLOCK_N / 4; ++c) s[c] = dp[c] = 0.f;
 #pragma unroll 4
     for (int d = 0; d < D; ++d) {
-      const float qv = Qs[r * LD + d], gv = dOs[r * LD + d];
+      const float qv = Qs[r * LD + d];
 #pragma unroll
-      for (int c = 0; c < BLOCK_N / 4; ++c) {
-        s[c] += qv * Ks[(qd + 4 * c) * LD + d];
-        dp[c] += gv * Vs[(qd + 4 * c) * LD + d];
-      }
+      for (int c = 0; c < BLOCK_N / 4; ++c) s[c] += qv * Ks[(qd + 4 * c) * LD + d];
+    }
+#pragma unroll 4
+    for (int d = 0; d < DV; ++d) {
+      const float gv = dOs[r * LDV + d];
+#pragma unroll
+      for (int c = 0; c < BLOCK_N / 4; ++c) dp[c] += gv * Vs[(qd + 4 * c) * LDV + d];
     }
 #pragma unroll
     for (int c = 0; c < BLOCK_N / 4; ++c) {
@@ -209,21 +226,22 @@ __global__ void __launch_bounds__(256) bwd_dq_f32(Params p) {
     }
   }
   if (i < p.Sq) {
-    float* dq = static_cast<float*>(p.dq) + ((static_cast<long long>(b) * p.Sq + i) * p.H + h) * D;
+    float* dq = static_cast<float*>(p.dq) + ((static_cast<long long>(b) * p.Sq + i) * p.H + h) * p.D;
 #pragma unroll
-    for (int dd = 0; dd < D / 4; ++dd) dq[qd + 4 * dd] = acc[dd] * p.scale;
+    for (int dd = 0; dd < D / 4; ++dd)
+      if (qd + 4 * dd < p.D) dq[qd + 4 * dd] = acc[dd] * p.scale;
   }
 }
 
-template <int D>
+template <int D, int DV>
 __global__ void __launch_bounds__(256) bwd_dkdv_f32(Params p) {
-  constexpr int LD = D + 1, LP = BLOCK_M + 1;
+  constexpr int LD = D + 1, LDV = DV + 1, LP = BLOCK_M + 1;
   extern __shared__ float smem_f32[];
   float* Ks = smem_f32;
-  float* Vs = Ks + BLOCK_N * LD;
-  float* Qs = Vs + BLOCK_N * LD;
-  float* dOs = Qs + BLOCK_M * LD;
-  float* Ps = dOs + BLOCK_M * LD;  // BLOCK_N x LP
+  float* Vs = Ks + BLOCK_N * LD;   // BLOCK_N x LDV
+  float* Qs = Vs + BLOCK_N * LDV;
+  float* dOs = Qs + BLOCK_M * LD;  // BLOCK_M x LDV
+  float* Ps = dOs + BLOCK_M * LDV; // BLOCK_N x LP
   float* dSs = Ps + BLOCK_N * LP;  // BLOCK_N x LP
   float* Ls = dSs + BLOCK_N * LP;  // BLOCK_M
   float* Dl = Ls + BLOCK_M;        // BLOCK_M
@@ -232,14 +250,16 @@ __global__ void __launch_bounds__(256) bwd_dkdv_f32(Params p) {
   const int b = bk / p.KV, hk = bk % p.KV;
   const int k0 = blockIdx.y * BLOCK_N;  // under a causal mask the first tiles are the long ones
   load_f32<D, LD>(Ks, static_cast<const float*>(p.k) + b * p.k_sb + hk * p.k_sh, p.k_ss,
-                  k0, p.Skv, tid);
-  load_f32<D, LD>(Vs, static_cast<const float*>(p.v) + b * p.v_sb + hk * p.v_sh, p.v_ss,
-                  k0, p.Skv, tid);
+                  k0, p.Skv, p.D, tid);
+  load_f32<DV, LDV>(Vs, static_cast<const float*>(p.v) + b * p.v_sb + hk * p.v_sh, p.v_ss,
+                    k0, p.Skv, p.Dv, tid);
 
   const int r = tid >> 2, qd = tid & 3, j = k0 + r;
-  float dk[D / 4], dv[D / 4];
+  float dk[D / 4], dv[DV / 4];
 #pragma unroll
-  for (int c = 0; c < D / 4; ++c) dk[c] = dv[c] = 0.f;
+  for (int c = 0; c < D / 4; ++c) dk[c] = 0.f;
+#pragma unroll
+  for (int c = 0; c < DV / 4; ++c) dv[c] = 0.f;
 
   int lo, hi;
   q_range(p, k0, lo, hi);
@@ -250,8 +270,8 @@ __global__ void __launch_bounds__(256) bwd_dkdv_f32(Params p) {
     const float* dout = static_cast<const float*>(p.dout) + b * p.do_sb + h * p.do_sh;
     for (int q0 = lo; q0 < hi; q0 += BLOCK_M) {
       __syncthreads();  // Ks/Vs written / previous tile fully read
-      load_f32<D, LD>(Qs, q, p.q_ss, q0, p.Sq, tid);
-      load_f32<D, LD>(dOs, dout, p.do_ss, q0, p.Sq, tid);
+      load_f32<D, LD>(Qs, q, p.q_ss, q0, p.Sq, p.D, tid);
+      load_f32<DV, LDV>(dOs, dout, p.do_ss, q0, p.Sq, p.Dv, tid);
       if (tid < BLOCK_M) {
         const int i = q0 + tid;
         Ls[tid] = i < p.Sq ? p.lse[bh * p.Sq + i] : INFINITY;
@@ -264,12 +284,15 @@ __global__ void __launch_bounds__(256) bwd_dkdv_f32(Params p) {
       for (int c = 0; c < BLOCK_M / 4; ++c) s[c] = dp[c] = 0.f;
 #pragma unroll 4
       for (int d = 0; d < D; ++d) {
-        const float kv = Ks[r * LD + d], vv = Vs[r * LD + d];
+        const float kv = Ks[r * LD + d];
 #pragma unroll
-        for (int c = 0; c < BLOCK_M / 4; ++c) {
-          s[c] += kv * Qs[(qd + 4 * c) * LD + d];
-          dp[c] += vv * dOs[(qd + 4 * c) * LD + d];
-        }
+        for (int c = 0; c < BLOCK_M / 4; ++c) s[c] += kv * Qs[(qd + 4 * c) * LD + d];
+      }
+#pragma unroll 4
+      for (int d = 0; d < DV; ++d) {
+        const float vv = Vs[r * LDV + d];
+#pragma unroll
+        for (int c = 0; c < BLOCK_M / 4; ++c) dp[c] += vv * dOs[(qd + 4 * c) * LDV + d];
       }
 #pragma unroll
       for (int c = 0; c < BLOCK_M / 4; ++c) {
@@ -283,22 +306,22 @@ __global__ void __launch_bounds__(256) bwd_dkdv_f32(Params p) {
       for (int c = 0; c < BLOCK_M; ++c) {
         const float pv = Ps[r * LP + c], ds = dSs[r * LP + c];
 #pragma unroll
-        for (int dd = 0; dd < D / 4; ++dd) {
-          dv[dd] += pv * dOs[c * LD + qd + 4 * dd];
-          dk[dd] += ds * Qs[c * LD + qd + 4 * dd];
-        }
+        for (int dd = 0; dd < DV / 4; ++dd) dv[dd] += pv * dOs[c * LDV + qd + 4 * dd];
+#pragma unroll
+        for (int dd = 0; dd < D / 4; ++dd) dk[dd] += ds * Qs[c * LD + qd + 4 * dd];
       }
     }
   }
   if (j < p.Skv) {
-    const long long off = ((static_cast<long long>(b) * p.Skv + j) * p.KV + hk) * D;
-    float* dkp = static_cast<float*>(p.dk) + off;
-    float* dvp = static_cast<float*>(p.dv) + off;
+    const long long row = (static_cast<long long>(b) * p.Skv + j) * p.KV + hk;
+    float* dkp = static_cast<float*>(p.dk) + row * p.D;
+    float* dvp = static_cast<float*>(p.dv) + row * p.Dv;
 #pragma unroll
-    for (int dd = 0; dd < D / 4; ++dd) {
-      dkp[qd + 4 * dd] = dk[dd] * p.scale;
-      dvp[qd + 4 * dd] = dv[dd];
-    }
+    for (int dd = 0; dd < D / 4; ++dd)
+      if (qd + 4 * dd < p.D) dkp[qd + 4 * dd] = dk[dd] * p.scale;
+#pragma unroll
+    for (int dd = 0; dd < DV / 4; ++dd)
+      if (qd + 4 * dd < p.Dv) dvp[qd + 4 * dd] = dv[dd];
   }
 }
 
@@ -330,15 +353,16 @@ __device__ __forceinline__ void mma_bf16(float (&c)[4], const uint32_t (&a)[4],
 }
 
 // Copy 64 rows of D bf16 (16-byte chunks; the wrapper checks the
-// alignment) into a shared tile with row stride LD, zero past `limit`.
+// alignment) into a shared tile with row stride LD, zero past `limit` and
+// in the columns from `cols` (a multiple of 8) to D.
 template <int D, int LD>
 __device__ __forceinline__ void load_bf16(__nv_bfloat16* dst, const __nv_bfloat16* src,
-                                          long long rs, int row0, int limit, int tid) {
+                                          long long rs, int row0, int limit, int cols, int tid) {
   constexpr int CH = D / 8;
   for (int idx = tid; idx < 64 * CH; idx += 128) {
     const int r = idx / CH, c = idx % CH, row = row0 + r;
     uint4 val = make_uint4(0u, 0u, 0u, 0u);
-    if (row < limit) val = *reinterpret_cast<const uint4*>(src + row * rs + c * 8);
+    if (row < limit && c * 8 < cols) val = *reinterpret_cast<const uint4*>(src + row * rs + c * 8);
     *reinterpret_cast<uint4*>(dst + r * LD + c * 8) = val;
   }
 }
@@ -372,14 +396,15 @@ __device__ __forceinline__ void mma_xy(float (&acc)[D / 8][4], const float (&x)[
   }
 }
 
-template <int D>
+template <int D, int DV>
 __global__ void __launch_bounds__(128) bwd_dq_bf16(Params p) {
   constexpr int LD = D + 8;  // 16-byte pad: rows stay 16-byte aligned, banks spread
+  constexpr int LDV = DV + 8;
   extern __shared__ __align__(16) unsigned char smem_bf16[];
   __nv_bfloat16* Qs = reinterpret_cast<__nv_bfloat16*>(smem_bf16);
-  __nv_bfloat16* dOs = Qs + BLOCK_M * LD;
-  __nv_bfloat16* Ks = dOs + BLOCK_M * LD;
-  __nv_bfloat16* Vs = Ks + BLOCK_N * LD;
+  __nv_bfloat16* dOs = Qs + BLOCK_M * LD;   // BLOCK_M x LDV
+  __nv_bfloat16* Ks = dOs + BLOCK_M * LDV;
+  __nv_bfloat16* Vs = Ks + BLOCK_N * LD;    // BLOCK_N x LDV
 
   const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
   const int g = lane >> 2, t = lane & 3;
@@ -387,20 +412,19 @@ __global__ void __launch_bounds__(128) bwd_dq_bf16(Params p) {
   const int b = bh / p.H, h = bh % p.H, hk = h / p.G;
   const int q0 = (gridDim.y - 1 - blockIdx.y) * BLOCK_M;  // long tiles first
   load_bf16<D, LD>(Qs, static_cast<const __nv_bfloat16*>(p.q) + b * p.q_sb + h * p.q_sh,
-                   p.q_ss, q0, p.Sq, tid);
-  load_bf16<D, LD>(dOs, static_cast<const __nv_bfloat16*>(p.dout) + b * p.do_sb + h * p.do_sh,
-                   p.do_ss, q0, p.Sq, tid);
+                   p.q_ss, q0, p.Sq, p.D, tid);
+  load_bf16<DV, LDV>(dOs, static_cast<const __nv_bfloat16*>(p.dout) + b * p.do_sb + h * p.do_sh,
+                     p.do_ss, q0, p.Sq, p.Dv, tid);
   const __nv_bfloat16* k = static_cast<const __nv_bfloat16*>(p.k) + b * p.k_sb + hk * p.k_sh;
   const __nv_bfloat16* v = static_cast<const __nv_bfloat16*>(p.v) + b * p.v_sb + hk * p.v_sh;
   __syncthreads();
 
   const int qr = warp * 16 + g;
-  uint32_t qf[D / 16][4], df[D / 16][4];
+  uint32_t qf[D / 16][4], df[DV / 16][4];
 #pragma unroll
-  for (int ks = 0; ks < D / 16; ++ks) {
-    frag_a<LD>(qf[ks], Qs, qr, ks, t);
-    frag_a<LD>(df[ks], dOs, qr, ks, t);
-  }
+  for (int ks = 0; ks < D / 16; ++ks) frag_a<LD>(qf[ks], Qs, qr, ks, t);
+#pragma unroll
+  for (int ks = 0; ks < DV / 16; ++ks) frag_a<LDV>(df[ks], dOs, qr, ks, t);
   const int i_row[2] = {q0 + qr, q0 + qr + 8};
   float lse[2], dlt[2];
 #pragma unroll
@@ -419,8 +443,8 @@ __global__ void __launch_bounds__(128) bwd_dq_bf16(Params p) {
   kv_range(p, q0, lo, hi);
   for (int k0 = lo; k0 < hi; k0 += BLOCK_N) {
     __syncthreads();  // previous tile fully read
-    load_bf16<D, LD>(Ks, k, p.k_ss, k0, p.Skv, tid);
-    load_bf16<D, LD>(Vs, v, p.v_ss, k0, p.Skv, tid);
+    load_bf16<D, LD>(Ks, k, p.k_ss, k0, p.Skv, p.D, tid);
+    load_bf16<DV, LDV>(Vs, v, p.v_ss, k0, p.Skv, p.Dv, tid);
     __syncthreads();
 
     // S = Q K^T and dP = dO V^T: 16 rows x 64 keys per warp, 8 n-tiles of 8 keys
@@ -432,8 +456,11 @@ __global__ void __launch_bounds__(128) bwd_dq_bf16(Params p) {
 #pragma unroll
       for (int ks = 0; ks < D / 16; ++ks) {
         const __nv_bfloat16* kp = Ks + (nt * 8 + g) * LD + ks * 16 + 2 * t;
-        const __nv_bfloat16* vp = Vs + (nt * 8 + g) * LD + ks * 16 + 2 * t;
         mma_bf16(s[nt], qf[ks], ld32(kp), ld32(kp + 8));
+      }
+#pragma unroll
+      for (int ks = 0; ks < DV / 16; ++ks) {
+        const __nv_bfloat16* vp = Vs + (nt * 8 + g) * LDV + ks * 16 + 2 * t;
         mma_bf16(dp[nt], df[ks], ld32(vp), ld32(vp + 8));
       }
     }
@@ -454,23 +481,24 @@ __global__ void __launch_bounds__(128) bwd_dq_bf16(Params p) {
 #pragma unroll
   for (int rr = 0; rr < 2; ++rr) {
     if (i_row[rr] >= p.Sq) continue;
-    __nv_bfloat16* row = dq + ((static_cast<long long>(b) * p.Sq + i_row[rr]) * p.H + h) * D + 2 * t;
+    __nv_bfloat16* row = dq + ((static_cast<long long>(b) * p.Sq + i_row[rr]) * p.H + h) * p.D + 2 * t;
 #pragma unroll
     for (int dt = 0; dt < D / 8; ++dt)
-      *reinterpret_cast<__nv_bfloat162*>(row + dt * 8) = __floats2bfloat162_rn(
-          acc[dt][2 * rr] * p.scale, acc[dt][2 * rr + 1] * p.scale);
+      if (dt * 8 < p.D)
+        *reinterpret_cast<__nv_bfloat162*>(row + dt * 8) = __floats2bfloat162_rn(
+            acc[dt][2 * rr] * p.scale, acc[dt][2 * rr + 1] * p.scale);
   }
 }
 
-template <int D>
+template <int D, int DV>
 __global__ void __launch_bounds__(128) bwd_dkdv_bf16(Params p) {
-  constexpr int LD = D + 8;
+  constexpr int LD = D + 8, LDV = DV + 8;
   extern __shared__ __align__(16) unsigned char smem_bf16[];
   __nv_bfloat16* Ks = reinterpret_cast<__nv_bfloat16*>(smem_bf16);
-  __nv_bfloat16* Vs = Ks + BLOCK_N * LD;
-  __nv_bfloat16* Qs = Vs + BLOCK_N * LD;
-  __nv_bfloat16* dOs = Qs + BLOCK_M * LD;
-  float* Ls = reinterpret_cast<float*>(dOs + BLOCK_M * LD);  // BLOCK_M
+  __nv_bfloat16* Vs = Ks + BLOCK_N * LD;    // BLOCK_N x LDV
+  __nv_bfloat16* Qs = Vs + BLOCK_N * LDV;
+  __nv_bfloat16* dOs = Qs + BLOCK_M * LD;   // BLOCK_M x LDV
+  float* Ls = reinterpret_cast<float*>(dOs + BLOCK_M * LDV);  // BLOCK_M
   float* Dl = Ls + BLOCK_M;                                   // BLOCK_M
 
   const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
@@ -479,17 +507,21 @@ __global__ void __launch_bounds__(128) bwd_dkdv_bf16(Params p) {
   const int b = bk / p.KV, hk = bk % p.KV;
   const int k0 = blockIdx.y * BLOCK_N;  // under a causal mask the first tiles are the long ones
   load_bf16<D, LD>(Ks, static_cast<const __nv_bfloat16*>(p.k) + b * p.k_sb + hk * p.k_sh,
-                   p.k_ss, k0, p.Skv, tid);
-  load_bf16<D, LD>(Vs, static_cast<const __nv_bfloat16*>(p.v) + b * p.v_sb + hk * p.v_sh,
-                   p.v_ss, k0, p.Skv, tid);
+                   p.k_ss, k0, p.Skv, p.D, tid);
+  load_bf16<DV, LDV>(Vs, static_cast<const __nv_bfloat16*>(p.v) + b * p.v_sb + hk * p.v_sh,
+                     p.v_ss, k0, p.Skv, p.Dv, tid);
 
   const int kr = warp * 16 + g;  // this warp's 16 k rows: kr and kr + 8
   const int j_row[2] = {k0 + kr, k0 + kr + 8};
-  float dk[D / 8][4], dv[D / 8][4];
+  float dk[D / 8][4], dv[DV / 8][4];
 #pragma unroll
   for (int dt = 0; dt < D / 8; ++dt)
 #pragma unroll
-    for (int e = 0; e < 4; ++e) dk[dt][e] = dv[dt][e] = 0.f;
+    for (int e = 0; e < 4; ++e) dk[dt][e] = 0.f;
+#pragma unroll
+  for (int dt = 0; dt < DV / 8; ++dt)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) dv[dt][e] = 0.f;
 
   int lo, hi;
   q_range(p, k0, lo, hi);
@@ -501,8 +533,8 @@ __global__ void __launch_bounds__(128) bwd_dkdv_bf16(Params p) {
         static_cast<const __nv_bfloat16*>(p.dout) + b * p.do_sb + h * p.do_sh;
     for (int q0 = lo; q0 < hi; q0 += BLOCK_M) {
       __syncthreads();  // Ks/Vs written / previous tile fully read
-      load_bf16<D, LD>(Qs, q, p.q_ss, q0, p.Sq, tid);
-      load_bf16<D, LD>(dOs, dout, p.do_ss, q0, p.Sq, tid);
+      load_bf16<D, LD>(Qs, q, p.q_ss, q0, p.Sq, p.D, tid);
+      load_bf16<DV, LDV>(dOs, dout, p.do_ss, q0, p.Sq, p.Dv, tid);
       if (tid < BLOCK_M) {
         const int i = q0 + tid;
         Ls[tid] = i < p.Sq ? p.lse[bh * p.Sq + i] : INFINITY;
@@ -518,14 +550,21 @@ __global__ void __launch_bounds__(128) bwd_dkdv_bf16(Params p) {
         for (int e = 0; e < 4; ++e) s[nt][e] = dp[nt][e] = 0.f;
 #pragma unroll
       for (int ks = 0; ks < D / 16; ++ks) {
-        uint32_t kf[4], vf[4];
+        uint32_t kf[4];
         frag_a<LD>(kf, Ks, kr, ks, t);
-        frag_a<LD>(vf, Vs, kr, ks, t);
 #pragma unroll
         for (int nt = 0; nt < BLOCK_M / 8; ++nt) {
           const __nv_bfloat16* qp = Qs + (nt * 8 + g) * LD + ks * 16 + 2 * t;
-          const __nv_bfloat16* op = dOs + (nt * 8 + g) * LD + ks * 16 + 2 * t;
           mma_bf16(s[nt], kf, ld32(qp), ld32(qp + 8));
+        }
+      }
+#pragma unroll
+      for (int ks = 0; ks < DV / 16; ++ks) {
+        uint32_t vf[4];
+        frag_a<LDV>(vf, Vs, kr, ks, t);
+#pragma unroll
+        for (int nt = 0; nt < BLOCK_M / 8; ++nt) {
+          const __nv_bfloat16* op = dOs + (nt * 8 + g) * LDV + ks * 16 + 2 * t;
           mma_bf16(dp[nt], vf, ld32(op), ld32(op + 8));
         }
       }
@@ -541,7 +580,7 @@ __global__ void __launch_bounds__(128) bwd_dkdv_bf16(Params p) {
           s[nt][e] = pv;
           dp[nt][e] = pv * (dp[nt][e] - Dl[c]);
         }
-      mma_xy<D, LD>(dv, s, dOs, g, t);  // dV += P^T dO
+      mma_xy<DV, LDV>(dv, s, dOs, g, t);  // dV += P^T dO
       mma_xy<D, LD>(dk, dp, Qs, g, t);  // dK += dS^T Q
     }
   }
@@ -549,20 +588,23 @@ __global__ void __launch_bounds__(128) bwd_dkdv_bf16(Params p) {
 #pragma unroll
   for (int rr = 0; rr < 2; ++rr) {
     if (j_row[rr] >= p.Skv) continue;
-    const long long off = ((static_cast<long long>(b) * p.Skv + j_row[rr]) * p.KV + hk) * D + 2 * t;
-    __nv_bfloat16* dkp = static_cast<__nv_bfloat16*>(p.dk) + off;
-    __nv_bfloat16* dvp = static_cast<__nv_bfloat16*>(p.dv) + off;
+    const long long row = (static_cast<long long>(b) * p.Skv + j_row[rr]) * p.KV + hk;
+    __nv_bfloat16* dkp = static_cast<__nv_bfloat16*>(p.dk) + row * p.D + 2 * t;
+    __nv_bfloat16* dvp = static_cast<__nv_bfloat16*>(p.dv) + row * p.Dv + 2 * t;
 #pragma unroll
-    for (int dt = 0; dt < D / 8; ++dt) {
-      *reinterpret_cast<__nv_bfloat162*>(dkp + dt * 8) = __floats2bfloat162_rn(
-          dk[dt][2 * rr] * p.scale, dk[dt][2 * rr + 1] * p.scale);
-      *reinterpret_cast<__nv_bfloat162*>(dvp + dt * 8) =
-          __floats2bfloat162_rn(dv[dt][2 * rr], dv[dt][2 * rr + 1]);
-    }
+    for (int dt = 0; dt < D / 8; ++dt)
+      if (dt * 8 < p.D)
+        *reinterpret_cast<__nv_bfloat162*>(dkp + dt * 8) = __floats2bfloat162_rn(
+            dk[dt][2 * rr] * p.scale, dk[dt][2 * rr + 1] * p.scale);
+#pragma unroll
+    for (int dt = 0; dt < DV / 8; ++dt)
+      if (dt * 8 < p.Dv)
+        *reinterpret_cast<__nv_bfloat162*>(dvp + dt * 8) =
+            __floats2bfloat162_rn(dv[dt][2 * rr], dv[dt][2 * rr + 1]);
   }
 }
 
-// ----------------------------------- bf16, D in {64, 128}: wgmma, five products
+// ------------- bf16, D in {64, 96, 128}, DV in {64, 128}: wgmma, five products
 
 namespace bw {
 
@@ -579,11 +621,11 @@ __host__ __device__ __forceinline__ long long dq_acc_offset(const Params& p) {
 
 }  // namespace bw
 
-// D_i = dO_i . O_i for bf16: D / 8 lanes per row, one 16-byte load of O
-// and of dO each, 32 / (D / 8) rows per warp.
-template <int D>
+// D_i = dO_i . O_i for bf16: DV / 8 lanes per row, one 16-byte load of O
+// and of dO each (zero from column Dv on), 32 / (DV / 8) rows per warp.
+template <int DV>
 __global__ void __launch_bounds__(256) bwd_delta_bf16(Params p) {
-  constexpr int TPR = D / 8, RPW = 32 / TPR;
+  constexpr int TPR = DV / 8, RPW = 32 / TPR;
   const long long rows = static_cast<long long>(p.B) * p.Sq * p.H;
   const int lane = threadIdx.x & 31, c = lane % TPR;
   const long long row =
@@ -594,6 +636,8 @@ __global__ void __launch_bounds__(256) bwd_delta_bf16(Params p) {
     h = static_cast<int>(row % p.H);
     i = static_cast<int>((row / p.H) % p.Sq);
     b = static_cast<int>(row / (static_cast<long long>(p.H) * p.Sq));
+  }
+  if (row < rows && 8 * c < p.Dv) {
     const uint4 ov = *reinterpret_cast<const uint4*>(
         static_cast<const __nv_bfloat16*>(p.o) + b * p.o_sb + i * p.o_ss + h * p.o_sh + 8 * c);
     const uint4 dv = *reinterpret_cast<const uint4*>(static_cast<const __nv_bfloat16*>(p.dout) +
@@ -623,20 +667,29 @@ __global__ void __launch_bounds__(256) bwd_delta_bf16(Params p) {
 //                                     tiles that straddle an edge)
 //   dV += P^T dO, dK += dS^T Q       (wgmma, A from registers, B MN-major)
 // and stages dS^T (bf16) in shared memory; after a barrier over both
-// consumer warpgroups, each computes dQ = dS K for half of the head dim
-// (A = dS^T read MN-major, B = K read MN-major) and adds it with float2
+// consumer warpgroups, each computes dQ = dS K for its part of the head
+// dim (A = dS^T read MN-major, B = K read MN-major) and adds it with float2
 // atomics into the fp32 accumulator.  dS^T is double-buffered, so one
-// barrier per q tile suffices.
-template <int D>
+// barrier per q tile suffices.  Q and K are D wide (DB 64-column blocks,
+// the last one half used at D 96), V and dO DV wide.
+template <int D, int DV>
 __global__ void __launch_bounds__(bw::THREADS, 1) bwd_wgmma(Params p) {
   using namespace hopper;
   constexpr int BN = bw::BN, BM = bw::BM, STAGES = bw::STAGES;
-  constexpr int KV_BYTES = BN * D * 2, QT_BYTES = BM * D * 2, DS_BYTES = BN * BM * 2;
+  constexpr int DB = (D + 63) / 64, DVB = DV / 64;
+  constexpr int K_BYTES = BN * DB * 128, V_BYTES = BN * DVB * 128;
+  constexpr int Q_BYTES = BM * DB * 128, DO_BYTES = BM * DVB * 128;
+  constexpr int STAGE_BYTES = Q_BYTES + DO_BYTES, DS_BYTES = BN * BM * 2;
+  // products of N = D read whole 64-column blocks or the leading half of
+  // one: dK as DK0 columns from block 0 (all of D when D is 64 or 128)
+  // plus DK1 from block 1; dQ as QW0 columns on warpgroup 0 and QW1 on 1
+  constexpr int DK0 = D == 96 ? 64 : D, DK1 = D - DK0;
+  constexpr int QW0 = D == 96 ? 64 : D / 2, QW1 = D - QW0;
   extern __shared__ unsigned char smem_raw[];
   unsigned char* Ks = align1024(smem_raw);
-  unsigned char* Vs = Ks + KV_BYTES;
-  unsigned char* QdO = Vs + KV_BYTES;                  // stage s: Q at 2s, dO at 2s + 1
-  unsigned char* dSs = QdO + STAGES * 2 * QT_BYTES;    // two dS^T buffers
+  unsigned char* Vs = Ks + K_BYTES;
+  unsigned char* QdO = Vs + V_BYTES;                   // stage s: Q, then dO, at s STAGE_BYTES
+  unsigned char* dSs = QdO + STAGES * STAGE_BYTES;     // two dS^T buffers
   float* LD = reinterpret_cast<float*>(dSs + 2 * DS_BYTES);  // stage s: lse at 2s, delta at 2s + 1
   uint64_t* bars = reinterpret_cast<uint64_t*>(LD + STAGES * 2 * BM);
   uint64_t* kv_full = bars;
@@ -666,19 +719,19 @@ __global__ void __launch_bounds__(bw::THREADS, 1) bwd_wgmma(Params p) {
     setmaxnreg_dec<40>();  // 256 x (232 - 168) consumer registers = 128 x (168 - 40)
     const int pt = tid - 256;
     copy_tile<BN, D>(Ks, static_cast<const __nv_bfloat16*>(p.k) + b * p.k_sb + hk * p.k_sh,
-                         p.k_ss, k0, p.Skv, pt);
-    copy_tile<BN, D>(Vs, static_cast<const __nv_bfloat16*>(p.v) + b * p.v_sb + hk * p.v_sh,
-                         p.v_ss, k0, p.Skv, pt);
+                     p.k_ss, k0, p.Skv, p.D, pt);
+    copy_tile<BN, DV>(Vs, static_cast<const __nv_bfloat16*>(p.v) + b * p.v_sb + hk * p.v_sh,
+                      p.v_ss, k0, p.Skv, p.Dv, pt);
     cp_async_arrive(kv_full);
     for (int t = 0; t < n_tiles; ++t) {
       const int st = t % STAGES, h = hk * p.G + t / n_q, q0 = lo + (t % n_q) * BM;
       if (t >= STAGES) mbar_wait(&empty[st], (t / STAGES - 1) & 1);
-      unsigned char* qd = QdO + (2 * st) * QT_BYTES;
+      unsigned char* qd = QdO + st * STAGE_BYTES;
       copy_tile<BM, D>(qd, static_cast<const __nv_bfloat16*>(p.q) + b * p.q_sb + h * p.q_sh,
-                           p.q_ss, q0, p.Sq, pt);
-      copy_tile<BM, D>(qd + QT_BYTES,
-                           static_cast<const __nv_bfloat16*>(p.dout) + b * p.do_sb + h * p.do_sh,
-                           p.do_ss, q0, p.Sq, pt);
+                       p.q_ss, q0, p.Sq, p.D, pt);
+      copy_tile<BM, DV>(qd + Q_BYTES,
+                        static_cast<const __nv_bfloat16*>(p.dout) + b * p.do_sb + h * p.do_sh,
+                        p.do_ss, q0, p.Sq, p.Dv, pt);
       const long long row0 = (static_cast<long long>(b) * p.H + h) * p.Sq + q0;
       const int r = pt & (BM - 1), i = q0 + r;
       const float* src = (pt < BM ? p.lse : p.delta) + row0 + r;
@@ -697,16 +750,18 @@ __global__ void __launch_bounds__(bw::THREADS, 1) bwd_wgmma(Params p) {
     float* dq_acc = p.delta + bw::dq_acc_offset(p);
     const uint32_t k_addr = smem_u32(Ks), v_addr = smem_u32(Vs);
     const uint32_t kw_addr = k_addr + w * 64 * 128, vw_addr = v_addr + w * 64 * 128;
-    // this warpgroup's half of the head dim for dQ, inside K's column blocks
-    const uint32_t kq_addr = k_addr + ((w * D / 2) >> 6) * (BN * 128) + ((w * D / 2) & 63) * 2;
-    float dk[D / 2], dv[D / 2];
+    float dk[DK0 / 2], dk1[DK1 > 0 ? DK1 / 2 : 1], dv[DV / 2];
 #pragma unroll
-    for (int e = 0; e < D / 2; ++e) dk[e] = dv[e] = 0.f;
+    for (int e = 0; e < DK0 / 2; ++e) dk[e] = 0.f;
+#pragma unroll
+    for (int e = 0; e < DK1 / 2; ++e) dk1[e] = 0.f;
+#pragma unroll
+    for (int e = 0; e < DV / 2; ++e) dv[e] = 0.f;
 
     mbar_wait(kv_full, 0);
     for (int t = 0; t < n_tiles; ++t) {
       const int st = t % STAGES, h = hk * p.G + t / n_q, q0 = lo + (t % n_q) * BM;
-      const uint32_t q_addr = smem_u32(QdO + (2 * st) * QT_BYTES), do_addr = q_addr + QT_BYTES;
+      const uint32_t q_addr = smem_u32(QdO + st * STAGE_BYTES), do_addr = q_addr + Q_BYTES;
       const float* Ls = LD + (2 * st) * BM;
       const float* Dl = Ls + BM;
       mbar_wait(&full[st], (t / STAGES) & 1);
@@ -720,7 +775,7 @@ __global__ void __launch_bounds__(bw::THREADS, 1) bwd_wgmma(Params p) {
                        desc_b128(q_addr + (ks >> 2) * (BM * 128) + (ks & 3) * 32, 16, 1024),
                        ks > 0);
 #pragma unroll
-      for (int ks = 0; ks < D / 16; ++ks)
+      for (int ks = 0; ks < DV / 16; ++ks)
         wgmma_ss<0, 0>(dp, desc_b128(vw_addr + (ks >> 2) * (BN * 128) + (ks & 3) * 32, 16, 1024),
                        desc_b128(do_addr + (ks >> 2) * (BM * 128) + (ks & 3) * 32, 16, 1024),
                        ks > 0);
@@ -763,50 +818,77 @@ __global__ void __launch_bounds__(bw::THREADS, 1) bwd_wgmma(Params p) {
 #pragma unroll
       for (int kk = 0; kk < 4; ++kk)
         wgmma_rs<1>(dk, da[kk], desc_b128(q_addr + kk * 16 * 128, BM * 128, 1024), 1);
+      if constexpr (DK1 > 0) {
+#pragma unroll
+        for (int kk = 0; kk < 4; ++kk)
+          wgmma_rs<1>(dk1, da[kk], desc_b128(q_addr + BM * 128 + kk * 16 * 128, BM * 128, 1024), 1);
+      }
       wgmma_commit();
 
       named_bar_sync(1, 256);  // both warpgroups' rows of dS^T are in place
-      float dq[D / 4];
       const uint32_t ds_addr = smem_u32(ds_buf);
-      wgmma_fence();
+      // dQ for the columns [c0, c0 + N) of this warpgroup (N = 2 R): wait for
+      // every product, release the stage, add into the accumulator
+      auto dq_part = [&](auto& dq, int c0) {
+        constexpr int R = sizeof(dq) / sizeof(dq[0]);
+        const uint32_t kq_addr = k_addr + (c0 >> 6) * (BN * 128) + (c0 & 63) * 2;
+        wgmma_fence();
 #pragma unroll
-      for (int kk = 0; kk < BN / 16; ++kk)
-        wgmma_ss<1, 1>(dq, desc_b128(ds_addr + kk * 16 * 128, BN * 128, 1024),
-                       desc_b128(kq_addr + kk * 16 * 128, BN * 128, 1024), kk > 0);
-      wgmma_commit();
-      wgmma_wait<0>();
-      fence_regs(dv);
-      fence_regs(dk);
-      fence_regs(dq);
-      __syncwarp();
-      if (lane == 0) mbar_arrive(&empty[st]);
+        for (int kk = 0; kk < BN / 16; ++kk)
+          wgmma_ss<1, 1>(dq, desc_b128(ds_addr + kk * 16 * 128, BN * 128, 1024),
+                         desc_b128(kq_addr + kk * 16 * 128, BN * 128, 1024), kk > 0);
+        wgmma_commit();
+        wgmma_wait<0>();
+        fence_regs(dv);
+        fence_regs(dk);
+        fence_regs(dk1);
+        fence_regs(dq);
+        __syncwarp();
+        if (lane == 0) mbar_arrive(&empty[st]);
 
-      // dq element e: q row q0 + 16 warp + g + 8 ((e >> 1) & 1), column w D/2 + 8 (e / 4) + 2 qd
+        // dq element e: q row q0 + 16 warp + g + 8 ((e >> 1) & 1), column c0 + 8 (e / 4) + 2 qd
 #pragma unroll
-      for (int e = 0; e < D / 4; e += 2) {
-        const int i = q0 + 16 * warp + g + 8 * ((e >> 1) & 1);
-        if (i < p.Sq)
-          atomicAdd(reinterpret_cast<float2*>(
-                        dq_acc + ((static_cast<long long>(b) * p.Sq + i) * p.H + h) * D +
-                        w * D / 2 + 8 * (e >> 2) + 2 * qd),
-                    make_float2(dq[e], dq[e + 1]));
+        for (int e = 0; e < R; e += 2) {
+          const int i = q0 + 16 * warp + g + 8 * ((e >> 1) & 1), col = c0 + 8 * (e >> 2) + 2 * qd;
+          if (i < p.Sq && col < p.D)
+            atomicAdd(reinterpret_cast<float2*>(
+                          dq_acc + ((static_cast<long long>(b) * p.Sq + i) * p.H + h) * p.D + col),
+                      make_float2(dq[e], dq[e + 1]));
+        }
+      };
+      if constexpr (QW0 == QW1) {
+        float dq[QW0 / 2];
+        dq_part(dq, w * QW0);
+      } else if (w == 0) {
+        float dq[QW0 / 2];
+        dq_part(dq, 0);
+      } else {
+        float dq[QW1 / 2];
+        dq_part(dq, QW0);
       }
     }
 
 #pragma unroll
     for (int rr = 0; rr < 2; ++rr) {
       if (j_row[rr] >= p.Skv) continue;
-      const long long off =
-          ((static_cast<long long>(b) * p.Skv + j_row[rr]) * p.KV + hk) * D + 2 * qd;
-      __nv_bfloat16* dkp = static_cast<__nv_bfloat16*>(p.dk) + off;
-      __nv_bfloat16* dvp = static_cast<__nv_bfloat16*>(p.dv) + off;
+      const long long row = (static_cast<long long>(b) * p.Skv + j_row[rr]) * p.KV + hk;
+      __nv_bfloat16* dkp = static_cast<__nv_bfloat16*>(p.dk) + row * p.D + 2 * qd;
+      __nv_bfloat16* dvp = static_cast<__nv_bfloat16*>(p.dv) + row * p.Dv + 2 * qd;
 #pragma unroll
-      for (int j = 0; j < D / 8; ++j) {
-        *reinterpret_cast<__nv_bfloat162*>(dkp + 8 * j) = __floats2bfloat162_rn(
-            dk[4 * j + 2 * rr] * p.scale, dk[4 * j + 2 * rr + 1] * p.scale);
-        *reinterpret_cast<__nv_bfloat162*>(dvp + 8 * j) =
-            __floats2bfloat162_rn(dv[4 * j + 2 * rr], dv[4 * j + 2 * rr + 1]);
-      }
+      for (int j = 0; j < DK0 / 8; ++j)
+        if (8 * j < p.D)
+          *reinterpret_cast<__nv_bfloat162*>(dkp + 8 * j) = __floats2bfloat162_rn(
+              dk[4 * j + 2 * rr] * p.scale, dk[4 * j + 2 * rr + 1] * p.scale);
+#pragma unroll
+      for (int j = 0; j < DK1 / 8; ++j)
+        if (DK0 + 8 * j < p.D)
+          *reinterpret_cast<__nv_bfloat162*>(dkp + DK0 + 8 * j) = __floats2bfloat162_rn(
+              dk1[4 * j + 2 * rr] * p.scale, dk1[4 * j + 2 * rr + 1] * p.scale);
+#pragma unroll
+      for (int j = 0; j < DV / 8; ++j)
+        if (8 * j < p.Dv)
+          *reinterpret_cast<__nv_bfloat162*>(dvp + 8 * j) =
+              __floats2bfloat162_rn(dv[4 * j + 2 * rr], dv[4 * j + 2 * rr + 1]);
     }
   }
 }
@@ -835,59 +917,90 @@ cudaError_t launch(K kernel, dim3 grid, int threads, int smem, const Params& p,
   return cudaGetLastError();
 }
 
-template <int D>
+template <int D, int DV>
 cudaError_t launch_f32(const Params& p, cudaStream_t st) {
-  const int tiles = 4 * 64 * (D + 1) * static_cast<int>(sizeof(float));
+  const int tiles = 2 * 64 * (D + 1 + DV + 1) * static_cast<int>(sizeof(float));
   const int lp = 64 * (64 + 1) * static_cast<int>(sizeof(float));
-  cudaError_t err = launch(bwd_dq_f32<D>, dim3(p.B * p.H, (p.Sq + BLOCK_M - 1) / BLOCK_M),
+  cudaError_t err = launch(bwd_dq_f32<D, DV>, dim3(p.B * p.H, (p.Sq + BLOCK_M - 1) / BLOCK_M),
                            256, tiles + lp, p, st);
   if (err != cudaSuccess) return err;
-  return launch(bwd_dkdv_f32<D>, dim3(p.B * p.KV, (p.Skv + BLOCK_N - 1) / BLOCK_N), 256,
+  return launch(bwd_dkdv_f32<D, DV>, dim3(p.B * p.KV, (p.Skv + BLOCK_N - 1) / BLOCK_N), 256,
                 tiles + 2 * lp + 2 * 64 * static_cast<int>(sizeof(float)), p, st);
 }
 
-template <int D>
+template <int D, int DV>
 cudaError_t launch_bf16(const Params& p, cudaStream_t st) {
-  const int tiles = 4 * 64 * (D + 8) * static_cast<int>(sizeof(__nv_bfloat16));
-  cudaError_t err = launch(bwd_dq_bf16<D>, dim3(p.B * p.H, (p.Sq + BLOCK_M - 1) / BLOCK_M),
+  const int tiles = 2 * 64 * (D + 8 + DV + 8) * static_cast<int>(sizeof(__nv_bfloat16));
+  cudaError_t err = launch(bwd_dq_bf16<D, DV>, dim3(p.B * p.H, (p.Sq + BLOCK_M - 1) / BLOCK_M),
                            128, tiles, p, st);
   if (err != cudaSuccess) return err;
-  return launch(bwd_dkdv_bf16<D>, dim3(p.B * p.KV, (p.Skv + BLOCK_N - 1) / BLOCK_N), 128,
+  return launch(bwd_dkdv_bf16<D, DV>, dim3(p.B * p.KV, (p.Skv + BLOCK_N - 1) / BLOCK_N), 128,
                 tiles + 2 * 64 * static_cast<int>(sizeof(float)), p, st);
 }
 
-template <int D>
+template <int D, int DV>
 cudaError_t launch_wgmma(const Params& p, cudaStream_t st) {
-  constexpr int smem = 1024 + 2 * bw::BN * D * 2 + bw::STAGES * 2 * bw::BM * D * 2 +
+  constexpr int DB = (D + 63) / 64, DVB = DV / 64;
+  constexpr int smem = 1024 + bw::BN * (DB + DVB) * 128 + bw::STAGES * bw::BM * (DB + DVB) * 128 +
                        2 * bw::BN * bw::BM * 2 + bw::STAGES * 2 * bw::BM * 4 + 64;
-  cudaError_t err = launch(bwd_wgmma<D>, dim3(p.B * p.KV, (p.Skv + bw::BN - 1) / bw::BN),
+  static_assert(smem <= 232448, "more shared memory than a block can have");
+  cudaError_t err = launch(bwd_wgmma<D, DV>, dim3(p.B * p.KV, (p.Skv + bw::BN - 1) / bw::BN),
                            bw::THREADS, smem, p, st);
   if (err != cudaSuccess) return err;
-  const long long n4 = static_cast<long long>(p.B) * p.Sq * p.H * D / 4;
+  const long long n4 = static_cast<long long>(p.B) * p.Sq * p.H * p.D / 4;
   bwd_dq_finish<<<static_cast<unsigned>((n4 + 255) / 256), 256, 0, st>>>(p);
   return cudaGetLastError();
 }
 
-template <int D>
+template <int DV>
 cudaError_t launch_delta_bf16(const Params& p, cudaStream_t st) {
   const long long rows = static_cast<long long>(p.B) * p.Sq * p.H;
-  const long long per_block = 8 * (32 / (D / 8));
-  bwd_delta_bf16<D><<<static_cast<unsigned>((rows + per_block - 1) / per_block), 256, 0, st>>>(p);
+  const long long per_block = 8 * (32 / (DV / 8));
+  bwd_delta_bf16<DV><<<static_cast<unsigned>((rows + per_block - 1) / per_block), 256, 0, st>>>(p);
   return cudaGetLastError();
 }
+
+// The kernels of a (dtype, widths) pair, after the row sums: f32 FMA; bf16
+// mma.sync when both widths are at most 32, else wgmma at D >= 64 and
+// DV >= 64.
+struct Launch {
+  const Params& p;
+  int dtype;
+  cudaStream_t st;
+  template <int D, int DV>
+  cudaError_t run() const {
+    cudaError_t err;
+    if (dtype == 0) {
+      const long long rows = static_cast<long long>(p.B) * p.Sq * p.H;
+      bwd_delta<<<static_cast<unsigned>((rows + 7) / 8), 256, 0, st>>>(p);
+      err = cudaGetLastError();
+      return err != cudaSuccess ? err : launch_f32<D, DV>(p, st);
+    }
+    if constexpr (D <= 32 && DV <= 32) {
+      err = launch_delta_bf16<DV>(p, st);
+      return err != cudaSuccess ? err : launch_bf16<D, DV>(p, st);
+    } else {
+      constexpr int DW = D < 64 ? 64 : D, DVW = DV < 64 ? 64 : DV;
+      err = launch_delta_bf16<DVW>(p, st);
+      return err != cudaSuccess ? err : launch_wgmma<DW, DVW>(p, st);
+    }
+  }
+};
 
 }  // namespace
 
 // dtype: 0 = float32, 1 = bfloat16, for q, k, v, o, dout, dq, dk, dv alike.
-// Strides are in elements; the last dim of q, k, v, o and dout is
-// contiguous.  lse: B * H * Sq floats.  delta: fp32 scratch of B * H * Sq
-// floats; for bf16 at D 64 or 128 followed, from the next multiple of 4
-// floats, by a zeroed B * Sq * H * D accumulator for dQ.  dq: (B, Sq, H,
-// D), dk and dv: (B, Skv, KV, D), contiguous.  Returns 0 on success.
+// D is the head dim of q, k, dq, dk; Dv that of v, o, dout, dv; each at
+// most 128.  Strides are in elements; the last dim of q, k, v, o and dout
+// is contiguous.  lse: B * H * Sq floats.  delta: fp32 scratch of B * H *
+// Sq floats; for bf16 with D or Dv above 32 (the wgmma kernels) followed,
+// from the next multiple of 4 floats, by a zeroed B * Sq * H * D
+// accumulator for dQ.  dq: (B, Sq, H, D), dk: (B, Skv, KV, D) and dv:
+// (B, Skv, KV, Dv), contiguous.  Returns 0 on success.
 extern "C" int flash_attention_bwd(
     const void* q, const void* k, const void* v, const void* o, const void* dout,
     const float* lse, float* delta, void* dq, void* dk, void* dv, int dtype,
-    int B, int Sq, int Skv, int H, int KV, int D,
+    int B, int Sq, int Skv, int H, int KV, int D, int Dv,
     long long q_sb, long long q_ss, long long q_sh,
     long long k_sb, long long k_ss, long long k_sh,
     long long v_sb, long long v_ss, long long v_sh,
@@ -895,48 +1008,15 @@ extern "C" int flash_attention_bwd(
     long long do_sb, long long do_ss, long long do_sh,
     float scale, int causal, int window, void* stream) {
   if (dtype != 0 && dtype != 1) return -1;
-  if (D != 16 && D != 32 && D != 64 && D != 128) return -1;
   Params p;
   p.q = q; p.k = k; p.v = v; p.o = o; p.dout = dout; p.lse = lse; p.delta = delta;
   p.dq = dq; p.dk = dk; p.dv = dv;
-  p.B = B; p.Sq = Sq; p.Skv = Skv; p.H = H; p.KV = KV; p.G = H / KV; p.D = D;
+  p.B = B; p.Sq = Sq; p.Skv = Skv; p.H = H; p.KV = KV; p.G = H / KV; p.D = D; p.Dv = Dv;
   p.q_sb = q_sb; p.q_ss = q_ss; p.q_sh = q_sh;
   p.k_sb = k_sb; p.k_ss = k_ss; p.k_sh = k_sh;
   p.v_sb = v_sb; p.v_ss = v_ss; p.v_sh = v_sh;
   p.o_sb = o_sb; p.o_ss = o_ss; p.o_sh = o_sh;
   p.do_sb = do_sb; p.do_ss = do_ss; p.do_sh = do_sh;
   p.scale = scale; p.causal = causal; p.window = window;
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
-
-  cudaError_t err;
-  if (dtype == 0) {
-    const long long rows = static_cast<long long>(B) * Sq * H;
-    bwd_delta<<<static_cast<unsigned>((rows + 7) / 8), 256, 0, st>>>(p);
-    err = cudaGetLastError();
-  } else {
-    switch (D) {
-      case 16: err = launch_delta_bf16<16>(p, st); break;
-      case 32: err = launch_delta_bf16<32>(p, st); break;
-      case 64: err = launch_delta_bf16<64>(p, st); break;
-      default: err = launch_delta_bf16<128>(p, st); break;
-    }
-  }
-  if (err != cudaSuccess) return static_cast<int>(err);
-
-  if (dtype == 0) {
-    switch (D) {
-      case 16: err = launch_f32<16>(p, st); break;
-      case 32: err = launch_f32<32>(p, st); break;
-      case 64: err = launch_f32<64>(p, st); break;
-      default: err = launch_f32<128>(p, st); break;
-    }
-  } else {
-    switch (D) {
-      case 16: err = launch_bf16<16>(p, st); break;
-      case 32: err = launch_bf16<32>(p, st); break;
-      case 64: err = launch_wgmma<64>(p, st); break;
-      default: err = launch_wgmma<128>(p, st); break;
-    }
-  }
-  return static_cast<int>(err);
+  return head_dims::with_widths(D, Dv, Launch{p, dtype, static_cast<cudaStream_t>(stream)});
 }

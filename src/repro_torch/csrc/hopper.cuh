@@ -108,17 +108,19 @@ __device__ __forceinline__ void cp_async_wait_group() {
   asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
 }
 
-// Copies rows [row0, row0 + R) of a (S, D) bf16 slice (row stride rs, in
+// Copies rows [row0, row0 + R) of a (S, cols) bf16 slice (row stride rs, in
 // elements) into a swizzled R x D shared tile with cp.async, zero past
-// `limit`; thread `pt` of 128 copying threads.
+// `limit` and in the columns from `cols` (a multiple of 8, at most D) to D;
+// thread `pt` of 128 copying threads.  D need not fill its last column
+// block: at D = 96 the second block holds columns 64-95 in its chunks 0-3.
 template <int R, int D>
 __device__ __forceinline__ void copy_tile(unsigned char* dst, const __nv_bfloat16* src,
-                                          long long rs, int row0, int limit, int pt) {
+                                          long long rs, int row0, int limit, int cols, int pt) {
   constexpr int CH = D / 8;  // 16-byte chunks per row
   const uint32_t base = smem_u32(dst);
   for (int idx = pt; idx < R * CH; idx += 128) {
     const int r = idx / CH, c = idx % CH, row = row0 + r;
-    const bool ok = row < limit;
+    const bool ok = row < limit && c * 8 < cols;
     cp_async16(base + (c >> 3) * (R * 128) + swz(r, c & 7), ok ? src + row * rs + c * 8 : src,
                ok ? 16 : 0);
   }

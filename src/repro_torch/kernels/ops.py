@@ -17,10 +17,12 @@ from repro_torch.kernels.ssd_scan import ssd_cuda
 # ---------------------------------------------------------- flash attention
 
 def flash_attention(q, k, v, *, causal=True, window=0, scale=None):
-    """q: (B, Sq, H, D); k, v: (B, Skv, KV, D).  ``window`` None or 0 is off.
-    A query that sees no key gives 0 on both routes.  Differentiable on
-    both: autograd through the plain version on the CPU, the backward
-    kernel on the card."""
+    """q: (B, Sq, H, D); k: (B, Skv, KV, D); v: (B, Skv, KV, Dv) (MLA:
+    D 96, Dv 64), which may be a strided view.  Returns (B, Sq, H, Dv).
+    ``window`` None or 0 is off; ``scale`` defaults to 1/sqrt(D).  A query
+    that sees no key gives 0 on both routes.  Differentiable on both:
+    autograd through the plain version on the CPU, the backward kernel on
+    the card.  The card's kernels take D and Dv up to 128 and raise above."""
     if q.device.type == "cpu":
         return _ref.attention_ref(q, k, v, causal=causal, window=window or 0,
                                   scale=scale)

@@ -8,8 +8,9 @@ Each DIR holds a variant of ``csrc/flash_attention.cu`` and/or
 it under ``build/``, which git ignores).  Every source is built with
 ``nvcc`` in parallel; each variant's forward is checked against
 ``attention_ref`` (|d| <= 2e-2·(1+|ref|)); then, at llama3.2-1b's
-attention (B=4, S=2048, H=32, KV=8, D=64) and at D=128 (B=2, S=2048,
-H=16, KV=4), bf16, causal, each forward and each backward is timed with
+attention (B=4, S=2048, H=32, KV=8, D=64), at D=128 (B=2, S=2048, H=16,
+KV=4) and at minicpm3-4b's MLA prefill (B=4, S=2048, H=KV=40, D=96,
+Dv=64), bf16, causal, each forward and each backward is timed with
 CUDA events (mean of 20 calls) in the order a, b, ..., ..., b, a beside
 ``scaled_dot_product_attention`` (forward) or its backward.  Prints the
 card's name and power limit, then one JSON line per shape and direction.
@@ -30,7 +31,7 @@ import torch.nn.functional as F
 from repro_torch.kernels import _build, ref
 from repro_torch.kernels import flash_attention as fa
 
-SHAPES = [(4, 2048, 32, 8, 64), (2, 2048, 16, 4, 128)]
+SHAPES = [(4, 2048, 32, 8, 64, 64), (2, 2048, 16, 4, 128, 128), (4, 2048, 40, 40, 96, 64)]
 
 
 def cuda_ms(fn, reps=20, warmup=2):
@@ -84,16 +85,16 @@ def main(argv=None):
     print(smi.stdout.strip())
     dev = torch.device("cuda")
     gen = torch.Generator(dev).manual_seed(0)
-    for B, S, H, KV, D in SHAPES:
+    for B, S, H, KV, D, Dv in SHAPES:
         q, k, v, do = (torch.randn(shape, generator=gen, device=dev).bfloat16()
-                       for shape in ((B, S, H, D), (B, S, KV, D), (B, S, KV, D), (B, S, H, D)))
+                       for shape in ((B, S, H, D), (B, S, KV, D), (B, S, KV, Dv), (B, S, H, Dv)))
         want = ref.attention_ref(q, k, v, causal=True).float()
         fwd = {}
         for name, entry in entries["fwd"].items():
             fwd[name] = _with("_entry", entry, lambda: fa.flash_attention_cuda(q, k, v, causal=True))
             diff = (fwd[name]().float() - want).abs()
             ok = bool((diff <= 2e-2 * (1 + want.abs())).all())
-            print(f"  {name} forward at {(B, S, H, KV, D)}: max abs error {float(diff.max()):.3e} "
+            print(f"  {name} forward at {(B, S, H, KV, D, Dv)}: max abs error {float(diff.max()):.3e} "
                   f"{'ok' if ok else 'MISMATCH'}")
         G = H // KV
         qt = q.transpose(1, 2).detach().requires_grad_()
@@ -102,14 +103,14 @@ def main(argv=None):
         sdpa = lambda: F.scaled_dot_product_attention(qt, kt, vt, is_causal=True)  # noqa: E731
         with torch.no_grad():
             times = in_turns(list(fwd.items()) + [("sdpa", sdpa)])
-        print(json.dumps({"shape": [B, S, H, KV, D], "direction": "forward", "ms": times}))
+        print(json.dumps({"shape": [B, S, H, KV, D, Dv], "direction": "forward", "ms": times}))
         o, lse = fa.flash_attention_cuda(q, k, v, causal=True, return_lse=True)
         bwd = [(name, _with("_bwd_entry", entry, lambda: fa.flash_attention_bwd_cuda(
             q, k, v, o, lse, do, causal=True))) for name, entry in entries["bwd"].items()]
         out, dot = sdpa(), do.transpose(1, 2)
         bwd.append(("sdpa backward",
                     lambda: torch.autograd.grad(out, (qt, kt, vt), dot, retain_graph=True)))
-        print(json.dumps({"shape": [B, S, H, KV, D], "direction": "backward",
+        print(json.dumps({"shape": [B, S, H, KV, D, Dv], "direction": "backward",
                           "ms": in_turns(bwd)}), flush=True)
 
 

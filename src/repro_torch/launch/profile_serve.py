@@ -1,8 +1,9 @@
 """Where the serving time goes on the card, warm.
 
-    python -m repro_torch.launch.profile_serve
+    python -m repro_torch.launch.profile_serve [ARCH ...]
 
-Serves each ported arch in turn, llama3.2-1b then mamba2-780m, at full
+Serves each ported arch in turn (the registry's, in its order: llama3.2-1b,
+mamba2-780m, minicpm3-4b), or those named on the command line, at full
 width (batch 4, prompt 2048, 32 new tokens, seed 0) with
 ``repro_torch.launch.serve``'s prefill and decode: one run to warm up
 (allocator, cuBLAS, kernel library), one timed on the host clock around
@@ -19,18 +20,18 @@ from __future__ import annotations
 
 import json
 import subprocess
+import sys
 import time
 
 import torch
 from torch.profiler import ProfilerActivity, profile
 
-from repro_torch.configs.registry import get_config
+from repro_torch.configs.registry import all_archs, get_config
 from repro_torch.kernels.flash_attention import flash_attention_cuda
 from repro_torch.kernels.ssd_scan import ssd_cuda
 from repro_torch.launch.serve import decode, prefill
 from repro_torch.models.registry import build
 
-ARCHS = ("llama3.2-1b", "mamba2-780m")
 B, P, T, SEED = 4, 2048, 32, 0   # the slices' serving shape
 KERNELS = {"k1": flash_attention_cuda, "k3": ssd_cuda}
 # device-kernel names of the hand-written kernels (substrings of the profiler's keys)
@@ -110,12 +111,13 @@ def profile_arch(arch: str, card: str):
     return result
 
 
-def main():
+def main(argv=None):
     if not torch.cuda.is_available():
         raise SystemExit("profile_serve measures the card: no CUDA device")
+    archs = (sys.argv[1:] if argv is None else argv) or all_archs()
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                          capture_output=True, text=True, timeout=60)
-    return [profile_arch(arch, smi.stdout.strip()) for arch in ARCHS]
+    return [profile_arch(arch, smi.stdout.strip()) for arch in archs]
 
 
 if __name__ == "__main__":

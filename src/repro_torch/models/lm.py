@@ -1,6 +1,7 @@
-"""Decoder-only LM assembly, dense and ssm families: a Python loop over the
-stacked ``(L, ...)`` layer parameters (the layout ``repro.models.lm`` builds
-with ``vmap`` and scans over, so keys and shapes match its pytree), and four
+"""Decoder-only LM assembly, dense (GQA or MLA attention) and ssm families:
+a Python loop over the stacked ``(L, ...)`` layer parameters (the layout
+``repro.models.lm`` builds with ``vmap`` and scans over, so keys and shapes
+match its pytree), and four
 entry points — ``forward`` (full sequence, with ``cfg.remat`` when autograd
 records), ``loss_fn`` (next-token cross-entropy), ``prefill`` (build caches)
 and ``decode_step`` (one token).  The other families come with their own
@@ -37,9 +38,9 @@ def check_ported(cfg: ModelConfig):
             raise NotImplementedError(f"{cfg.arch}: an ssm model with {cfg.attn_kind!r} "
                                       f"attention is the hybrid family's")
         return
-    if cfg.attn_kind != "gqa":
-        raise NotImplementedError(f"{cfg.arch}: {cfg.attn_kind!r} attention comes "
-                                  f"with the MLA slice")
+    if cfg.attn_kind not in ("gqa", "mla"):
+        raise NotImplementedError(f"{cfg.arch}: {cfg.attn_kind!r} attention is not "
+                                  f"in the port")
     if cfg.pos != "rope":
         raise NotImplementedError(f"{cfg.arch}: {cfg.pos!r} positions come with "
                                   f"the slice that ports {cfg.arch}")
@@ -52,7 +53,7 @@ def _layer_init(cfg: ModelConfig, gen):
     if cfg.family == "ssm":
         return {"norm1": norm1, "ssm": ssm_mod.ssm_init(cfg, gen)}
     return {"norm1": norm1,
-            "attn": attn.gqa_init(cfg, gen),
+            "attn": (attn.mla_init if cfg.attn_kind == "mla" else attn.gqa_init)(cfg, gen),
             "norm2": torch.ones((cfg.d_model,), dtype=cfg.pdt, device=gen.device),
             "mlp": _mlp_init(cfg, gen)}
 
@@ -125,7 +126,9 @@ def _mlp(pl, x):
 
 def _block(cfg: ModelConfig, pl, x, rope, window: int, *, return_kv=False):
     """One block, full-sequence path.  Returns (x, kv): with ``return_kv``,
-    the layer's (k, v), or for ssm its (ssm state, conv state)."""
+    the layer's cache entries in ``_cache_keys`` order: (k, v), MLA's
+    (ckv, krope), or for ssm its (ssm state, conv state).  MLA takes no
+    window."""
     if cfg.family == "ssm":
         out = ssm_mod.ssm_forward(cfg, pl["ssm"], rmsnorm(x, pl["norm1"], cfg.norm_eps),
                                   return_state=return_kv)
@@ -134,7 +137,10 @@ def _block(cfg: ModelConfig, pl, x, rope, window: int, *, return_kv=False):
             return x + out, state
         return x + out, None
     h = rmsnorm(x, pl["norm1"], cfg.norm_eps)
-    a = attn.gqa_forward(cfg, pl["attn"], h, rope, window=window, return_kv=return_kv)
+    if cfg.attn_kind == "mla":
+        a = attn.mla_forward(cfg, pl["attn"], h, rope, return_kv=return_kv)
+    else:
+        a = attn.gqa_forward(cfg, pl["attn"], h, rope, window=window, return_kv=return_kv)
     kv = None
     if return_kv:
         a, kv = a
@@ -151,10 +157,12 @@ def _embed(cfg, params, tokens):
 
 def _rope_for(cfg: ModelConfig, positions):
     """positions: (B,S) int32; returns (cos, sin), or None for ssm (no
-    attention)."""
+    attention).  MLA's width is 2 * qk_rope_dim, as in the JAX version, of
+    which its rope half reads the first qk_rope_dim / 2 frequencies."""
     if cfg.family == "ssm":
         return None
-    return rope_cos_sin(positions, cfg.head_dim, cfg.rope_theta)
+    dim = cfg.qk_rope_dim * 2 if cfg.attn_kind == "mla" else cfg.head_dim
+    return rope_cos_sin(positions, dim, cfg.rope_theta)
 
 
 def _positions(tokens):
@@ -226,14 +234,21 @@ def loss_fn(cfg: ModelConfig, params, batch, *, aux_weight=0.01):
 # ------------------------------------------------------------------ serving
 
 def init_cache(cfg: ModelConfig, batch: int, max_len: int, device="cuda"):
-    """Decode cache, stacked over layers: k/v (dense) or ssm_state (float32)
-    and conv_state (ssm; ``max_len`` does not size it)."""
+    """Decode cache, stacked over layers: k/v (dense GQA), the latent ckv and
+    krope (MLA), or ssm_state (float32) and conv_state (ssm; ``max_len``
+    does not size it)."""
     L = cfg.n_layers
     c = {"pos": torch.zeros((), dtype=torch.int32, device=device)}
     if cfg.family == "ssm":
         st, cv = ssm_mod.ssm_init_cache(cfg, batch, cfg.cdt, device)
         c["ssm_state"] = st.new_zeros((L, *st.shape))
         c["conv_state"] = cv.new_zeros((L, *cv.shape))
+        return c
+    if cfg.attn_kind == "mla":
+        c["ckv"] = torch.zeros((L, batch, max_len, cfg.kv_lora_rank), dtype=cfg.cdt,
+                               device=device)
+        c["krope"] = torch.zeros((L, batch, max_len, cfg.qk_rope_dim), dtype=cfg.cdt,
+                                 device=device)
         return c
     kvh, hd = cfg.n_kv_heads, cfg.head_dim
     c["k"] = torch.zeros((L, batch, max_len, kvh, hd), dtype=cfg.cdt, device=device)
@@ -245,7 +260,7 @@ def _cache_keys(cfg: ModelConfig):
     """The per-layer cache entries ``_block_decode`` takes, in its order."""
     if cfg.family == "ssm":
         return ("ssm_state", "conv_state")
-    return ("k", "v")
+    return ("ckv", "krope") if cfg.attn_kind == "mla" else ("k", "v")
 
 
 def prefill(cfg: ModelConfig, params, tokens, max_len: int, positions=None):
@@ -261,12 +276,11 @@ def prefill(cfg: ModelConfig, params, tokens, max_len: int, positions=None):
     for i, (pl, win) in enumerate(zip(_layers(params["layers"], cfg.n_layers),
                                       layer_windows(cfg))):
         x, kv = _block(cfg, pl, x, rope, int(win), return_kv=True)
-        if cfg.family == "ssm":
-            cache["ssm_state"][i] = kv[0]
-            cache["conv_state"][i] = kv[1]
-        else:
-            cache["k"][i, :, :S] = kv[0]
-            cache["v"][i, :, :S] = kv[1]
+        for key, val in zip(_cache_keys(cfg), kv):
+            if cfg.family == "ssm":
+                cache[key][i] = val
+            else:
+                cache[key][i, :, :S] = val
     return _unembed(cfg, params, x[:, -1:]), cache
 
 
@@ -279,11 +293,14 @@ def _block_decode(cfg: ModelConfig, pl, x, rope, window: int, caches, pos):
         caches[0].copy_(st)
         caches[1].copy_(cv)
         return x + out, caches
-    a, kc, vc = attn.gqa_decode(cfg, pl["attn"], h, caches[0], caches[1], pos, rope,
-                                window=window)
+    if cfg.attn_kind == "mla":
+        a, *caches = attn.mla_decode(cfg, pl["attn"], h, caches[0], caches[1], pos, rope)
+    else:
+        a, *caches = attn.gqa_decode(cfg, pl["attn"], h, caches[0], caches[1], pos, rope,
+                                     window=window)
     x = x + a
     h2 = rmsnorm(x, pl["norm2"], cfg.norm_eps)
-    return x + _mlp(pl, h2), (kc, vc)
+    return x + _mlp(pl, h2), tuple(caches)
 
 
 def decode_step(cfg: ModelConfig, params, cache, tokens):

@@ -7,8 +7,15 @@
 // warpgroup's A fragments (mma.sync's m16n8k16 A layout per warp) through
 // a buffer between two warpgroup barriers; wgmma_wait is a warpgroup
 // barrier, since the emulated product reads shared memory synchronously.
-// mbarriers, setmaxnreg and named barriers are not emulated.
+// An mbarrier is a 64-bit word updated atomically: pending arrivals (bits
+// 0-30), the expected count (31-61) and the phase's parity (63), flipped
+// when the last arrival comes; a wait for parity P spins while the phase
+// bit is still P.  cp.async copies at once, so its arrival is a plain
+// arrive; setmaxnreg does nothing; bar.sync id, n is a std::barrier(n)
+// made at first use in the block.  copy_tile is not here: emulate.py
+// takes it from the real header.
 #pragma once
+#include <atomic>
 #include "cuda_shim.h"
 
 namespace hopper {
@@ -25,7 +32,44 @@ inline void cp_async16(uint32_t dst, const void* src, int bytes) {
   memset(shim::buffer + dst, 0, 16);
   memcpy(shim::buffer + dst, src, bytes);
 }
+inline void cp_async4(uint32_t dst, const void* src, int bytes) {
+  memset(shim::buffer + dst, 0, 4);
+  memcpy(shim::buffer + dst, src, bytes);
+}
 inline void cp_async_commit() {}
+inline void cp_async_wait_all() {}
+
+inline void mbar_init(uint64_t* bar, int count) {
+  std::atomic_ref<uint64_t>(*bar).store(uint64_t(count) | (uint64_t(count) << 31));
+}
+inline void mbar_fence_init() {}
+inline void mbar_arrive(uint64_t* bar) {
+  std::atomic_ref<uint64_t> word(*bar);
+  uint64_t old = word.load(), next;
+  do {
+    const uint64_t pending = old & 0x7fffffff, expected = (old >> 31) & 0x7fffffff;
+    if (pending == 0) { fprintf(stderr, "shim: arrival on a completed mbarrier\n"); abort(); }
+    next = pending > 1 ? old - 1 : (expected | (expected << 31) | ((~old) & (1ull << 63)));
+  } while (!word.compare_exchange_weak(old, next));
+}
+inline void mbar_wait(uint64_t* bar, int parity) {
+  std::atomic_ref<uint64_t> word(*bar);
+  while (int(word.load() >> 63) == parity) std::this_thread::yield();
+}
+inline void cp_async_arrive(uint64_t* bar) { mbar_arrive(bar); }
+
+template <int N> inline void setmaxnreg_inc() {}
+template <int N> inline void setmaxnreg_dec() {}
+inline void named_bar_sync(int id, int threads) {
+  std::barrier<>* bar;
+  {
+    std::lock_guard<std::mutex> lock(shim::mu);
+    auto& slot = shim::named_bar[id];
+    if (!slot) slot = std::make_unique<std::barrier<>>(threads);
+    bar = slot.get();
+  }
+  bar->arrive_and_wait();
+}
 template <int N> inline void cp_async_wait_group() {}
 inline void fence_proxy_async() {}
 inline uint64_t desc_b128(uint32_t addr, uint32_t lbo, uint32_t sbo) {

@@ -1,14 +1,17 @@
-"""The port's LM (llama3.2-1b and mamba2-780m SMOKE) against the JAX
-package's, from the same parameters (built by JAX ``init_lm``, carried over
+"""The port's LM (llama3.2-1b, mamba2-780m and minicpm3-4b SMOKE) against
+the JAX package's, from the same parameters (built by JAX ``init_lm``, carried over
 through ``repro_torch.convert``) and the same numpy tokens.
 
 Tolerances: 1e-4 at float32 compute (both sides in float32, sums in
 another order); at bfloat16 compute the two frameworks round the
-activations at different places: 5e-2 for llama3.2-1b, 0.15 for
+activations at different places: 5e-2 for llama3.2-1b and for
+minicpm3-4b (MLA; measured 3.9e-2 to 4.3e-2 over three token draws, under
+the JAX model's own bfloat16-to-float32 gap of 6.9e-2 to 1.1e-1), 0.15 for
 mamba2-780m, whose bfloat16 logits lie several times farther from their
 own float32 logits than llama's do, on both sides (the gated norm, the
 conv and the scan each round); decode-equals-forward < 2e-1 as in
-``tests/test_models_smoke.py``."""
+``tests/test_models_smoke.py`` (for MLA: the absorbed latent decode
+against the expanded forward)."""
 import dataclasses
 import importlib
 
@@ -26,10 +29,12 @@ from repro_torch.convert import (cache_from_numpy, cache_to_numpy, params_from_n
 from repro_torch.models import lm as tlm
 from repro_torch.models.registry import build
 
-ARCHS = ("llama3.2-1b", "mamba2-780m")
-BF16_TOL = {"llama3.2-1b": 5e-2, "mamba2-780m": 0.15}
-CACHE_KEYS = {"llama3.2-1b": ("k", "v"), "mamba2-780m": ("ssm_state", "conv_state")}
-PROMPT = {"llama3.2-1b": 16, "mamba2-780m": 20}   # 20: not a multiple of SMOKE's chunk 16
+ARCHS = ("llama3.2-1b", "mamba2-780m", "minicpm3-4b")
+BF16_TOL = {"llama3.2-1b": 5e-2, "mamba2-780m": 0.15, "minicpm3-4b": 5e-2}
+CACHE_KEYS = {"llama3.2-1b": ("k", "v"), "mamba2-780m": ("ssm_state", "conv_state"),
+              "minicpm3-4b": ("ckv", "krope")}
+# 20: not a multiple of mamba2 SMOKE's chunk 16
+PROMPT = {"llama3.2-1b": 16, "mamba2-780m": 20, "minicpm3-4b": 16}
 CPU = torch.device("cpu")
 
 

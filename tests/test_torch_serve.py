@@ -1,5 +1,6 @@
-"""The slices as a whole: greedy serving of llama3.2-1b and mamba2-780m
-SMOKE by the JAX package and by the port from the same numpy parameters and
+"""The slices as a whole: greedy serving of llama3.2-1b, mamba2-780m and
+minicpm3-4b (MLA: expanded prefill, absorbed latent decode) SMOKE by the
+JAX package and by the port from the same numpy parameters and
 prompts (20 tokens: not a multiple of mamba2 SMOKE's chunk 16, so the
 sequence padding runs), and the port's serve entry point with its durable
 request log."""
@@ -19,7 +20,7 @@ from repro_torch.convert import params_from_numpy
 from repro_torch.launch import serve
 from repro_torch.models.registry import build
 
-ARCHS = ("llama3.2-1b", "mamba2-780m")
+ARCHS = ("llama3.2-1b", "mamba2-780m", "minicpm3-4b")
 
 
 def _jax_generate(model, params, prompts, n_tokens):

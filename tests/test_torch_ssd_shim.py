@@ -1,7 +1,7 @@
 """K3's CUDA source, both routes, built with g++ against a CPU emulation of
-CUDA and of ``csrc/hopper.cuh`` (``tests/cuda_shim``) and held against the
-plain ``ssd_ref`` on CPU tensors: the indexing, the 128-byte swizzle, the
-wgmma descriptors (K-major and MN-major A and B, A from registers), the
+CUDA and of ``csrc/hopper.cuh`` (``tests/cuda_shim``, built by its
+``emulate.py``) and held against the plain ``ssd_ref`` on CPU tensors: the
+indexing, the 128-byte swizzle, the wgmma descriptors (K-major and MN-major A and B, A from registers), the
 chunk-parallel split and the hi/lo precision plan run as the card runs
 them, only slowly.  What the emulation cannot show is whether the card
 reads descriptors this way, nor speed: the card tests in
@@ -10,49 +10,22 @@ reads descriptors this way, nor speed: the card tests in
 Tolerances as there: y 2e-3 (f32) / 2e-2 (bf16), state 2e-3, all
 ·(1+|ref|).  Shapes stay at a few hundred rows: the emulation runs one
 thread per CUDA thread and the blocks one after another."""
-import re
-import shutil
-import subprocess
-
 import numpy as np
 import pytest
 import torch
 import torch.nn.functional as F
 
-from repro_torch.kernels import _build, ref
+from cuda_shim import emulate
+from repro_torch.kernels import ref
 from repro_torch.kernels import ssd_scan as ssd
 
-SHIM = _build.CSRC.parents[2] / "tests" / "cuda_shim"
 TOL = {"float32": 2e-3, "bfloat16": 2e-2}
-
-
-def emulation_source(src: str) -> str:
-    """``src`` rewritten for the shim: its headers, the dynamic shared
-    memory as a pointer into the shim's buffer, each launch as a loop."""
-    src = src.replace("#include <cuda_bf16.h>", '#include "cuda_shim.h"')
-    src = src.replace("#include <cuda_runtime.h>", "")
-    src = re.sub(r"extern __shared__ (\w+(?: \w+)?) (\w+)\[\];",
-                 r"\1* \2 = reinterpret_cast<\1*>(shim_smem());", src)
-    src = re.sub(r"(\w+(?:<[\w:]+>)?)<<<(.+?)>>>\((.*?)\);", r"shim_launch(\2, [&] { \1(\3); });",
-                 src)
-    assert "asm" not in src, "inline PTX left outside hopper.cuh"
-    return src
 
 
 @pytest.fixture(scope="module")
 def entry(tmp_path_factory):
-    gxx = shutil.which("g++")
-    if gxx is None:
-        pytest.skip("needs g++ to build the emulated kernel")
-    out = tmp_path_factory.mktemp("shim")   # one per session: workers share nothing
-    cpp = out / "ssd_scan_shim.cpp"
-    cpp.write_text(emulation_source(ssd.SRC.read_text()))
-    lib = out / "libssd_scan_shim.so"
-    res = subprocess.run([gxx, "-std=c++20", "-O1", "-pthread", "-fPIC", "-shared", "-w",
-                          "-I", str(SHIM), "-o", str(lib), str(cpp)],
-                         capture_output=True, text=True)
-    assert res.returncode == 0, res.stderr[-4000:]
-    return ssd.load(lib)
+    # one directory per session: workers share nothing
+    return ssd.load(emulate.build(ssd.SRC, tmp_path_factory.mktemp("shim")))
 
 
 def _close(got, want, tol):
