@@ -12,25 +12,30 @@ Phases, each of which must pass:
              card, on the sweep of the CPU tests, at every shape the later
              phases drive it at and, for K1, at bf16 head dim 128 and at
              MLA's q/k head dim 96 with v head dim 64 (SMOKE: 24 and 16),
+             and at hymba-1.5b's shapes (K1 at 25 query heads on 5 kv heads
+             with window 1024 and without, forward and backward; K3 at state
+             16 over 50 heads, reading the views of one 3232-wide row),
              with its time at its main path's shape beside the plain version's, a
              library call's (where one PyTorch call computes the same) and
              the card's bound; two K1 backward runs must agree (dq adds with
              atomics); each K1 and K3 case names the route it must take and
              is checked to have taken it; K1's times and the library's
-             (at llama's and at minicpm3's prefill), and K3's and its plain
-             version's, are taken in turns, with those of an earlier
+             (at llama's, minicpm3's and hymba's prefill, SDPA given hymba's
+             window as a boolean mask), and K3's and its plain version's (at
+             mamba2's and hymba's), are taken in turns, with those of an earlier
              commit's K1 and K3 sources when they are copied into
              build/parent/ (an older K1, whose C interface has no Dv, is
              timed at llama's shape only);
-  3. serve   llama3.2-1b, mamba2-780m, then minicpm3-4b, at full width
-             (batch 4, prompt 2048, 32 new tokens) through
-             ``repro_torch.launch.serve.main``, with the kernels' launch
-             counts (and K1's and K3's routes) set to 0 just before and read
-             just after each run, and the request log read back through the
-             port's NVCacheFS;
+  3. serve   llama3.2-1b, mamba2-780m, minicpm3-4b, then hymba-1.5b (K1
+             and K3 in every layer) at full width (batch 4, prompt 2048, 32
+             new tokens) through ``repro_torch.launch.serve.main``, with the
+             kernels' launch counts (and K1's and K3's routes) set to 0 just
+             before and read just after each run, and the request log read
+             back through the port's NVCacheFS;
   4. decode  teacher-forced decode against the full-sequence forward at full
              width, for each model, in float32 and in bfloat16 (MLA: the
-             absorbed latent decode against the expanded forward);
+             absorbed latent decode against the expanded forward; hymba
+             also from a 1040-token prefill, past its window of 1024);
   5. train   llama3.2-1b at full width (batch 4 x 2048, bf16 compute, f32
              parameters, AdamW, int8-compressed gradients) for a few steps
              through ``init_train_state``/``make_train_step``, with exact
@@ -60,7 +65,9 @@ from pathlib import Path
 PEAK_BF16_FLOPS = 989e12      # H100 SXM dense bf16 tensor-core peak
 PEAK_F32_FLOPS = 67e12        # H100 SXM fp32 on the CUDA cores
 PEAK_BYTES = 3.35e12          # H100 SXM HBM3
-ARCHS = {"llama3.2-1b": "k1", "mamba2-780m": "k3", "minicpm3-4b": "k1"}   # serving kernels
+# the kernels each arch's prefill launches, once per layer each
+ARCHS = {"llama3.2-1b": ("k1",), "mamba2-780m": ("k3",), "minicpm3-4b": ("k1",),
+         "hymba-1.5b": ("k1", "k3")}
 # K1 cases: (B, Sq, Skv, H, KV, D, Dv, dtype, causal, window), D of q/k, Dv of v
 SLICE = dict(B=4, Sq=2048, Skv=2048, H=32, KV=8, D=64, Dv=64)   # llama3.2-1b prefill, batch 4
 MASKS = [(True, None), (False, None), (True, 24)]
@@ -91,6 +98,17 @@ MLA_CASES = [(*MLA.values(), "bfloat16", True, None)] + [
     for B, Sq, Skv, H, KV in [(2, 64, 64, 4, 4), (1, 48, 96, 4, 1)]
     for dtype in ("float32", "bfloat16")
     for causal, window in MASKS]
+# hymba-1.5b (hybrid): 25 query heads on 5 kv heads (G = 5) at head dim 64,
+# window 1024 in 29 of its 32 layers and full causal attention in 3.
+# Serve's prefill, then the decode phase's forwards over 64 and 1088 tokens
+# and its prefills of 1 and 1040 tokens, each in both dtypes and both masks
+HYMBA = dict(B=4, Sq=2048, Skv=2048, H=25, KV=5, D=64, Dv=64)   # hymba-1.5b prefill, batch 4
+HYMBA_WINDOW = 1024
+HYMBA_CASES = [(*HYMBA.values(), dtype, True, window)
+               for dtype in ("bfloat16", "float32") for window in (HYMBA_WINDOW, None)] + [
+    (1, S, S, 25, 5, 64, 64, dtype, True, window)
+    for S in (64, 1, 1088, 1040) for dtype in ("float32", "bfloat16")
+    for window in (HYMBA_WINDOW, None)]
 # The attention sources of an earlier commit, when they are stashed here
 # (build/ is not committed): phase 2 then times them beside the kernels of
 # this tree and the library call, in turns, in this one process.
@@ -109,6 +127,9 @@ BWD_CASES = [(*TRAIN.values(), "bfloat16", True, None),
 # SMOKE step of phase 5 (batch 2, seq 32, 4 heads of 24 / 16)
 MLA_BWD_CASES = [(*MLA.values(), "bfloat16", True, None),
                  (2, 32, 32, 4, 4, 24, 16, "bfloat16", True, None)]
+# and at hymba's prefill shape with its window: off every main path (hymba
+# trains on the card once K3 has a backward), but dk and dv sum over G = 5
+HYMBA_BWD_CASES = [(*HYMBA.values(), "bfloat16", True, HYMBA_WINDOW)]
 # phase 5's minicpm3 SMOKE step on the card against the CPU route, same
 # parameters and tokens: float32 sums in another order (the card's float32
 # products in full fp32); bfloat16 rounds P and dS in the kernels and the
@@ -138,6 +159,15 @@ SSD_SWEEP = [(*shape, dtype)
 # route's least
 SSD_MODEL_CASES = [(*SSD_SLICE.values(), "bfloat16")] + [
     (1, S, 48, 64, 1, 128, S, dtype) for S in (64, 1) for dtype in ("float32", "bfloat16")]
+# hymba-1.5b: state 16 over 50 heads.  Serve's prefill, with x, B and C the
+# views of one 3232-wide row that ssm_forward hands over; then the decode
+# phase's forward over 64 tokens (its one-token prefill pads to the same 64
+# rows) and over 1088 tokens (its 1040-token prefill pads to the same 1280
+# rows), in both dtypes
+HYMBA_SSD = dict(b=4, s=2048, h=50, p=64, g=1, n=16, chunk=256)
+HYMBA_SSD_CASES = [(*HYMBA_SSD.values(), "bfloat16")] + [
+    (1, S, 50, 64, 1, 16, chunk, dtype) for S, chunk in ((64, 64), (1280, 256))
+    for dtype in ("float32", "bfloat16")]
 SSD_TOL = {"float32": 2e-3, "bfloat16": 2e-2}   # y; the float32 state is held to 2e-3
 
 
@@ -165,8 +195,20 @@ DECODE_TOL = {"float32": 2e-3, "bfloat16": 0.25}
 # forward| at most mean |bfloat16 forward - float32 forward|, same weights
 # and tokens.  In float32 the gap of a forward through the plain scan is
 # printed beside it: how far the chunked algorithm itself sits from the
-# recurrence.
-NOISE_HELD = {"mamba2-780m"}
+# recurrence.  hymba-1.5b's SSM half makes its gap grow with depth too, in
+# JAX as in the port (tests/test_torch_lm.py::
+# test_hymba_decode_gap_tracks_jax_with_depth), and at its 32 layers the
+# mean gap sits at the noise itself, 0.90-0.94x of it in JAX and 0.89-1.09x
+# in the port over three draws at SMOKE widths (tests/test_torch_hybrid.py::
+# test_decode_gap_sits_at_the_bf16_noise_in_jax_too), so the noise alone
+# leaves it no margin.  It is held to twice the noise: the bf16 decode and
+# the bf16 forward each lie about the noise from the f32 forward, so they
+# lie at most twice that from each other.  Factor per arch:
+NOISE_HELD = {"mamba2-780m": 1, "hymba-1.5b": 2}
+# (prompt, tokens) of each teacher-forced decode check: a one-token prefill
+# and 63 steps; for hymba-1.5b also a 1040-token prefill and 48 steps, each
+# of which sees only the last 1024 keys in its windowed layers
+DECODE_RUNS = {"hymba-1.5b": ((1, 64), (1040, 1088))}
 
 
 def visible_pairs(Sq, Skv, causal, window):
@@ -394,32 +436,47 @@ def main() -> int:
         return (q.transpose(1, 2), k.repeat_interleave(G, dim=2).transpose(1, 2),
                 v.repeat_interleave(G, dim=2).transpose(1, 2))
 
-    def sdpa_backend(qt, kt, vt):
+    def sdpa_backend(qt, kt, vt, **mask):
         """The backend PyTorch's default dispatch of scaled_dot_product_attention
-        picks for these inputs (v's head dim may differ from q's)."""
+        picks for these inputs (v's head dim may differ from q's) and mask
+        (``is_causal`` or ``attn_mask``)."""
         from torch.nn.attention import SDPBackend
         names = {getattr(SDPBackend, n).value: n for n in dir(SDPBackend) if n.isupper()}
-        return names.get(int(torch._fused_sdp_choice(qt, kt, vt, is_causal=True)), "unknown")
+        return names.get(int(torch._fused_sdp_choice(qt, kt, vt, **mask)), "unknown")
 
-    def time_forward(entry, shape, q, k, v):
+    def time_forward(entry, shape, q, k, v, window=None):
         """K1 and SDPA in turns (with the stashed earlier K1 when there is
-        one), the plain version and the bound, at ``shape``, into ``entry``."""
+        one), the plain version and the bound, at ``shape``, causal and with
+        ``window`` when one is given, into ``entry``.  SDPA has no window
+        argument: it gets the same mask as a boolean ``attn_mask``, and its
+        output is held to K1's."""
         qt, kt, vt = sdpa_args(q, k, v)
-        fns = [("kernel", lambda: fa.flash_attention_cuda(q, k, v, causal=True)),
-               ("sdpa", lambda: F.scaled_dot_product_attention(qt, kt, vt, is_causal=True))]
+        if window:
+            i = torch.arange(q.shape[1], device=dev)[:, None]
+            j = torch.arange(k.shape[1], device=dev)[None]
+            mask = {"attn_mask": (j <= i) & (j > i - window)}
+        else:
+            mask = {"is_causal": True}
+        fns = [("kernel", lambda: fa.flash_attention_cuda(q, k, v, causal=True, window=window)),
+               ("sdpa", lambda: F.scaled_dot_product_attention(qt, kt, vt, **mask))]
+        got, lib = fns[0][1]().float(), fns[1][1]().transpose(1, 2).float()
+        if not bool(((got - lib).abs() <= TOL["bfloat16"] * (1 + lib.abs())).all()):
+            raise AssertionError(f"SDPA and K1 disagree at {shape}, window {window}")
+        del got, lib
         earlier = "_entry" in parent and (parent["k1_takes_dv"] or shape["D"] == shape["Dv"])
         if earlier:
             fns.append(("earlier kernel", with_entry("_entry", parent["_entry"], fns[0][1])))
         times = in_turns(fns, 20)
         entry["ms"] = sum(times["kernel"]) / 2
         entry["library_ms"] = sum(times["sdpa"]) / 2
-        entry["sdpa_backend"] = backend = sdpa_backend(qt, kt, vt)
+        entry["sdpa_backend"] = backend = sdpa_backend(qt, kt, vt, **mask)
         if earlier:
             entry["earlier_ms"] = sum(times["earlier kernel"]) / 2
-        entry["plain_ms"] = cuda_ms(lambda: ref.attention_ref(q, k, v, causal=True), 5)
+        entry["plain_ms"] = cuda_ms(
+            lambda: ref.attention_ref(q, k, v, causal=True, window=window or 0), 5)
         entry["bound_ms"], entry["bound_by"] = attention_bound(
-            *shape.values(), 2, True, 0, PEAK_BF16_FLOPS)
-        print(f"  K1 at {shape} bf16 causal, in turns: "
+            *shape.values(), 2, True, window or 0, PEAK_BF16_FLOPS)
+        print(f"  K1 at {shape} bf16 causal window {window}, in turns: "
               + ", ".join(f"{name} {a:.4f}/{b:.4f} ms" for name, (a, b) in times.items())
               + f" (SDPA backend {backend}); plain {entry['plain_ms']:.4f} ms, bound "
               f"{entry['bound_ms']:.4f} ms ({entry['bound_by']})")
@@ -427,7 +484,7 @@ def main() -> int:
     def check_kernels():
         gen = torch.Generator(dev).manual_seed(0)
         bad, errs, slices = [], {}, {}
-        for case in SWEEP + MODEL_CASES + D128_CASES + MLA_CASES:
+        for case in SWEEP + MODEL_CASES + D128_CASES + MLA_CASES + HYMBA_CASES:
             B, Sq, Skv, H, KV, D, Dv, dtype, causal, window = case
             q, k, v = attention_inputs(gen, B, Sq, Skv, H, KV, D, Dv, dtype)
             want_route = fa.route(q.dtype, D, Dv)
@@ -445,22 +502,64 @@ def main() -> int:
                   f"max_abs_err={errs[case]:.3e} tol={TOL[dtype]} {'ok' if ok else 'MISMATCH'}")
             if not ok:
                 bad.append(case)
-            if case in (MODEL_CASES[0], MLA_CASES[0]):
+            if case in (MODEL_CASES[0], MLA_CASES[0], *HYMBA_CASES[:2]):
                 slices[case] = q, k, v
+            del q, k, v, got, want, diff
         k1["max_abs_err"] = errs[MODEL_CASES[0]]   # at llama's serving prefill shape
         k1["mla"] = {"shape": MLA, "max_abs_err": errs[MLA_CASES[0]]}
         time_forward(k1, SLICE, *slices[MODEL_CASES[0]])
         time_forward(k1["mla"], MLA, *slices[MLA_CASES[0]])
+        # hymba's windowed layers (29 of 32) and its global ones
+        for key, case in (("hymba", HYMBA_CASES[0]), ("hymba_global", HYMBA_CASES[1])):
+            k1[key] = {"shape": HYMBA, "window": case[-1], "max_abs_err": errs[case]}
+            time_forward(k1[key], HYMBA, *slices[case], window=case[-1])
         if bad:
             raise AssertionError(f"K1 disagrees with attention_ref in {bad}")
 
+    def projection_views(x, B, C):
+        """x, B and C as views of one (b, s, h p + 2 g n) row, as
+        ``ssm_forward`` hands them over; their layout asserted."""
+        h, p = x.shape[2:]
+        g, n = B.shape[2:]
+        hp, gn = h * p, g * n
+        row = torch.cat([x.flatten(2), B.flatten(2), C.flatten(2)], -1)
+        views = (row[..., :hp].unflatten(2, (h, p)), row[..., hp:hp + gn].unflatten(2, (g, n)),
+                 row[..., hp + gn:].unflatten(2, (g, n)))
+        assert [t.storage_offset() for t in views] == [0, hp, hp + gn]
+        assert all(t.stride(1) == hp + 2 * gn for t in views)
+        return views
+
+    def time_ssd(entry, shape, args):
+        """K3 and its plain version in turns (with the stashed earlier K3
+        when there is one) and the bound, at ``shape``, into ``entry``."""
+        chunk = shape["chunk"]
+        fns = [("kernel", lambda: ssd.ssd_cuda(*args, chunk=chunk)),
+               ("plain", lambda: ref.ssd_ref(*args, chunk=chunk))]
+        if "ssd" in parent:
+            fns.append(("earlier kernel", lambda: parent["ssd"](*args, chunk=chunk)))
+        times = in_turns(fns, 20)
+        entry["ms"] = sum(times["kernel"]) / 2
+        entry["plain_ms"] = sum(times["plain"]) / 2
+        if "ssd" in parent:
+            entry["earlier_ms"] = sum(times["earlier kernel"]) / 2
+        # the main path's route (bf16) at the bf16 tensor-core peak; the fma
+        # route's bound (fp32 operations) beside it
+        entry["bound_ms"], entry["bound_by"] = ssd_bound(*shape.values(), 2, PEAK_BF16_FLOPS)
+        bound_f32, by_f32 = ssd_bound(*shape.values(), 2, PEAK_F32_FLOPS)
+        print(f"  K3 at {shape} bf16 (wgmma route), in turns: "
+              + ", ".join(f"{name} {a:.4f}/{b:.4f} ms" for name, (a, b) in times.items())
+              + f"; library none, bound {entry['bound_ms']:.4f} ms ({entry['bound_by']}, bf16), "
+              f"{bound_f32:.4f} ms ({by_f32}, at the fp32 peak)")
+
     def check_ssd():
         gen = torch.Generator(dev).manual_seed(0)
-        bad, errs = [], {}
-        for case in SSD_SWEEP + SSD_MODEL_CASES:
+        bad, errs, timed = [], {}, {}
+        for case in SSD_SWEEP + SSD_MODEL_CASES + HYMBA_SSD_CASES:
             b, s, h, p, g, n, chunk, dtype = case
             cdt = getattr(torch, dtype)
             x, dt, A, B, C = bench_ssd.inputs(gen, dev, b, s, h, p, g, n, cdt)
+            if case == HYMBA_SSD_CASES[0]:
+                x, B, C = projection_views(x, B, C)   # 3232 wide: x at 0, B at 3200, C at 3216
             want = ssd_route_wanted(p, n, chunk, dtype)
             before = dict(ssd.ssd_cuda.routes)
             y, st = ssd.ssd_cuda(x, dt, A, B, C, chunk=chunk)
@@ -478,27 +577,13 @@ def main() -> int:
                   f"{'ok' if ok else 'MISMATCH'}")
             if not ok:
                 bad.append(case)
-            if case == SSD_MODEL_CASES[0]:
-                slice_args = x, dt, A, B, C
+            if case in (SSD_MODEL_CASES[0], HYMBA_SSD_CASES[0]):
+                timed[case] = x, dt, A, B, C
         k3["max_abs_err"] = errs[SSD_MODEL_CASES[0]]   # at the serving prefill shape
-        chunk = SSD_SLICE["chunk"]
-        fns = [("kernel", lambda: ssd.ssd_cuda(*slice_args, chunk=chunk)),
-               ("plain", lambda: ref.ssd_ref(*slice_args, chunk=chunk))]
-        if "ssd" in parent:
-            fns.append(("earlier kernel", lambda: parent["ssd"](*slice_args, chunk=chunk)))
-        times = in_turns(fns, 20)
-        k3["ms"] = sum(times["kernel"]) / 2
-        k3["plain_ms"] = sum(times["plain"]) / 2
-        if "ssd" in parent:
-            k3["earlier_ms"] = sum(times["earlier kernel"]) / 2
-        # the main path's route (bf16) at the bf16 tensor-core peak; the fma
-        # route's bound (fp32 operations) beside it
-        k3["bound_ms"], k3["bound_by"] = ssd_bound(*SSD_SLICE.values(), 2, PEAK_BF16_FLOPS)
-        bound_f32, by_f32 = ssd_bound(*SSD_SLICE.values(), 2, PEAK_F32_FLOPS)
-        print(f"  K3 at {SSD_SLICE} bf16 (wgmma route), in turns: "
-              + ", ".join(f"{name} {a:.4f}/{b:.4f} ms" for name, (a, b) in times.items())
-              + f"; library none, bound {k3['bound_ms']:.4f} ms ({k3['bound_by']}, bf16), "
-              f"{bound_f32:.4f} ms ({by_f32}, at the fp32 peak)")
+        time_ssd(k3, SSD_SLICE, timed[SSD_MODEL_CASES[0]])
+        k3["hymba"] = {"shape": HYMBA_SSD, "layout": "views of one 3232-wide row",
+                       "max_abs_err": errs[HYMBA_SSD_CASES[0]]}
+        time_ssd(k3["hymba"], HYMBA_SSD, timed[HYMBA_SSD_CASES[0]])
         if bad:
             raise AssertionError(f"K3 disagrees with ssd_ref in {bad}")
 
@@ -552,7 +637,7 @@ def main() -> int:
     def check_attention_bwd():
         gen = torch.Generator(dev).manual_seed(2)
         bad, errs, timed = [], {}, {}
-        for case in SWEEP + BWD_CASES + D128_CASES + MLA_BWD_CASES + MLA_CASES[5:]:
+        for case in SWEEP + BWD_CASES + D128_CASES + MLA_BWD_CASES + MLA_CASES[5:] + HYMBA_BWD_CASES:
             B, Sq, Skv, H, KV, D, Dv, dtype, causal, window = case
             q, k, v = attention_inputs(gen, B, Sq, Skv, H, KV, D, Dv, dtype)
             do = torch.randn((B, Sq, H, Dv), generator=gen, device=dev).to(q.dtype)
@@ -583,6 +668,8 @@ def main() -> int:
             del want, leaves
         k1b["max_abs_err"] = errs[BWD_CASES[0]]    # at llama's training shape
         k1b["mla"] = {"shape": MLA, "max_abs_err": errs[MLA_BWD_CASES[0]]}
+        k1b["hymba"] = {"shape": HYMBA, "window": HYMBA_WINDOW,
+                        "max_abs_err": errs[HYMBA_BWD_CASES[0]]}   # checked, not timed
         for entry, shape, case in ((k1b, TRAIN, BWD_CASES[0]), (k1b["mla"], MLA, MLA_BWD_CASES[0])):
             if not time_backward(entry, shape, *timed.pop(case)):
                 bad.append(f"run twice at {shape}")
@@ -646,18 +733,20 @@ def main() -> int:
                           "--tokens", str(T), "--seed", "0"])
         counts = read_counts(f"serve {arch}")
         own = ARCHS[arch]
-        kernels[own][0]["launches"] = counts[own]   # K1's is replaced by phase 5's
+        for key in own:   # the last arch's counts stand: this slice's path, hymba's
+            kernels[key][0]["launches"] = counts[key]
         peak = torch.cuda.max_memory_allocated() / 2**30
         print(f"  serve {arch}: prefill {res.prefill_s * 1e3:.2f} ms, decode "
               f"{B * T / res.decode_s:.1f} tokens/s ({res.decode_s / T * 1e3:.2f} ms/step), "
               f"peak memory {peak:.2f} GiB, launches {counts}")
-        want = {key: cfg.n_layers if key == own else 0 for key in kernels}
+        want = {key: cfg.n_layers if key in own else 0 for key in kernels}
         assert counts == want, f"{arch}: kernel launches {counts} in one request, want {want}"
         # every prefill layer on the wgmma route (K1: bf16 at head dims 64, or
-        # MLA's 96 and 64)
-        routes = dict((ssd.ssd_cuda if own == "k3" else fa.flash_attention_cuda).routes)
-        print(f"  {own.upper()} routes: {routes}")
-        assert routes == {**dict.fromkeys(routes, 0), "wgmma": cfg.n_layers}, routes
+        # MLA's 96 and 64; K3: bf16 at p 64 and n 128 or 16 on the views)
+        for key in own:
+            routes = dict((ssd.ssd_cuda if key == "k3" else fa.flash_attention_cuda).routes)
+            print(f"  {key.upper()} routes: {routes}")
+            assert routes == {**dict.fromkeys(routes, 0), "wgmma": cfg.n_layers}, routes
         assert res.tokens.shape == (B, T) and bool(torch.isfinite(res.logits).all())
         assert int(res.tokens.min()) >= 0 and int(res.tokens.max()) < cfg.vocab
         lines = [json.loads(x) for x in res.log.decode().splitlines()]
@@ -670,55 +759,63 @@ def main() -> int:
 
     # --------------------------------------------------------------- decode
     def decode_matches_forward(arch):
+        """Teacher-forced decode against the forward, for each of the arch's
+        ``DECODE_RUNS``: a prefill of ``P`` tokens, then a decode step for
+        each of the others up to ``S``, each step's logits against the
+        forward's over all ``S`` tokens."""
         cfg = get_config(arch)
-        S = 64
-        full_f32 = None
-        for dtype in ("float32", "bfloat16"):
-            model = build(dataclasses.replace(cfg, compute_dtype=dtype))
-            gen = torch.Generator(dev).manual_seed(1)
-            with torch.inference_mode():
-                params = model.init(gen)
-                toks = torch.randint(1, cfg.vocab - 1, (1, S), generator=gen, device=dev,
-                                     dtype=torch.int32)
-                before = dict(ssd.ssd_cuda.routes)
-                full, _ = model.forward(params, {"tokens": toks})
-                if dtype == "float32" and arch in NOISE_HELD:
-                    kernel_ssd, ops.ssd = ops.ssd, ref.ssd_ref
-                    try:
-                        plain_full, _ = model.forward(params, {"tokens": toks})
-                    finally:
-                        ops.ssd = kernel_ssd
-                _, cache = model.prefill(params, {"tokens": toks[:, :1]}, S + 2)
-                # K3 per layer for the forward and the one-token prefill
-                # (padded to 64 rows): the wgmma route in bf16, fma in f32
-                took = {r: k - before[r] for r, k in ssd.ssd_cuda.routes.items()}
-                want = dict.fromkeys(ssd.ROUTES, 0)
-                if ARCHS[arch] == "k3":
-                    want["wgmma" if dtype == "bfloat16" else "fma"] = 2 * cfg.n_layers
-                assert took == want, f"{dtype}: K3 routes {took}, want {want}"
-                outs = []
-                for t in range(1, S):
-                    lg, cache = model.decode_step(params, cache, toks[:, t:t + 1])
-                    outs.append(lg[:, 0])
-                dec = torch.stack(outs, 1)
-            assert bool(torch.isfinite(dec).all())
-            diff = (dec - full[:, 1:S]).abs()
-            gap, scale = float(diff.max()), float(full.abs().max())
-            if dtype == "float32":
-                full_f32 = full
-            if dtype == "bfloat16" and arch in NOISE_HELD:
-                noise = float((full - full_f32).abs().mean())
-                print(f"  decode vs forward, {arch} {dtype}: mean |logit gap| "
-                      f"{float(diff.mean()):.4e}, max {gap:.4e} (max |logit| {scale:.3f}), "
-                      f"held to the bf16 forward's mean |gap| to f32 {noise:.4e}")
-                assert float(diff.mean()) <= noise, f"{dtype}: decode/forward gap {diff.mean()}"
-            else:
-                plain = (f", with the plain scan {float((dec - plain_full[:, 1:S]).abs().max()):.4e}"
-                         if dtype == "float32" and arch in NOISE_HELD else "")
-                print(f"  decode vs forward, {arch} {dtype}: max |logit gap| {gap:.4e}{plain} "
-                      f"(max |logit| {scale:.3f}), tol {DECODE_TOL[dtype]}")
-                assert gap < DECODE_TOL[dtype], f"{dtype}: decode/forward gap {gap}"
-            del params, cache
+        for P, S in DECODE_RUNS.get(arch, ((1, 64),)):
+            full_f32 = None
+            for dtype in ("float32", "bfloat16"):
+                model = build(dataclasses.replace(cfg, compute_dtype=dtype))
+                gen = torch.Generator(dev).manual_seed(1)
+                with torch.inference_mode():
+                    params = model.init(gen)
+                    toks = torch.randint(1, cfg.vocab - 1, (1, S), generator=gen, device=dev,
+                                         dtype=torch.int32)
+                    before = dict(ssd.ssd_cuda.routes)
+                    full, _ = model.forward(params, {"tokens": toks})
+                    if dtype == "float32" and arch in NOISE_HELD:
+                        kernel_ssd, ops.ssd = ops.ssd, ref.ssd_ref
+                        try:
+                            plain_full, _ = model.forward(params, {"tokens": toks})
+                        finally:
+                            ops.ssd = kernel_ssd
+                    _, cache = model.prefill(params, {"tokens": toks[:, :P]}, S + 2)
+                    # K3 per layer for the forward and the prefill (a short
+                    # one padded to 64 rows): the wgmma route in bf16, fma in f32
+                    took = {r: k - before[r] for r, k in ssd.ssd_cuda.routes.items()}
+                    want = dict.fromkeys(ssd.ROUTES, 0)
+                    if "k3" in ARCHS[arch]:
+                        want["wgmma" if dtype == "bfloat16" else "fma"] = 2 * cfg.n_layers
+                    assert took == want, f"{dtype}: K3 routes {took}, want {want}"
+                    outs = []
+                    for t in range(P, S):
+                        lg, cache = model.decode_step(params, cache, toks[:, t:t + 1])
+                        outs.append(lg[:, 0])
+                    dec = torch.stack(outs, 1)
+                assert bool(torch.isfinite(dec).all())
+                diff = (dec - full[:, P:S]).abs()
+                gap, scale = float(diff.max()), float(full.abs().max())
+                if dtype == "float32":
+                    full_f32 = full
+                what = f"{arch} {dtype}, prefill {P} then {S - P} steps"
+                if dtype == "bfloat16" and arch in NOISE_HELD:
+                    noise = float((full - full_f32).abs().mean())
+                    print(f"  decode vs forward, {what}: mean |logit gap| "
+                          f"{float(diff.mean()):.4e}, max {gap:.4e} (max |logit| {scale:.3f}), "
+                          f"held to {NOISE_HELD[arch]}x the bf16 forward's mean |gap| to f32 "
+                          f"{noise:.4e}")
+                    assert float(diff.mean()) <= NOISE_HELD[arch] * noise, (
+                        f"{what}: decode/forward gap {diff.mean()}")
+                else:
+                    plain = (f", with the plain scan "
+                             f"{float((dec - plain_full[:, P:S]).abs().max()):.4e}"
+                             if dtype == "float32" and arch in NOISE_HELD else "")
+                    print(f"  decode vs forward, {what}: max |logit gap| {gap:.4e}{plain} "
+                          f"(max |logit| {scale:.3f}), tol {DECODE_TOL[dtype]}")
+                    assert gap < DECODE_TOL[dtype], f"{what}: decode/forward gap {gap}"
+                del params, cache
 
     for arch in ARCHS:
         phase(f"decode {arch}", lambda: decode_matches_forward(arch))
@@ -758,7 +855,7 @@ def main() -> int:
                   f"launches {per_step}")
             assert per_step == want, f"step {i + 1}: launches {per_step}, want {want}"
         counts = read_counts("train llama3.2-1b")
-        for key in ("k1", "k1b", "k2"):
+        for key in ("k1b", "k2"):   # K1's stands at hymba's serve, this slice's path
             kernels[key][0]["launches"] = counts[key]
         warm = times[1:]
         print(f"  train llama3.2-1b B={B} S={S}: warm step {sum(warm) / len(warm) * 1e3:.2f} ms "

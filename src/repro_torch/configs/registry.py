@@ -12,6 +12,7 @@ ARCHS = {
     "llama3.2-1b": "llama3_2_1b",
     "mamba2-780m": "mamba2_780m",
     "minicpm3-4b": "minicpm3_4b",
+    "hymba-1.5b": "hymba_1_5b",
 }
 
 

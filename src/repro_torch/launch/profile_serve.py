@@ -3,22 +3,25 @@
     python -m repro_torch.launch.profile_serve [ARCH ...]
 
 Serves each ported arch in turn (the registry's, in its order: llama3.2-1b,
-mamba2-780m, minicpm3-4b), or those named on the command line, at full
-width (batch 4, prompt 2048, 32 new tokens, seed 0) with
+mamba2-780m, minicpm3-4b, hymba-1.5b), or those named on the command line,
+at full width (batch 4, prompt 2048, 32 new tokens, seed 0) with
 ``repro_torch.launch.serve``'s prefill and decode: one run to warm up
-(allocator, cuBLAS, kernel library), one timed on the host clock around
-synchronised work, and one under ``torch.profiler`` for the device time by
-kernel.  For each it prints the warm prefill time, the decode time per
-step, the device-busy share of each (device kernel time over the timed
-run's wall time), the kernels that take the most device time, the
-hand-written kernels' launches per prefill and, summed over the CUDA
-kernels each of them runs (``OWN``), their device time per prefill and
-share of the prefill's device time, then one JSON line with those numbers
-and the card's name and power limit.  Needs a CUDA card.
+(allocator, cuBLAS, kernel library), ``REPS`` timed on the host clock
+around synchronised work (their median is reported, with the fastest and
+slowest: the host's clock varies between runs), and one under
+``torch.profiler`` for the device time by kernel.  For each it prints the
+warm prefill time, the decode time per step, the device-busy share of each
+(device kernel time over the median timed run's wall time), the kernels
+that take the most device time, the hand-written kernels' launches per
+prefill and, summed over the CUDA kernels each of them runs (``OWN``),
+their device time per prefill and share of the prefill's device time,
+then one JSON line with those numbers and the card's name and power
+limit.  Needs a CUDA card.
 """
 from __future__ import annotations
 
 import json
+import statistics
 import subprocess
 import sys
 import time
@@ -37,6 +40,7 @@ KERNELS = {"k1": flash_attention_cuda, "k3": ssd_cuda}
 # device-kernel names of the hand-written kernels (substrings of the profiler's keys)
 OWN = {"k1": ("fa_fwd_",), "k3": ("ssd_fwd", "ssd_chunk_state", "ssd_carry", "ssd_chunk_out")}
 TOP = 12                         # kernels listed per phase
+REPS = 5                         # timed runs of each phase
 
 
 def _timed(fn):
@@ -71,8 +75,12 @@ def profile_arch(arch: str, card: str):
                                 dtype=torch.int32)
         logits, cache = prefill(model, params, prompts, T)            # warm-up
         decode(model, params, logits, cache, T)
-        (logits, cache), prefill_s = _timed(lambda: prefill(model, params, prompts, T))
-        _, decode_s = _timed(lambda: decode(model, params, logits, cache, T))
+        runs = {"prefill": [], "decode": []}
+        for _ in range(REPS):
+            (logits, cache), wall_s = _timed(lambda: prefill(model, params, prompts, T))
+            runs["prefill"].append(wall_s)
+            runs["decode"].append(_timed(lambda: decode(model, params, logits, cache, T))[1])
+        prefill_s, decode_s = (statistics.median(runs[name]) for name in ("prefill", "decode"))
         launches = {k: fn.launches for k, fn in KERNELS.items()}
         with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof_p:
             logits, cache = prefill(model, params, prompts, T)
@@ -88,11 +96,13 @@ def profile_arch(arch: str, card: str):
         rows = _device_ms(prof)
         dev_ms = sum(ms for _, ms in rows)
         result[f"{name}_ms"] = wall_s * 1e3 / steps
+        result[f"{name}_ms_runs"] = [t * 1e3 / steps for t in runs[name]]
         result[f"{name}_device_ms"] = dev_ms / steps
         result[f"{name}_device_busy"] = dev_ms / (wall_s * 1e3)
         print(f"{arch} {name}: {wall_s * 1e3 / steps:.3f} ms{' per step' if steps > 1 else ''} "
-              f"warm, device kernels {dev_ms / steps:.3f} ms, busy "
-              f"{dev_ms / (wall_s * 1e3):.1%} of the unprofiled wall time")
+              f"warm (median of {REPS}, {min(runs[name]) * 1e3 / steps:.3f}-"
+              f"{max(runs[name]) * 1e3 / steps:.3f}), device kernels {dev_ms / steps:.3f} ms, "
+              f"busy {dev_ms / (wall_s * 1e3):.1%} of the median unprofiled wall time")
         for key, ms in rows[:TOP]:
             print(f"  {ms / steps:9.3f} ms  {ms / dev_ms:6.1%}  {key[:100]}")
         result[f"{name}_top"] = [[key[:100], ms / steps] for key, ms in rows[:TOP]]

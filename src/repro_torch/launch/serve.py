@@ -4,7 +4,9 @@ decode — no request is lost to a crash).
 
     python -m repro_torch.launch.serve --arch llama3.2-1b --smoke --tokens 16
 
-Runs on the CUDA device unless ``--device cpu`` is given.
+``--arch`` is one of the ported architectures: llama3.2-1b, mamba2-780m,
+minicpm3-4b or hymba-1.5b.  Runs on the CUDA device unless ``--device
+cpu`` is given.
 """
 from __future__ import annotations
 

@@ -1,10 +1,11 @@
-"""Decoder-only LM assembly, dense (GQA or MLA attention) and ssm families:
-a Python loop over the stacked ``(L, ...)`` layer parameters (the layout
-``repro.models.lm`` builds with ``vmap`` and scans over, so keys and shapes
-match its pytree), and four
-entry points — ``forward`` (full sequence, with ``cfg.remat`` when autograd
-records), ``loss_fn`` (next-token cross-entropy), ``prefill`` (build caches)
-and ``decode_step`` (one token).  The other families come with their own
+"""Decoder-only LM assembly, dense (GQA or MLA attention), ssm and hybrid
+(GQA attention and an SSM side by side on the same normed input, as
+hymba) families: a Python loop over the stacked ``(L, ...)`` layer
+parameters (the layout ``repro.models.lm`` builds with ``vmap`` and scans
+over, so keys and shapes match its pytree), and four entry points —
+``forward`` (full sequence, with ``cfg.remat`` when autograd records),
+``loss_fn`` (next-token cross-entropy), ``prefill`` (build caches) and
+``decode_step`` (one token).  The other families come with their own
 slices."""
 from __future__ import annotations
 
@@ -21,7 +22,6 @@ from repro_torch.models.layers import dense_init, rmsnorm, rope_cos_sin, swiglu
 NEG_WINDOW_OFF = 1 << 30   # "window" value that disables windowing
 
 _LATER = {
-    "hybrid": "the hybrid (hymba) slice",
     "moe": "the MoE slice",
     "vlm": "the VLM slice",
     "encdec": "the enc-dec slice",
@@ -30,7 +30,7 @@ _LATER = {
 
 def check_ported(cfg: ModelConfig):
     """Raise NotImplementedError for what the port cannot run yet."""
-    if cfg.family not in ("dense", "ssm"):
+    if cfg.family not in ("dense", "ssm", "hybrid"):
         raise NotImplementedError(f"{cfg.arch}: family {cfg.family!r} comes with "
                                   f"{_LATER.get(cfg.family, 'a later slice')}")
     if cfg.family == "ssm":
@@ -38,6 +38,9 @@ def check_ported(cfg: ModelConfig):
             raise NotImplementedError(f"{cfg.arch}: an ssm model with {cfg.attn_kind!r} "
                                       f"attention is the hybrid family's")
         return
+    if cfg.family == "hybrid" and cfg.attn_kind != "gqa":
+        raise NotImplementedError(f"{cfg.arch}: a hybrid model runs GQA attention beside "
+                                  f"its SSM, got {cfg.attn_kind!r}")
     if cfg.attn_kind not in ("gqa", "mla"):
         raise NotImplementedError(f"{cfg.arch}: {cfg.attn_kind!r} attention is not "
                                   f"in the port")
@@ -52,10 +55,15 @@ def _layer_init(cfg: ModelConfig, gen):
     norm1 = torch.ones((cfg.d_model,), dtype=cfg.pdt, device=gen.device)
     if cfg.family == "ssm":
         return {"norm1": norm1, "ssm": ssm_mod.ssm_init(cfg, gen)}
-    return {"norm1": norm1,
-            "attn": (attn.mla_init if cfg.attn_kind == "mla" else attn.gqa_init)(cfg, gen),
-            "norm2": torch.ones((cfg.d_model,), dtype=cfg.pdt, device=gen.device),
-            "mlp": _mlp_init(cfg, gen)}
+    p = {"norm1": norm1,
+         "attn": (attn.mla_init if cfg.attn_kind == "mla" else attn.gqa_init)(cfg, gen),
+         "norm2": torch.ones((cfg.d_model,), dtype=cfg.pdt, device=gen.device),
+         "mlp": _mlp_init(cfg, gen)}
+    if cfg.family == "hybrid":
+        p["ssm"] = ssm_mod.ssm_init(cfg, gen)
+        p["fuse_a"] = torch.full((cfg.d_model,), 0.5, dtype=cfg.pdt, device=gen.device)
+        p["fuse_s"] = torch.full((cfg.d_model,), 0.5, dtype=cfg.pdt, device=gen.device)
+    return p
 
 
 def _mlp_init(cfg, gen):
@@ -111,10 +119,15 @@ def init_lm(cfg: ModelConfig, gen: torch.Generator):
 
 
 def layer_windows(cfg: ModelConfig) -> torch.Tensor:
-    """Per-layer attention window (NEG_WINDOW_OFF = full attention).  Kept
-    on the CPU: the loop reads each entry with ``int()``."""
+    """Per-layer attention window (NEG_WINDOW_OFF = full attention): a
+    hybrid model's ``global_layers`` attend in full, its others over
+    ``swa_window``.  Kept on the CPU: the loop reads each entry with
+    ``int()``."""
     w = cfg.swa_window if cfg.swa_window else NEG_WINDOW_OFF
-    return torch.full((cfg.n_layers,), w, dtype=torch.int32)
+    win = torch.full((cfg.n_layers,), w, dtype=torch.int32)
+    if cfg.family == "hybrid" and cfg.swa_window and cfg.global_layers:
+        win[list(cfg.global_layers)] = NEG_WINDOW_OFF
+    return win
 
 
 # -------------------------------------------------------------------- block
@@ -124,11 +137,17 @@ def _mlp(pl, x):
                   pl["mlp"]["wd"].to(x.dtype))
 
 
+def _fuse(pl, x, a, s_out):
+    """The hybrid sum: the residual plus the attention and SSM outputs,
+    each weighted per channel."""
+    return x + pl["fuse_a"].to(x.dtype) * a + pl["fuse_s"].to(x.dtype) * s_out
+
+
 def _block(cfg: ModelConfig, pl, x, rope, window: int, *, return_kv=False):
     """One block, full-sequence path.  Returns (x, kv): with ``return_kv``,
     the layer's cache entries in ``_cache_keys`` order: (k, v), MLA's
-    (ckv, krope), or for ssm its (ssm state, conv state).  MLA takes no
-    window."""
+    (ckv, krope), for ssm its (ssm state, conv state), for hybrid
+    (k, v, ssm state, conv state).  MLA takes no window."""
     if cfg.family == "ssm":
         out = ssm_mod.ssm_forward(cfg, pl["ssm"], rmsnorm(x, pl["norm1"], cfg.norm_eps),
                                   return_state=return_kv)
@@ -144,7 +163,14 @@ def _block(cfg: ModelConfig, pl, x, rope, window: int, *, return_kv=False):
     kv = None
     if return_kv:
         a, kv = a
-    x = x + a
+    if cfg.family == "hybrid":
+        s_out = ssm_mod.ssm_forward(cfg, pl["ssm"], h, return_state=return_kv)
+        if return_kv:
+            s_out, state = s_out
+            kv = (*kv, *state)
+        x = _fuse(pl, x, a, s_out)
+    else:
+        x = x + a
     h2 = rmsnorm(x, pl["norm2"], cfg.norm_eps)
     return x + _mlp(pl, h2), kv
 
@@ -235,32 +261,36 @@ def loss_fn(cfg: ModelConfig, params, batch, *, aux_weight=0.01):
 
 def init_cache(cfg: ModelConfig, batch: int, max_len: int, device="cuda"):
     """Decode cache, stacked over layers: k/v (dense GQA), the latent ckv and
-    krope (MLA), or ssm_state (float32) and conv_state (ssm; ``max_len``
-    does not size it)."""
+    krope (MLA), ssm_state (float32) and conv_state (ssm; ``max_len`` does
+    not size them), or k/v and both SSM entries (hybrid)."""
     L = cfg.n_layers
     c = {"pos": torch.zeros((), dtype=torch.int32, device=device)}
-    if cfg.family == "ssm":
+    if cfg.family != "ssm":
+        if cfg.attn_kind == "mla":
+            c["ckv"] = torch.zeros((L, batch, max_len, cfg.kv_lora_rank), dtype=cfg.cdt,
+                                   device=device)
+            c["krope"] = torch.zeros((L, batch, max_len, cfg.qk_rope_dim), dtype=cfg.cdt,
+                                     device=device)
+        else:
+            kvh, hd = cfg.n_kv_heads, cfg.head_dim
+            c["k"] = torch.zeros((L, batch, max_len, kvh, hd), dtype=cfg.cdt, device=device)
+            c["v"] = torch.zeros((L, batch, max_len, kvh, hd), dtype=cfg.cdt, device=device)
+    if cfg.family in ("ssm", "hybrid"):
         st, cv = ssm_mod.ssm_init_cache(cfg, batch, cfg.cdt, device)
         c["ssm_state"] = st.new_zeros((L, *st.shape))
         c["conv_state"] = cv.new_zeros((L, *cv.shape))
-        return c
-    if cfg.attn_kind == "mla":
-        c["ckv"] = torch.zeros((L, batch, max_len, cfg.kv_lora_rank), dtype=cfg.cdt,
-                               device=device)
-        c["krope"] = torch.zeros((L, batch, max_len, cfg.qk_rope_dim), dtype=cfg.cdt,
-                                 device=device)
-        return c
-    kvh, hd = cfg.n_kv_heads, cfg.head_dim
-    c["k"] = torch.zeros((L, batch, max_len, kvh, hd), dtype=cfg.cdt, device=device)
-    c["v"] = torch.zeros((L, batch, max_len, kvh, hd), dtype=cfg.cdt, device=device)
     return c
+
+
+_SSM_KEYS = ("ssm_state", "conv_state")   # whole per layer: no sequence axis
 
 
 def _cache_keys(cfg: ModelConfig):
     """The per-layer cache entries ``_block_decode`` takes, in its order."""
     if cfg.family == "ssm":
-        return ("ssm_state", "conv_state")
-    return ("ckv", "krope") if cfg.attn_kind == "mla" else ("k", "v")
+        return _SSM_KEYS
+    keys = ("ckv", "krope") if cfg.attn_kind == "mla" else ("k", "v")
+    return (*keys, *_SSM_KEYS) if cfg.family == "hybrid" else keys
 
 
 def prefill(cfg: ModelConfig, params, tokens, max_len: int, positions=None):
@@ -277,11 +307,19 @@ def prefill(cfg: ModelConfig, params, tokens, max_len: int, positions=None):
                                       layer_windows(cfg))):
         x, kv = _block(cfg, pl, x, rope, int(win), return_kv=True)
         for key, val in zip(_cache_keys(cfg), kv):
-            if cfg.family == "ssm":
+            if key in _SSM_KEYS:
                 cache[key][i] = val
             else:
                 cache[key][i, :, :S] = val
     return _unembed(cfg, params, x[:, -1:]), cache
+
+
+def _ssm_decode(cfg: ModelConfig, pl, h, state, conv_state):
+    """The SSM's one-token step, its two cache views updated in place."""
+    out, st, cv = ssm_mod.ssm_decode(cfg, pl["ssm"], h, state, conv_state)
+    state.copy_(st)
+    conv_state.copy_(cv)
+    return out
 
 
 def _block_decode(cfg: ModelConfig, pl, x, rope, window: int, caches, pos):
@@ -289,18 +327,19 @@ def _block_decode(cfg: ModelConfig, pl, x, rope, window: int, caches, pos):
     ``_cache_keys`` order, updated in place.  Returns (x, caches)."""
     h = rmsnorm(x, pl["norm1"], cfg.norm_eps)
     if cfg.family == "ssm":
-        out, st, cv = ssm_mod.ssm_decode(cfg, pl["ssm"], h, caches[0], caches[1])
-        caches[0].copy_(st)
-        caches[1].copy_(cv)
-        return x + out, caches
+        return x + _ssm_decode(cfg, pl, h, *caches), caches
     if cfg.attn_kind == "mla":
-        a, *caches = attn.mla_decode(cfg, pl["attn"], h, caches[0], caches[1], pos, rope)
+        a, *new = attn.mla_decode(cfg, pl["attn"], h, caches[0], caches[1], pos, rope)
     else:
-        a, *caches = attn.gqa_decode(cfg, pl["attn"], h, caches[0], caches[1], pos, rope,
-                                     window=window)
-    x = x + a
+        a, *new = attn.gqa_decode(cfg, pl["attn"], h, caches[0], caches[1], pos, rope,
+                                  window=window)
+    if cfg.family == "hybrid":
+        x = _fuse(pl, x, a, _ssm_decode(cfg, pl, h, *caches[2:]))
+        new += caches[2:]
+    else:
+        x = x + a
     h2 = rmsnorm(x, pl["norm2"], cfg.norm_eps)
-    return x + _mlp(pl, h2), tuple(caches)
+    return x + _mlp(pl, h2), tuple(new)
 
 
 def decode_step(cfg: ModelConfig, params, cache, tokens):

@@ -74,8 +74,10 @@ def ssm_forward(cfg: ModelConfig, p, x, *, return_state=False):
     A = -torch.exp(p["A_log"].float())
     xs_res = xs                          # un-padded, for the D skip term
     # The JAX version's ssm_pad_heads_to and sharding constraints only steer
-    # how heads are split across a mesh; on one device they change nothing
-    # (and mamba2-780m's 48 heads are a multiple of 16 anyway).
+    # how heads are split across a mesh.  It pads hymba-1.5b's 50 heads to
+    # 64 with x = 0, dt = 0 and A = -1: each head scans on its own, the
+    # padded ones give y = 0 and state 0, and it slices them off again.  On
+    # one device that changes nothing, so the port runs the 50 heads.
     # pad sequence to a chunk multiple: dt = 0 there leaves y and the state
     # as they are.  A prompt shorter than ssm_chunk gets one chunk rounded up
     # to a multiple of 64, the kernel's wgmma tile, so that every bf16

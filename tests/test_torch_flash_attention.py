@@ -54,6 +54,10 @@ MLA_CARD_SHAPES = [(1, 256, 256, 40, 40, 96, 64), (2, 64, 96, 4, 1, 24, 16),
                    (1, 96, 80, 4, 2, 88, 56), (1, 64, 64, 4, 4, 16, 64),
                    (1, 160, 160, 4, 2, 128, 64), (1, 160, 160, 4, 2, 64, 128),
                    (1, 160, 160, 4, 4, 96, 128), (1, 64, 64, 4, 2, 16, 32)]
+# on the card: hymba-1.5b's 25 query heads on 5 kv heads (G = 5) with its
+# window of 1024 cutting inside a 128-key tile over 1100 tokens, and the
+# decode phase's one-token prefill at those heads
+HYMBA_CARD_CASES = [(1, 1100, 1100, 25, 5, 64, 1024), (1, 1, 1, 25, 5, 64, 1024)]
 
 
 @pytest.fixture(scope="module")
@@ -219,6 +223,24 @@ def test_kernel_matches_plain_on_card(cuda, B, Sq, Skv, H, KV, D, dtype, causal,
     assert flash_attention_cuda.launches == before + 1
     want = tref.attention_ref(q, k, v, causal=causal, window=window or 0)
     _close(_f32(got), _f32(want), dtype)
+
+
+@pytest.mark.parametrize("B,Sq,Skv,H,KV,D,window", HYMBA_CARD_CASES)
+@pytest.mark.parametrize("dtype", DTYPES)
+def test_kernel_group_of_five_with_window_matches_plain_on_card(cuda, B, Sq, Skv, H, KV, D,
+                                                                window, dtype):
+    """Output, then dq, dk and dv (dk and dv summed over the 5 query heads
+    of each kv head), against the plain version and its autograd."""
+    q, k, v = (torch.from_numpy(a).to(cuda, getattr(torch, dtype))
+               for a in _inputs(B, Sq, Skv, H, KV, D, seed=3))
+    got = flash_attention_cuda(q, k, v, causal=True, window=window)
+    _close(_f32(got), _f32(tref.attention_ref(q, k, v, causal=True, window=window)), dtype)
+    do = torch.from_numpy(_inputs(B, Sq, Sq, H, H, D, seed=4)[0]).to(cuda, q.dtype)
+    got, want = _kernel_and_plain_grads(q, k, v, do, causal=True, window=window)
+    torch.cuda.synchronize()
+    for g, w in zip(got, want):
+        assert g.shape == w.shape
+        _grad_close(g, w, TOL[dtype])
 
 
 def test_kernel_reads_strided_views_on_card(cuda):

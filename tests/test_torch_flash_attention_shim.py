@@ -42,6 +42,10 @@ CASES = [  # (B, Sq, Skv, H, KV, D, Dv, dtype, causal, window, v a view)
     (1, 64, 64, 2, 1, 96, 128, "bfloat16", False, None, False),
     (1, 64, 64, 2, 1, 64, 128, "bfloat16", True, None, True),
     (1, 96, 96, 2, 1, 64, 64, "bfloat16", True, 40, False),
+    # hymba-1.5b's group of 5 query heads per kv head (two kv heads, so a
+    # wrong head-to-group map shows), with a window that cuts inside a
+    # 128-key tile across three k tiles
+    (1, 320, 320, 10, 2, 64, 64, "bfloat16", True, 130, False),
     # mma.sync: minicpm3 SMOKE's 24 / 16 (MQA, Skv != Sq), and a window
     (1, 48, 80, 4, 1, 24, 16, "bfloat16", True, None, True),
     (2, 40, 40, 4, 2, 24, 16, "bfloat16", True, 12, False),

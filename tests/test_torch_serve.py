@@ -1,8 +1,9 @@
-"""The slices as a whole: greedy serving of llama3.2-1b, mamba2-780m and
-minicpm3-4b (MLA: expanded prefill, absorbed latent decode) SMOKE by the
-JAX package and by the port from the same numpy parameters and
-prompts (20 tokens: not a multiple of mamba2 SMOKE's chunk 16, so the
-sequence padding runs), and the port's serve entry point with its durable
+"""The slices as a whole: greedy serving of llama3.2-1b, mamba2-780m,
+minicpm3-4b (MLA: expanded prefill, absorbed latent decode) and hymba-1.5b
+(hybrid: windowed attention beside an SSM) SMOKE by the JAX package and by
+the port from the same numpy parameters and prompts (20 tokens: not a
+multiple of mamba2's or hymba's SMOKE chunk 16, so the sequence padding
+runs; past hymba's window 16, so it cuts), and the port's serve entry point with its durable
 request log."""
 import dataclasses
 import json
@@ -20,7 +21,7 @@ from repro_torch.convert import params_from_numpy
 from repro_torch.launch import serve
 from repro_torch.models.registry import build
 
-ARCHS = ("llama3.2-1b", "mamba2-780m", "minicpm3-4b")
+ARCHS = ("llama3.2-1b", "mamba2-780m", "minicpm3-4b", "hymba-1.5b")
 
 
 def _jax_generate(model, params, prompts, n_tokens):

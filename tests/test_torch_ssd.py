@@ -181,6 +181,7 @@ def _contiguous(b, s, h, p, g, n, dtype=torch.bfloat16):
 ROUTE_CASES = [
     ("views of one 3328-wide projection, chunk 64", lambda: _projection_views(1, 64, 48, 64, 1, 128), 64, "wgmma"),
     ("views of one 3328-wide projection, chunk 256", lambda: _projection_views(1, 256, 48, 64, 1, 128), 256, "wgmma"),
+    ("views of hymba's 3232-wide projection, n=16", lambda: _projection_views(1, 256, 50, 64, 1, 16), 256, "wgmma"),
     ("contiguous, g=2, n=64", lambda: _contiguous(2, 128, 8, 64, 2, 64), 128, "wgmma"),
     ("float32", lambda: _contiguous(1, 256, 4, 64, 1, 128, torch.float32), 256, "fma"),
     ("chunk 1 (the one-token prefill)", lambda: _projection_views(1, 1, 48, 64, 1, 128), 1, "fma"),
@@ -305,9 +306,10 @@ def test_kernel_matches_plain_on_card(cuda, b, s, h, p, g, n, chunk, dtype):
 
 
 # the wgmma route: the serving shape (mamba2-780m prefill, batch 4), two
-# groups of four heads, and fast-decaying heads at the serving chunk
+# groups of four heads, fast-decaying heads at the serving chunk, and
+# hymba-1.5b's state 16 over its 50 heads (the route's loops at their least)
 WGMMA_CASES = [(4, 2048, 48, 64, 1, 128, 256, 1.0), (2, 512, 8, 64, 2, 128, 256, 1.0),
-               (1, 1024, 4, 64, 1, 64, 128, 16.0)]
+               (1, 1024, 4, 64, 1, 64, 128, 16.0), (2, 512, 50, 64, 1, 16, 256, 1.0)]
 
 
 @pytest.mark.parametrize("b,s,h,p,g,n,chunk,decay", WGMMA_CASES)
@@ -321,13 +323,14 @@ def test_wgmma_route_matches_plain_on_card(cuda, b, s, h, p, g, n, chunk, decay)
     _close(_f32(st), _f32(wst), TOL["float32"])
 
 
-def test_wgmma_route_reads_projection_views_on_card(cuda):
-    """Full-width x, B and C as views of one (b, s, 3328) projection, as
-    mamba2-780m's ``ssm_forward`` hands them over, at chunk 256: read in
-    place, no copy."""
-    b, s, h, p, g, n = 2, 512, 48, 64, 1, 128
+@pytest.mark.parametrize("h,n,width", [(48, 128, 3328), (50, 16, 3232)])
+def test_wgmma_route_reads_projection_views_on_card(cuda, h, n, width):
+    """Full-width x, B and C as views of one (b, s, width) projection, as
+    the ``ssm_forward`` of mamba2-780m (3328) and of hymba-1.5b (3232)
+    hands them over, at chunk 256: read in place, no copy."""
+    b, s, p, g = 2, 512, 64, 1
     x, B, C = _projection_views(b, s, h, p, g, n, device=cuda)
-    assert x.stride(1) == B.stride(1) == C.stride(1) == 3328
+    assert x.stride(1) == B.stride(1) == C.stride(1) == width
     _, dt, A, _, _ = _torch(_inputs(b, s, h, p, g, n), "float32", cuda)
     y, st = _run_on_route("wgmma", x, dt, A, B, C, chunk=256)
     wy, wst = tref.ssd_ref(x, dt, A, B, C, chunk=256)

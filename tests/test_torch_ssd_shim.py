@@ -40,6 +40,9 @@ CASES = [  # (b, s, h, p, g, n, chunk, dtype, layout, A scale)
     (1, 192, 1, 64, 1, 48, 64, "bfloat16", "contiguous", 1.0),
     (1, 256, 1, 64, 1, 96, 256, "bfloat16", "contiguous", 1.0),
     (1, 256, 3, 64, 1, 128, 128, "bfloat16", "projection", 1.0),
+    # hymba-1.5b's state 16: the carry's grid, C·Sᵀ's k loop and the state
+    # stores at their least
+    (1, 256, 3, 64, 1, 16, 128, "bfloat16", "projection", 1.0),
     (1, 256, 2, 64, 1, 128, 128, "bfloat16", "contiguous", 8.0),
     (1, 64, 2, 16, 2, 16, 16, "float32", "contiguous", 1.0),
     (1, 64, 2, 16, 2, 16, 16, "bfloat16", "contiguous", 1.0),

@@ -1,6 +1,6 @@
 """The port's training path (llama3.2-1b SMOKE) against the JAX package's:
-the loss and every parameter gradient (also for mamba2-780m and MLA's
-minicpm3-4b), remat, AdamW with clipping, the
+the loss and every parameter gradient (also for mamba2-780m, MLA's
+minicpm3-4b and hybrid hymba-1.5b), remat, AdamW with clipping, the
 schedule and int8 gradient compression step by step on identical
 gradients, the data pipeline, the NVCache-backed loop with crash-safe
 resume, and the launcher, all on the CPU.
@@ -12,9 +12,10 @@ in float32, sums in another order; measured ~2e-7, 3.1e-6 for mamba2); at
 bfloat16 compute 1e-2·(1+|ref|) for the gradients and 5e-3 for the loss,
 because the two frameworks round activations and their cotangents to
 bfloat16 at different places (measured 3.0e-3 and 9.1e-4 for llama, 3.1e-3
-and 7.2e-4 for minicpm3-4b); mamba2's bfloat16 gradients 3e-2·(1+|ref|)
-(measured 1.44e-2: its gated norm, conv and scan each round, as its
-forward's wider tolerance in ``test_torch_lm.py`` says).  AdamW 1e-6: the same
+and 7.2e-4 for minicpm3-4b); mamba2's and hymba's bfloat16 gradients
+3e-2·(1+|ref|) (measured 1.44e-2 and 1.12e-2: their gated norm, conv and
+scan each round, as their forwards' wider tolerances in
+``test_torch_lm.py`` say).  AdamW 1e-6: the same
 float32 arithmetic in the same order; compressed gradients exactly equal
 (the int8 codes and scales are bit-identical, ``tests/test_torch_quantize.py``).
 """
@@ -86,8 +87,9 @@ def _jax_grads(np_params, toks, compute_dtype="float32", arch=ARCH):
     return loss, metrics, jax.tree.map(np.asarray, grads)
 
 
-# parameter leaves of each SMOKE model (MLA's attention has seven)
-LEAVES = {"llama3.2-1b": 11, "mamba2-780m": 11, "minicpm3-4b": 14}
+# parameter leaves of each SMOKE model (MLA's attention has seven; hymba
+# adds the SSM's eight, the two fuse weights and an untied unembedding)
+LEAVES = {"llama3.2-1b": 11, "mamba2-780m": 11, "minicpm3-4b": 14, "hymba-1.5b": 22}
 
 
 @pytest.mark.parametrize("arch", list(LEAVES))
@@ -96,7 +98,7 @@ LEAVES = {"llama3.2-1b": 11, "mamba2-780m": 11, "minicpm3-4b": 14}
 def test_loss_and_grads_match_jax(np_params, arch, compute_dtype, tol, loss_tol):
     if arch != ARCH:
         np_params = jax.tree.map(np.asarray, jlm.init_lm(jax_smoke(arch), jax.random.PRNGKey(0)))
-    if arch == "mamba2-780m" and compute_dtype == "bfloat16":
+    if arch in ("mamba2-780m", "hymba-1.5b") and compute_dtype == "bfloat16":
         tol = 3e-2
     toks = _tokens()
     jloss, jmetrics, jgrads = _jax_grads(np_params, toks, compute_dtype, arch)
