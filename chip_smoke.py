@@ -14,20 +14,25 @@ Phases, each of which must pass:
              MLA's q/k head dim 96 with v head dim 64 (SMOKE: 24 and 16),
              and at hymba-1.5b's shapes (K1 at 25 query heads on 5 kv heads
              with window 1024 and without, forward and backward; K3 at state
-             16 over 50 heads, reading the views of one 3232-wide row),
+             16 over 50 heads, reading the views of one 3232-wide row), and
+             K1 at head dim 128 at minitron-8b's, granite-20b's (MQA) and
+             qwen2-vl-7b's groups of 4, 48 and 7 query heads per kv head,
              with its time at its main path's shape beside the plain version's, a
              library call's (where one PyTorch call computes the same) and
              the card's bound; two K1 backward runs must agree (dq adds with
              atomics); each K1 and K3 case names the route it must take and
              is checked to have taken it; K1's times and the library's
-             (at llama's, minicpm3's and hymba's prefill, SDPA given hymba's
-             window as a boolean mask), and K3's and its plain version's (at
+             (at llama's, minicpm3's, hymba's, minitron's, granite's and
+             qwen2-vl's prefill, SDPA given hymba's window as a boolean
+             mask), and K3's and its plain version's (at
              mamba2's and hymba's), are taken in turns, with those of an earlier
              commit's K1 and K3 sources when they are copied into
              build/parent/ (an older K1, whose C interface has no Dv, is
              timed at llama's shape only);
-  3. serve   llama3.2-1b, mamba2-780m, minicpm3-4b, then hymba-1.5b (K1
-             and K3 in every layer) at full width (batch 4, prompt 2048, 32
+  3. serve   llama3.2-1b, mamba2-780m, minicpm3-4b, hymba-1.5b (K1 and K3
+             in every layer), minitron-8b, granite-20b (learned positions,
+             bfloat16 parameters: its float32 ones do not fit the card) and
+             qwen2-vl-7b (M-RoPE) at full width (batch 4, prompt 2048, 32
              new tokens) through ``repro_torch.launch.serve.main``, with the
              kernels' launch counts (and K1's and K3's routes) set to 0 just
              before and read just after each run, and the request log read
@@ -35,14 +40,17 @@ Phases, each of which must pass:
   4. decode  teacher-forced decode against the full-sequence forward at full
              width, for each model, in float32 and in bfloat16 (MLA: the
              absorbed latent decode against the expanded forward; hymba
-             also from a 1040-token prefill, past its window of 1024);
+             also from a 1040-token prefill, past its window of 1024;
+             qwen2-vl also from a prefill of text and an image grid whose
+             three M-RoPE position streams differ);
   5. train   llama3.2-1b at full width (batch 4 x 2048, bf16 compute, f32
              parameters, AdamW, int8-compressed gradients) for a few steps
              through ``init_train_state``/``make_train_step``, with exact
              launch counts per step and a falling loss; minicpm3-4b at SMOKE
              size: its loss and gradients on the card against the CPU route
              from the same parameters, then one step and the launcher's
-             loop with exact launch counts; then the training loop at
+             loop with exact launch counts; granite-20b at SMOKE size
+             (learned positions, MQA) the same way; then the training loop at
              SMOKE size through
              ``repro_torch.launch.train.main``, and a crash, NVMM-log
              recovery and resume that lands on the exact step.
@@ -67,7 +75,8 @@ PEAK_F32_FLOPS = 67e12        # H100 SXM fp32 on the CUDA cores
 PEAK_BYTES = 3.35e12          # H100 SXM HBM3
 # the kernels each arch's prefill launches, once per layer each
 ARCHS = {"llama3.2-1b": ("k1",), "mamba2-780m": ("k3",), "minicpm3-4b": ("k1",),
-         "hymba-1.5b": ("k1", "k3")}
+         "hymba-1.5b": ("k1", "k3"), "minitron-8b": ("k1",), "granite-20b": ("k1",),
+         "qwen2-vl-7b": ("k1",)}
 # K1 cases: (B, Sq, Skv, H, KV, D, Dv, dtype, causal, window), D of q/k, Dv of v
 SLICE = dict(B=4, Sq=2048, Skv=2048, H=32, KV=8, D=64, Dv=64)   # llama3.2-1b prefill, batch 4
 MASKS = [(True, None), (False, None), (True, 24)]
@@ -109,6 +118,22 @@ HYMBA_CASES = [(*HYMBA.values(), dtype, True, window)
     (1, S, S, 25, 5, 64, 64, dtype, True, window)
     for S in (64, 1, 1088, 1040) for dtype in ("float32", "bfloat16")
     for window in (HYMBA_WINDOW, None)]
+# minitron-8b, granite-20b and qwen2-vl-7b: head dim 128 with (H, KV) of
+# (32, 8), (48, 1) and (28, 4), groups of 4, 48 (MQA) and 7.  Serve's
+# prefills, then the decode phase's forwards over 64 tokens and its
+# one-token prefills in both dtypes, and qwen2-vl's image-grid run: a
+# 264-token prefill and the forward over 296 tokens
+D128_SERVE = {"minitron-8b": (32, 8), "granite-20b": (48, 1), "qwen2-vl-7b": (28, 4)}
+D128_SERVE_CASES = [(4, 2048, 2048, H, KV, 128, 128, "bfloat16", True, None)
+                    for H, KV in D128_SERVE.values()] + [
+    (1, S, S, H, KV, 128, 128, dtype, True, None)
+    for H, KV in D128_SERVE.values() for S in (64, 1) for dtype in ("float32", "bfloat16")] + [
+    (1, S, S, 28, 4, 128, 128, dtype, True, None)
+    for S in (264, 296) for dtype in ("float32", "bfloat16")]
+# phase 5's granite-20b SMOKE step (batch 2, seq 32, 4 heads on one kv head
+# of 16) in both dtypes, and its launcher's loop (seq 64), forward and backward
+GRANITE_SMOKE_CASES = [(2, S, S, 4, 1, 16, 16, dtype, True, None)
+                       for S, dtype in ((32, "float32"), (32, "bfloat16"), (64, "bfloat16"))]
 # The attention sources of an earlier commit, when they are stashed here
 # (build/ is not committed): phase 2 then times them beside the kernels of
 # this tree and the library call, in turns, in this one process.
@@ -130,10 +155,11 @@ MLA_BWD_CASES = [(*MLA.values(), "bfloat16", True, None),
 # and at hymba's prefill shape with its window: off every main path (hymba
 # trains on the card once K3 has a backward), but dk and dv sum over G = 5
 HYMBA_BWD_CASES = [(*HYMBA.values(), "bfloat16", True, HYMBA_WINDOW)]
-# phase 5's minicpm3 SMOKE step on the card against the CPU route, same
-# parameters and tokens: float32 sums in another order (the card's float32
-# products in full fp32); bfloat16 rounds P and dS in the kernels and the
-# activations at other places, as the CPU tests' bf16 bounds against JAX:
+# phase 5's minicpm3 and granite SMOKE steps on the card against the CPU
+# route, same parameters and tokens: float32 sums in another order (the
+# card's float32 products in full fp32); bfloat16 rounds P and dS in the
+# kernels and the activations at other places, as the CPU tests' bf16
+# bounds against JAX:
 # loss |d| <= tol, gradients |d| <= tol·(1+|ref|)
 STEP_TOL = {"float32": (1e-4, 1e-4), "bfloat16": (5e-3, 1e-2)}   # (loss, gradients)
 TRAIN_STEPS = 4
@@ -203,12 +229,41 @@ DECODE_TOL = {"float32": 2e-3, "bfloat16": 0.25}
 # test_decode_gap_sits_at_the_bf16_noise_in_jax_too), so the noise alone
 # leaves it no margin.  It is held to twice the noise: the bf16 decode and
 # the bf16 forward each lie about the noise from the f32 forward, so they
-# lie at most twice that from each other.  Factor per arch:
-NOISE_HELD = {"mamba2-780m": 1, "hymba-1.5b": 2}
-# (prompt, tokens) of each teacher-forced decode check: a one-token prefill
-# and 63 steps; for hymba-1.5b also a 1040-token prefill and 48 steps, each
-# of which sees only the last 1024 keys in its windowed layers
-DECODE_RUNS = {"hymba-1.5b": ((1, 64), (1040, 1088))}
+# lie at most twice that from each other.  minitron-8b, granite-20b and
+# qwen2-vl-7b are held to twice the noise too.  At SMOKE widths and full
+# depth (32, 52 and 28 layers) on the CPU their bf16 mean gap is 0, 0.81x
+# and 0.47x the noise, their max gap 0 to 0.086
+# (tests/test_torch_positions.py::test_bf16_decode_gap_at_full_depth); but
+# there decode and forward run the same plain attention.  On the card the
+# forward's is K1, P rounded to bf16, and decode's is plain torch, so the two
+# round apart as bf16 and f32 do, and the noise, taken on the card from the
+# same weights, scales their gap at any width and depth, where a fixed max
+# such as llama's 0.25 would be a guess at granite's 52 layers of 6144.
+# Factor per arch:
+NOISE_HELD = {"mamba2-780m": 1, "hymba-1.5b": 2, "minitron-8b": 2, "granite-20b": 2,
+              "qwen2-vl-7b": 2}
+# (prompt, tokens, image grid) of each teacher-forced decode check: a
+# one-token prefill and 63 steps; for hymba-1.5b also a 1040-token prefill
+# and 48 steps, each of which sees only the last 1024 keys in its windowed
+# layers; for qwen2-vl-7b also a prefill of 8 text tokens and a 16 x 16 image
+# (image_grid_positions) and 32 steps
+DECODE_RUNS = {"hymba-1.5b": ((1, 64, None), (1040, 1088, None)),
+               "qwen2-vl-7b": ((1, 64, None), (264, 296, (8, 16)))}
+
+
+def image_grid_positions(text, side, extra):
+    """(3, 1, text + side² + extra) M-RoPE positions (t, h, w): ``text``
+    tokens at t = h = w = i, a side x side image at t = text, h = text +
+    row, w = text + col, then ``extra`` tokens at t = h = w = their index,
+    where ``decode_step`` puts a decoded token in all three streams, as the
+    JAX model does."""
+    import torch
+    i = torch.arange(text)
+    row, col = torch.meshgrid(torch.arange(side), torch.arange(side), indexing="ij")
+    img = torch.stack([torch.full((side * side,), text), text + row.flatten(),
+                       text + col.flatten()])
+    after = torch.arange(text + side * side, text + side * side + extra)
+    return torch.cat([i.expand(3, -1), img, after.expand(3, -1)], 1)[:, None].int()
 
 
 def visible_pairs(Sq, Skv, causal, window):
@@ -298,6 +353,7 @@ def main() -> int:
     from repro_torch.kernels import quantize as quant
     from repro_torch.kernels import ssd_scan as ssd
     from repro_torch.launch import bench_ssd, serve
+    from repro_torch.launch.profile_serve import one_card_config
     from repro_torch.launch import train as launch_train
     from repro_torch.launch.bench_attention import cuda_ms, in_turns
     from repro_torch.models.registry import build
@@ -439,17 +495,19 @@ def main() -> int:
     def sdpa_backend(qt, kt, vt, **mask):
         """The backend PyTorch's default dispatch of scaled_dot_product_attention
         picks for these inputs (v's head dim may differ from q's) and mask
-        (``is_causal`` or ``attn_mask``)."""
+        (``is_causal`` or ``attn_mask``, and ``enable_gqa``)."""
         from torch.nn.attention import SDPBackend
         names = {getattr(SDPBackend, n).value: n for n in dir(SDPBackend) if n.isupper()}
         return names.get(int(torch._fused_sdp_choice(qt, kt, vt, **mask)), "unknown")
 
-    def time_forward(entry, shape, q, k, v, window=None):
+    def time_forward(entry, shape, q, k, v, window=None, gqa=False):
         """K1 and SDPA in turns (with the stashed earlier K1 when there is
         one), the plain version and the bound, at ``shape``, causal and with
         ``window`` when one is given, into ``entry``.  SDPA has no window
         argument: it gets the same mask as a boolean ``attn_mask``, and its
-        output is held to K1's."""
+        output is held to K1's.  SDPA takes the kv heads repeated to H, or
+        with ``gqa`` the compact ones with ``enable_gqa`` (one call on K1's
+        own inputs), the repeated call then timed beside it."""
         qt, kt, vt = sdpa_args(q, k, v)
         if window:
             i = torch.arange(q.shape[1], device=dev)[:, None]
@@ -459,17 +517,26 @@ def main() -> int:
             mask = {"is_causal": True}
         fns = [("kernel", lambda: fa.flash_attention_cuda(q, k, v, causal=True, window=window)),
                ("sdpa", lambda: F.scaled_dot_product_attention(qt, kt, vt, **mask))]
-        got, lib = fns[0][1]().float(), fns[1][1]().transpose(1, 2).float()
-        if not bool(((got - lib).abs() <= TOL["bfloat16"] * (1 + lib.abs())).all()):
-            raise AssertionError(f"SDPA and K1 disagree at {shape}, window {window}")
+        library = (qt, kt, vt), mask
+        if gqa:
+            library = (qt, k.transpose(1, 2), v.transpose(1, 2)), {**mask, "enable_gqa": True}
+            fns.insert(1, ("sdpa enable_gqa", lambda: F.scaled_dot_product_attention(
+                *library[0], **library[1])))
+        got = fns[0][1]().float()
+        for name, fn in fns[1:]:
+            lib = fn().transpose(1, 2).float()
+            if not bool(((got - lib).abs() <= TOL["bfloat16"] * (1 + lib.abs())).all()):
+                raise AssertionError(f"{name} and K1 disagree at {shape}, window {window}")
         del got, lib
         earlier = "_entry" in parent and (parent["k1_takes_dv"] or shape["D"] == shape["Dv"])
         if earlier:
             fns.append(("earlier kernel", with_entry("_entry", parent["_entry"], fns[0][1])))
         times = in_turns(fns, 20)
         entry["ms"] = sum(times["kernel"]) / 2
-        entry["library_ms"] = sum(times["sdpa"]) / 2
-        entry["sdpa_backend"] = backend = sdpa_backend(qt, kt, vt, **mask)
+        entry["library_ms"] = sum(times[fns[1][0]]) / 2
+        entry["sdpa_backend"] = backend = sdpa_backend(*library[0], **library[1])
+        if gqa:
+            entry["sdpa_repeated_kv_ms"] = sum(times["sdpa"]) / 2
         if earlier:
             entry["earlier_ms"] = sum(times["earlier kernel"]) / 2
         entry["plain_ms"] = cuda_ms(
@@ -484,7 +551,8 @@ def main() -> int:
     def check_kernels():
         gen = torch.Generator(dev).manual_seed(0)
         bad, errs, slices = [], {}, {}
-        for case in SWEEP + MODEL_CASES + D128_CASES + MLA_CASES + HYMBA_CASES:
+        for case in (SWEEP + MODEL_CASES + D128_CASES + MLA_CASES + HYMBA_CASES
+                     + D128_SERVE_CASES + GRANITE_SMOKE_CASES):
             B, Sq, Skv, H, KV, D, Dv, dtype, causal, window = case
             q, k, v = attention_inputs(gen, B, Sq, Skv, H, KV, D, Dv, dtype)
             want_route = fa.route(q.dtype, D, Dv)
@@ -502,7 +570,7 @@ def main() -> int:
                   f"max_abs_err={errs[case]:.3e} tol={TOL[dtype]} {'ok' if ok else 'MISMATCH'}")
             if not ok:
                 bad.append(case)
-            if case in (MODEL_CASES[0], MLA_CASES[0], *HYMBA_CASES[:2]):
+            if case in (MODEL_CASES[0], MLA_CASES[0], *HYMBA_CASES[:2], *D128_SERVE_CASES[:3]):
                 slices[case] = q, k, v
             del q, k, v, got, want, diff
         k1["max_abs_err"] = errs[MODEL_CASES[0]]   # at llama's serving prefill shape
@@ -513,6 +581,11 @@ def main() -> int:
         for key, case in (("hymba", HYMBA_CASES[0]), ("hymba_global", HYMBA_CASES[1])):
             k1[key] = {"shape": HYMBA, "window": case[-1], "max_abs_err": errs[case]}
             time_forward(k1[key], HYMBA, *slices[case], window=case[-1])
+        # head dim 128 at minitron's, granite's and qwen2-vl's prefill
+        for arch, case in zip(D128_SERVE, D128_SERVE_CASES):
+            shape = dict(zip(("B", "Sq", "Skv", "H", "KV", "D", "Dv"), case[:7]))
+            k1[arch] = {"shape": shape, "max_abs_err": errs[case]}
+            time_forward(k1[arch], shape, *slices.pop(case), gqa=True)
         if bad:
             raise AssertionError(f"K1 disagrees with attention_ref in {bad}")
 
@@ -637,7 +710,8 @@ def main() -> int:
     def check_attention_bwd():
         gen = torch.Generator(dev).manual_seed(2)
         bad, errs, timed = [], {}, {}
-        for case in SWEEP + BWD_CASES + D128_CASES + MLA_BWD_CASES + MLA_CASES[5:] + HYMBA_BWD_CASES:
+        for case in (SWEEP + BWD_CASES + D128_CASES + MLA_BWD_CASES + MLA_CASES[5:]
+                     + HYMBA_BWD_CASES + GRANITE_SMOKE_CASES):
             B, Sq, Skv, H, KV, D, Dv, dtype, causal, window = case
             q, k, v = attention_inputs(gen, B, Sq, Skv, H, KV, D, Dv, dtype)
             do = torch.randn((B, Sq, H, Dv), generator=gen, device=dev).to(q.dtype)
@@ -725,24 +799,26 @@ def main() -> int:
 
     # ---------------------------------------------------------------- serve
     def serve_full_width(arch):
-        cfg = get_config(arch)
+        cfg = one_card_config(arch)   # granite-20b: bfloat16 parameters
         B, P, T = 4, 2048, 32
+        torch.cuda.empty_cache()      # the last model's blocks: room for this one's
         torch.cuda.reset_peak_memory_stats()
         zero_counts()
         res = serve.main(["--arch", arch, "--batch", str(B), "--prompt-len", str(P),
-                          "--tokens", str(T), "--seed", "0"])
+                          "--tokens", str(T), "--seed", "0"], cfg=cfg)
         counts = read_counts(f"serve {arch}")
         own = ARCHS[arch]
-        for key in own:   # the last arch's counts stand: this slice's path, hymba's
+        for key in own:   # the last arch's counts stand: K1's at qwen2-vl, K3's at hymba
             kernels[key][0]["launches"] = counts[key]
         peak = torch.cuda.max_memory_allocated() / 2**30
-        print(f"  serve {arch}: prefill {res.prefill_s * 1e3:.2f} ms, decode "
-              f"{B * T / res.decode_s:.1f} tokens/s ({res.decode_s / T * 1e3:.2f} ms/step), "
-              f"peak memory {peak:.2f} GiB, launches {counts}")
+        print(f"  serve {arch} ({cfg.param_dtype} parameters): prefill "
+              f"{res.prefill_s * 1e3:.2f} ms, decode {B * T / res.decode_s:.1f} tokens/s "
+              f"({res.decode_s / T * 1e3:.2f} ms/step), peak memory {peak:.2f} GiB, "
+              f"launches {counts}")
         want = {key: cfg.n_layers if key in own else 0 for key in kernels}
         assert counts == want, f"{arch}: kernel launches {counts} in one request, want {want}"
-        # every prefill layer on the wgmma route (K1: bf16 at head dims 64, or
-        # MLA's 96 and 64; K3: bf16 at p 64 and n 128 or 16 on the views)
+        # every prefill layer on the wgmma route (K1: bf16 at head dims 64 or
+        # 128, or MLA's 96 and 64; K3: bf16 at p 64 and n 128 or 16 on the views)
         for key in own:
             routes = dict((ssd.ssd_cuda if key == "k3" else fa.flash_attention_cuda).routes)
             print(f"  {key.upper()} routes: {routes}")
@@ -762,10 +838,17 @@ def main() -> int:
         """Teacher-forced decode against the forward, for each of the arch's
         ``DECODE_RUNS``: a prefill of ``P`` tokens, then a decode step for
         each of the others up to ``S``, each step's logits against the
-        forward's over all ``S`` tokens."""
-        cfg = get_config(arch)
-        for P, S in DECODE_RUNS.get(arch, ((1, 64),)):
+        forward's over all ``S`` tokens; with an image grid, the forward and
+        the prefill take its M-RoPE positions."""
+        cfg = one_card_config(arch)   # granite-20b: bfloat16 parameters
+        torch.cuda.empty_cache()
+        plain_scan = "k3" in ARCHS[arch]
+        for P, S, grid in DECODE_RUNS.get(arch, ((1, 64, None),)):
             full_f32 = None
+            pos = {}
+            if grid:
+                pos = {"positions": image_grid_positions(*grid, S - P).to(dev)}
+                assert pos["positions"].shape == (3, 1, S) and P == grid[0] + grid[1] ** 2
             for dtype in ("float32", "bfloat16"):
                 model = build(dataclasses.replace(cfg, compute_dtype=dtype))
                 gen = torch.Generator(dev).manual_seed(1)
@@ -774,14 +857,23 @@ def main() -> int:
                     toks = torch.randint(1, cfg.vocab - 1, (1, S), generator=gen, device=dev,
                                          dtype=torch.int32)
                     before = dict(ssd.ssd_cuda.routes)
-                    full, _ = model.forward(params, {"tokens": toks})
-                    if dtype == "float32" and arch in NOISE_HELD:
+                    full, _ = model.forward(params, {"tokens": toks, **pos})
+                    if dtype == "float32" and plain_scan:
                         kernel_ssd, ops.ssd = ops.ssd, ref.ssd_ref
                         try:
                             plain_full, _ = model.forward(params, {"tokens": toks})
                         finally:
                             ops.ssd = kernel_ssd
-                    _, cache = model.prefill(params, {"tokens": toks[:, :P]}, S + 2)
+                    if dtype == "float32" and grid:   # the grid's streams reach the logits
+                        text_full, _ = model.forward(params, {"tokens": toks})
+                        moved = float((text_full - full).abs().max())
+                        print(f"  {arch}: the image grid's positions move the forward's "
+                              f"logits by up to {moved:.4e} from text positions")
+                        assert moved > 10 * DECODE_TOL[dtype], moved
+                        del text_full
+                    _, cache = model.prefill(
+                        params, {"tokens": toks[:, :P],
+                                 **{k: v[..., :P] for k, v in pos.items()}}, S + 2)
                     # K3 per layer for the forward and the prefill (a short
                     # one padded to 64 rows): the wgmma route in bf16, fma in f32
                     took = {r: k - before[r] for r, k in ssd.ssd_cuda.routes.items()}
@@ -799,7 +891,8 @@ def main() -> int:
                 gap, scale = float(diff.max()), float(full.abs().max())
                 if dtype == "float32":
                     full_f32 = full
-                what = f"{arch} {dtype}, prefill {P} then {S - P} steps"
+                what = (f"{arch} {dtype}, prefill {P}{' (text and image grid)' if grid else ''} "
+                        f"then {S - P} steps")
                 if dtype == "bfloat16" and arch in NOISE_HELD:
                     noise = float((full - full_f32).abs().mean())
                     print(f"  decode vs forward, {what}: mean |logit gap| "
@@ -811,11 +904,12 @@ def main() -> int:
                 else:
                     plain = (f", with the plain scan "
                              f"{float((dec - plain_full[:, P:S]).abs().max()):.4e}"
-                             if dtype == "float32" and arch in NOISE_HELD else "")
+                             if plain_scan else "")
                     print(f"  decode vs forward, {what}: max |logit gap| {gap:.4e}{plain} "
                           f"(max |logit| {scale:.3f}), tol {DECODE_TOL[dtype]}")
                     assert gap < DECODE_TOL[dtype], f"{what}: decode/forward gap {gap}"
                 del params, cache
+        torch.cuda.empty_cache()
 
     for arch in ARCHS:
         phase(f"decode {arch}", lambda: decode_matches_forward(arch))
@@ -902,12 +996,14 @@ def main() -> int:
         assert len(hist1) == 17 and len(hist2) == 3 and pipe2.step == 20
         assert int(state2["opt"]["step"]) == 20 and state2["params"]["embed"].is_cuda
 
-    def train_mla_smoke():
-        """minicpm3-4b SMOKE (K1 and its backward at head dims 24 / 16): the
-        loss and every gradient on the card against the CPU route, from the
-        same parameters and tokens, in float32 and bfloat16; then one
-        optimizer step on the card with int8-compressed gradients."""
-        base = get_smoke("minicpm3-4b")
+    def train_smoke(arch, leaves):
+        """``arch``'s SMOKE config (minicpm3-4b: K1 and its backward at head
+        dims 24 / 16; granite-20b: learned positions, 4 heads on one kv head
+        of 16): the loss and every gradient (``leaves`` of them) on the card
+        against the CPU route, from the same parameters and tokens, in
+        float32 and bfloat16; then one optimizer step on the card with
+        int8-compressed gradients, and the launcher's loop."""
+        base = get_smoke(arch)
         toks = torch.from_numpy(SyntheticTokens(base.vocab, 2, 32, seed=0).next()["tokens"])
         cpu = torch.device("cpu")
 
@@ -928,16 +1024,16 @@ def main() -> int:
             want_loss, want = loss_and_grads(model, params_from_numpy(np_params, cpu), cpu)
             zero_counts()
             loss, got = loss_and_grads(model, params_from_numpy(np_params, dev), dev)
-            counts = read_counts(f"train minicpm3-4b SMOKE {dtype}")
+            counts = read_counts(f"train {arch} SMOKE {dtype}")
             routes = dict(fa.flash_attention_cuda.routes), dict(fa.flash_attention_bwd_cuda.routes)
-            route = fa.route(cfg.cdt, cfg.head_dim, cfg.v_head_dim)
+            route = fa.route(cfg.cdt, cfg.head_dim, cfg.v_head_dim or cfg.head_dim)
             loss_tol, grad_tol = STEP_TOL[dtype]
             err = max(float(((g - w).abs() / (1 + w.abs())).max()) for g, w in zip(got, want))
-            print(f"  minicpm3-4b SMOKE {dtype}: loss card {loss:.6f} cpu {want_loss:.6f} "
+            print(f"  {arch} SMOKE {dtype}: loss card {loss:.6f} cpu {want_loss:.6f} "
                   f"(tol {loss_tol}), {len(got)} gradients max |d|/(1+|ref|) {err:.3e} "
                   f"(tol {grad_tol}), launches {counts}, K1 routes {routes[0]} / {routes[1]}")
             assert abs(loss - want_loss) <= loss_tol, (loss, want_loss)
-            assert len(got) == len(want) == 14 and err <= grad_tol, err
+            assert len(got) == len(want) == leaves and err <= grad_tol, err
             # K1 once per layer in the forward and once in the remat recompute
             want_counts = {"k1": 2 * cfg.n_layers, "k1b": cfg.n_layers, "k2": 0, "k3": 0}
             assert counts == want_counts, (counts, want_counts)
@@ -949,8 +1045,8 @@ def main() -> int:
         zero_counts()
         metrics = tsteps.make_train_step(model, opt, compress=True)(
             state, {"tokens": toks.to(dev)})
-        counts = read_counts("train minicpm3-4b SMOKE")
-        want_counts = {"k1": 2 * base.n_layers, "k1b": base.n_layers, "k2": 14, "k3": 0}
+        counts = read_counts(f"train {arch} SMOKE")
+        want_counts = {"k1": 2 * base.n_layers, "k1b": base.n_layers, "k2": leaves, "k3": 0}
         print(f"  one bf16 step on the card, compressed gradients: loss "
               f"{float(metrics['loss']):.6f}, launches {counts}")
         assert counts == want_counts, (counts, want_counts)
@@ -958,17 +1054,19 @@ def main() -> int:
         # the launcher itself, with checkpoints through NVCacheFS
         steps = 6
         zero_counts()
-        out = launch_train.main(["--arch", "minicpm3-4b", "--smoke", "--steps", str(steps),
+        out = launch_train.main(["--arch", arch, "--smoke", "--steps", str(steps),
                                  "--ckpt-every", "5", "--compress-grads"])
-        counts = read_counts("train loop minicpm3-4b SMOKE")
+        counts = read_counts(f"train loop {arch} SMOKE")
         want_counts = {key: steps * n for key, n in want_counts.items()}
-        print(f"  launch.train --arch minicpm3-4b --smoke: {out['steps']} steps, loss "
+        print(f"  launch.train --arch {arch} --smoke: {out['steps']} steps, loss "
               f"{out['first_loss']:.4f} -> {out['last_loss']:.4f}, launches {counts}")
         assert counts == want_counts, (counts, want_counts)
         assert out["steps"] == steps and math.isfinite(out["last_loss"])
 
     phase("train llama3.2-1b", train_full_width)
-    phase("train minicpm3-4b SMOKE", train_mla_smoke)
+    phase("train minicpm3-4b SMOKE", lambda: train_smoke("minicpm3-4b", 14))
+    # embed, unembed, final_norm, pos_table and the layers' 9 (GQA, MLP, norms)
+    phase("train granite-20b SMOKE", lambda: train_smoke("granite-20b", 13))
     phase("train loop SMOKE", train_loop_smoke)
 
     print(json.dumps({"kernels": [k1, k1b, k2, k3]}))

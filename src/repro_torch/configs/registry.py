@@ -8,11 +8,14 @@ import importlib
 
 from repro_torch.models.common import ModelConfig
 
-ARCHS = {
+ARCHS = {   # in the order of repro.configs.registry.ARCHS
     "llama3.2-1b": "llama3_2_1b",
-    "mamba2-780m": "mamba2_780m",
     "minicpm3-4b": "minicpm3_4b",
+    "granite-20b": "granite_20b",
+    "minitron-8b": "minitron_8b",
     "hymba-1.5b": "hymba_1_5b",
+    "qwen2-vl-7b": "qwen2_vl_7b",
+    "mamba2-780m": "mamba2_780m",
 }
 
 

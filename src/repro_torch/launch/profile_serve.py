@@ -3,8 +3,11 @@
     python -m repro_torch.launch.profile_serve [ARCH ...]
 
 Serves each ported arch in turn (the registry's, in its order: llama3.2-1b,
-mamba2-780m, minicpm3-4b, hymba-1.5b), or those named on the command line,
-at full width (batch 4, prompt 2048, 32 new tokens, seed 0) with
+minicpm3-4b, granite-20b, minitron-8b, hymba-1.5b, qwen2-vl-7b,
+mamba2-780m), or those named on the command line, at full width (batch 4,
+prompt 2048, 32 new tokens, seed 0; granite-20b with bfloat16 parameters,
+:func:`one_card_config`), each one's parameters freed before the next is
+drawn, with
 ``repro_torch.launch.serve``'s prefill and decode: one run to warm up
 (allocator, cuBLAS, kernel library), ``REPS`` timed on the host clock
 around synchronised work (their median is reported, with the fastest and
@@ -20,6 +23,7 @@ limit.  Needs a CUDA card.
 """
 from __future__ import annotations
 
+import dataclasses
 import json
 import statistics
 import subprocess
@@ -41,6 +45,14 @@ KERNELS = {"k1": flash_attention_cuda, "k3": ssd_cuda}
 OWN = {"k1": ("fa_fwd_",), "k3": ("ssd_fwd", "ssd_chunk_state", "ssd_carry", "ssd_chunk_out")}
 TOP = 12                         # kernels listed per phase
 REPS = 5                         # timed runs of each phase
+# what an arch's config must change to serve on one 80 GB card: granite-20b's
+# float32 parameters (28.37 B, 105.7 GiB) do not fit, its bfloat16 ones do
+ONE_CARD = {"granite-20b": {"param_dtype": "bfloat16"}}
+
+
+def one_card_config(arch: str):
+    """``arch``'s config as it serves on one 80 GB card."""
+    return dataclasses.replace(get_config(arch), **ONE_CARD.get(arch, {}))
 
 
 def _timed(fn):
@@ -60,11 +72,12 @@ def _device_ms(prof):
     return sorted(rows, key=lambda r: -r[1])
 
 
-def profile_arch(arch: str, card: str):
-    """Warm prefill and decode of ``arch`` at the serving shape; prints the
-    breakdown and returns it as a dict."""
+def profile_arch(arch: str, card: str, cfg=None):
+    """Warm prefill and decode of ``arch`` (``cfg`` in place of its config
+    when given) at the serving shape; prints the breakdown and returns it
+    as a dict."""
     dev = torch.device("cuda")
-    cfg = get_config(arch)
+    cfg = get_config(arch) if cfg is None else cfg
     model = build(cfg)
     torch.cuda.reset_peak_memory_stats()
     gen = torch.Generator(dev).manual_seed(SEED)
@@ -127,7 +140,11 @@ def main(argv=None):
     archs = (sys.argv[1:] if argv is None else argv) or all_archs()
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                          capture_output=True, text=True, timeout=60)
-    return [profile_arch(arch, smi.stdout.strip()) for arch in archs]
+    results = []
+    for arch in archs:
+        results.append(profile_arch(arch, smi.stdout.strip(), one_card_config(arch)))
+        torch.cuda.empty_cache()   # the next arch's parameters need the room
+    return results
 
 
 if __name__ == "__main__":

@@ -4,9 +4,15 @@ decode — no request is lost to a crash).
 
     python -m repro_torch.launch.serve --arch llama3.2-1b --smoke --tokens 16
 
-``--arch`` is one of the ported architectures: llama3.2-1b, mamba2-780m,
-minicpm3-4b or hymba-1.5b.  Runs on the CUDA device unless ``--device
-cpu`` is given.
+``--arch`` is one of the ported architectures: llama3.2-1b, minicpm3-4b,
+granite-20b, minitron-8b, hymba-1.5b, qwen2-vl-7b or mamba2-780m.  Runs on
+the CUDA device unless ``--device cpu`` is given.  ``main``'s ``cfg``
+keyword serves a config of the caller's in place of ``--arch``'s, e.g.
+granite-20b with ``param_dtype="bfloat16"`` (its float32 parameters do not
+fit one 80 GB card):
+
+    main(["--arch", "granite-20b"],
+         cfg=dataclasses.replace(get_config("granite-20b"), param_dtype="bfloat16"))
 """
 from __future__ import annotations
 
@@ -67,7 +73,10 @@ def generate(model: Model, params, prompts, n_tokens: int):
     return tokens, logits, t1 - t0, t2 - t1
 
 
-def main(argv=None) -> ServeResult:
+def main(argv=None, cfg=None) -> ServeResult:
+    """Serves one batch of random prompts with the durable request log;
+    ``cfg``, when given, is served in place of the config ``--arch`` and
+    ``--smoke`` name."""
     ap = argparse.ArgumentParser()
     ap.add_argument("--arch", default="llama3.2-1b", choices=all_archs())
     ap.add_argument("--smoke", action="store_true")
@@ -79,7 +88,8 @@ def main(argv=None) -> ServeResult:
     args = ap.parse_args(argv)
 
     device = torch.device(args.device)
-    cfg = get_smoke(args.arch) if args.smoke else get_config(args.arch)
+    if cfg is None:
+        cfg = get_smoke(args.arch) if args.smoke else get_config(args.arch)
     model = build(cfg)
     gen = torch.Generator(device).manual_seed(args.seed)
     params = model.init(gen)

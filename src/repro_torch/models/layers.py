@@ -1,5 +1,5 @@
-"""Shared layer primitives: norms, RoPE, SwiGLU MLP, blocked (flash-style)
-attention and single-step decode attention, in plain PyTorch.
+"""Shared layer primitives: norms, RoPE / M-RoPE, SwiGLU MLP, blocked
+(flash-style) attention and single-step decode attention, in plain PyTorch.
 
 Layouts follow ``repro.models.layers``: activations are ``(B, S, H, D)``
 and every reduction runs in float32.  ``blocked_attention`` is the portable
@@ -39,6 +39,21 @@ def rope_cos_sin(positions, dim, theta):
     freqs = 1.0 / (theta ** (idx / half))
     ang = positions.float()[..., None] * freqs
     return torch.cos(ang), torch.sin(ang)
+
+
+def mrope_cos_sin(positions3, dim, theta, sections):
+    """Qwen2-VL M-RoPE: positions3 (3, B, S) for (t, h, w); ``sections``
+    partitions the dim//2 frequency slots among the three streams, in that
+    order.  Returns cos/sin (B, S, dim//2) float32."""
+    if sum(sections) != dim // 2:
+        raise ValueError(f"M-RoPE sections {tuple(sections)} must sum to dim // 2 = {dim // 2}")
+    cos_t, sin_t = rope_cos_sin(positions3, dim, theta)   # (3, B, S, dim//2)
+    parts_c, parts_s, start = [], [], 0
+    for i, sec in enumerate(sections):
+        parts_c.append(cos_t[i, ..., start:start + sec])
+        parts_s.append(sin_t[i, ..., start:start + sec])
+        start += sec
+    return torch.cat(parts_c, -1), torch.cat(parts_s, -1)
 
 
 def apply_rope(x, cos, sin):

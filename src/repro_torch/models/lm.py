@@ -1,6 +1,8 @@
-"""Decoder-only LM assembly, dense (GQA or MLA attention), ssm and hybrid
-(GQA attention and an SSM side by side on the same normed input, as
-hymba) families: a Python loop over the stacked ``(L, ...)`` layer
+"""Decoder-only LM assembly, dense (GQA or MLA attention), vlm (dense GQA
+with M-RoPE's three position streams, as qwen2-vl), ssm and hybrid (GQA
+attention and an SSM side by side on the same normed input, as hymba)
+families, with rope, M-RoPE or learned absolute positions (granite): a
+Python loop over the stacked ``(L, ...)`` layer
 parameters (the layout ``repro.models.lm`` builds with ``vmap`` and scans
 over, so keys and shapes match its pytree), and four entry points —
 ``forward`` (full sequence, with ``cfg.remat`` when autograd records),
@@ -17,36 +19,46 @@ from torch.utils.checkpoint import CheckpointPolicy, checkpoint, create_selectiv
 from repro_torch.models import attention as attn
 from repro_torch.models import ssm as ssm_mod
 from repro_torch.models.common import ModelConfig
-from repro_torch.models.layers import dense_init, rmsnorm, rope_cos_sin, swiglu
+from repro_torch.models.layers import (dense_init, mrope_cos_sin, rmsnorm, rope_cos_sin,
+                                       swiglu)
 
 NEG_WINDOW_OFF = 1 << 30   # "window" value that disables windowing
 
 _LATER = {
     "moe": "the MoE slice",
-    "vlm": "the VLM slice",
     "encdec": "the enc-dec slice",
 }
 
 
 def check_ported(cfg: ModelConfig):
-    """Raise NotImplementedError for what the port cannot run yet."""
-    if cfg.family not in ("dense", "ssm", "hybrid"):
+    """Raise NotImplementedError for what the port cannot run yet, and
+    ValueError for position settings that do not fit the model: an unknown
+    scheme, a learned table of no rows, or M-RoPE sections that do not sum
+    to half the rotated width (the JAX model asserts that too)."""
+    if cfg.family not in ("dense", "vlm", "ssm", "hybrid"):
         raise NotImplementedError(f"{cfg.arch}: family {cfg.family!r} comes with "
                                   f"{_LATER.get(cfg.family, 'a later slice')}")
     if cfg.family == "ssm":
         if cfg.attn_kind != "none":
             raise NotImplementedError(f"{cfg.arch}: an ssm model with {cfg.attn_kind!r} "
                                       f"attention is the hybrid family's")
-        return
-    if cfg.family == "hybrid" and cfg.attn_kind != "gqa":
+    elif cfg.family == "hybrid" and cfg.attn_kind != "gqa":
         raise NotImplementedError(f"{cfg.arch}: a hybrid model runs GQA attention beside "
                                   f"its SSM, got {cfg.attn_kind!r}")
-    if cfg.attn_kind not in ("gqa", "mla"):
+    elif cfg.attn_kind not in ("gqa", "mla"):
         raise NotImplementedError(f"{cfg.arch}: {cfg.attn_kind!r} attention is not "
                                   f"in the port")
-    if cfg.pos != "rope":
-        raise NotImplementedError(f"{cfg.arch}: {cfg.pos!r} positions come with "
-                                  f"the slice that ports {cfg.arch}")
+    if cfg.pos not in ("rope", "learned", "mrope"):
+        raise ValueError(f"{cfg.arch}: positions must be rope, learned or mrope, "
+                         f"got {cfg.pos!r}")
+    if cfg.attn_kind == "mla" and cfg.pos != "rope":
+        raise NotImplementedError(f"{cfg.arch}: MLA's decoupled half of q and k is "
+                                  f"rotated by rope; {cfg.pos!r} positions leave it unrotated")
+    if cfg.pos == "learned" and cfg.max_positions < 1:
+        raise ValueError(f"{cfg.arch}: learned positions need a table, max_positions >= 1")
+    if cfg.pos == "mrope" and sum(cfg.mrope_sections) != _rope_dim(cfg) // 2:
+        raise ValueError(f"{cfg.arch}: M-RoPE sections {cfg.mrope_sections} must sum to "
+                         f"half the rotated width, {_rope_dim(cfg) // 2}")
 
 
 # ------------------------------------------------------------------- params
@@ -108,14 +120,22 @@ def _layers(tree, n: int):
 
 
 def init_lm(cfg: ModelConfig, gen: torch.Generator):
-    """Random parameters drawn from ``gen`` on ``gen.device``."""
+    """Random parameters drawn from ``gen`` on ``gen.device``: the
+    embedding, the layers, the unembedding (untied) and the learned
+    position table (0.02·N(0, 1), as the JAX model draws it), in that
+    order."""
     check_ported(cfg)
-    return {
+    params = {
         "embed": dense_init(gen, (cfg.vocab, cfg.d_model), cfg.d_model, cfg.pdt),
         "final_norm": torch.ones((cfg.d_model,), dtype=cfg.pdt, device=gen.device),
         "layers": _init_layers(cfg, gen),
-    } | ({} if cfg.tie_embeddings else {
-        "unembed": dense_init(gen, (cfg.d_model, cfg.vocab), cfg.d_model, cfg.pdt)})
+    }
+    if not cfg.tie_embeddings:
+        params["unembed"] = dense_init(gen, (cfg.d_model, cfg.vocab), cfg.d_model, cfg.pdt)
+    if cfg.pos == "learned":
+        table = torch.randn((cfg.max_positions, cfg.d_model), generator=gen, device=gen.device)
+        params["pos_table"] = (0.02 * table).to(cfg.pdt)
+    return params
 
 
 def layer_windows(cfg: ModelConfig) -> torch.Tensor:
@@ -178,22 +198,37 @@ def _block(cfg: ModelConfig, pl, x, rope, window: int, *, return_kv=False):
 # ----------------------------------------------------------------- forward
 
 def _embed(cfg, params, tokens):
-    return params["embed"][tokens.long()].to(cfg.cdt)
+    """The tokens' embeddings in the compute dtype, plus the first S rows of
+    the learned position table when the model has one: those rows whatever
+    ``positions`` says, as in the JAX model."""
+    x = params["embed"][tokens.long()].to(cfg.cdt)
+    if cfg.pos == "learned":
+        x = x + params["pos_table"][:tokens.shape[1]][None].to(x.dtype)
+    return x
+
+
+def _rope_dim(cfg: ModelConfig) -> int:
+    """The rotated width: MLA's is 2 * qk_rope_dim, as in the JAX version,
+    of which its rope half reads the first qk_rope_dim / 2 frequencies."""
+    return cfg.qk_rope_dim * 2 if cfg.attn_kind == "mla" else cfg.head_dim
 
 
 def _rope_for(cfg: ModelConfig, positions):
-    """positions: (B,S) int32; returns (cos, sin), or None for ssm (no
-    attention).  MLA's width is 2 * qk_rope_dim, as in the JAX version, of
-    which its rope half reads the first qk_rope_dim / 2 frequencies."""
-    if cfg.family == "ssm":
+    """positions: (B,S) int32, or (3,B,S) for mrope; returns (cos, sin), or
+    None for ssm (no attention) and for learned positions (added to the
+    embedding instead)."""
+    if cfg.family == "ssm" or cfg.pos == "learned":
         return None
-    dim = cfg.qk_rope_dim * 2 if cfg.attn_kind == "mla" else cfg.head_dim
-    return rope_cos_sin(positions, dim, cfg.rope_theta)
+    if cfg.pos == "mrope":
+        return mrope_cos_sin(positions, _rope_dim(cfg), cfg.rope_theta, cfg.mrope_sections)
+    return rope_cos_sin(positions, _rope_dim(cfg), cfg.rope_theta)
 
 
-def _positions(tokens):
+def _positions(cfg: ModelConfig, tokens):
+    """Each row's 0..S-1: (B, S), or (3, B, S) for mrope (t = h = w, text)."""
     B, S = tokens.shape
-    return torch.arange(S, dtype=torch.int32, device=tokens.device).expand(B, S)
+    pos = torch.arange(S, dtype=torch.int32, device=tokens.device).expand(B, S)
+    return pos.expand(3, B, S) if cfg.pos == "mrope" else pos
 
 
 def _unembed(cfg, params, x):
@@ -226,11 +261,12 @@ def _remat(cfg: ModelConfig, fn):
 
 
 def forward(cfg: ModelConfig, params, tokens, positions=None):
-    """Full-sequence logits.  tokens: (B,S) int.  Returns (logits_f32, aux).
-    When autograd records, each layer runs under ``cfg.remat``."""
+    """Full-sequence logits.  tokens: (B,S) int; positions (B,S), or
+    (3,B,S) for mrope, default 0..S-1.  Returns (logits_f32, aux).  When
+    autograd records, each layer runs under ``cfg.remat``."""
     check_ported(cfg)
     if positions is None:
-        positions = _positions(tokens)
+        positions = _positions(cfg, tokens)
     x = _embed(cfg, params, tokens)
     rope = _rope_for(cfg, positions)
 
@@ -298,7 +334,7 @@ def prefill(cfg: ModelConfig, params, tokens, max_len: int, positions=None):
     check_ported(cfg)
     B, S = tokens.shape
     if positions is None:
-        positions = _positions(tokens)
+        positions = _positions(cfg, tokens)
     x = _embed(cfg, params, tokens)
     rope = _rope_for(cfg, positions)
     cache = init_cache(cfg, B, max_len, tokens.device)
@@ -344,12 +380,18 @@ def _block_decode(cfg: ModelConfig, pl, x, rope, window: int, caches, pos):
 
 def decode_step(cfg: ModelConfig, params, cache, tokens):
     """One serving step.  tokens: (B, 1) int; returns (logits, cache).  The
-    cache's tensors are updated in place."""
+    cache's tensors are updated in place.  The token's position is
+    ``cache["pos"]``: in all three M-RoPE streams, and the learned table's
+    row there, clamped to its last row as ``dynamic_slice`` clamps (read on
+    the device, with no sync to the host)."""
     check_ported(cfg)
     B = tokens.shape[0]
     pos = cache["pos"]
-    positions = pos.to(torch.int32).broadcast_to((B, 1))
-    x = _embed(cfg, params, tokens)
+    positions = pos.to(torch.int32).broadcast_to((3, B, 1) if cfg.pos == "mrope" else (B, 1))
+    x = params["embed"][tokens.long()].to(cfg.cdt)
+    if cfg.pos == "learned":
+        row = pos.clamp(0, cfg.max_positions - 1).reshape(1).long()
+        x = x + params["pos_table"].index_select(0, row)[None].to(x.dtype)
     rope = _rope_for(cfg, positions)
     keys = _cache_keys(cfg)
     for i, (pl, win) in enumerate(zip(_layers(params["layers"], cfg.n_layers),

@@ -46,6 +46,12 @@ CASES = [  # (B, Sq, Skv, H, KV, D, Dv, dtype, causal, window, v a view)
     # wrong head-to-group map shows), with a window that cuts inside a
     # 128-key tile across three k tiles
     (1, 320, 320, 10, 2, 64, 64, "bfloat16", True, 130, False),
+    # qwen2-vl-7b's odd group of 7 at head dim 128 (two kv heads): three
+    # 128-row q tiles and a ragged last k tile of 16 rows
+    (1, 272, 272, 14, 2, 128, 128, "bfloat16", True, None, False),
+    # MQA at head dim 128, as granite-20b's 48 heads on one kv head: 12 query
+    # heads whose dk and dv sum into one, Skv != Sq
+    (1, 80, 200, 12, 1, 128, 128, "bfloat16", False, None, False),
     # mma.sync: minicpm3 SMOKE's 24 / 16 (MQA, Skv != Sq), and a window
     (1, 48, 80, 4, 1, 24, 16, "bfloat16", True, None, True),
     (2, 40, 40, 4, 2, 24, 16, "bfloat16", True, 12, False),

@@ -1,12 +1,15 @@
-"""The port's LM (llama3.2-1b, mamba2-780m, minicpm3-4b and hymba-1.5b
-SMOKE) against the JAX package's, from the same parameters (built by JAX ``init_lm``, carried over
+"""The port's LM (llama3.2-1b, mamba2-780m, minicpm3-4b, hymba-1.5b,
+minitron-8b, granite-20b and qwen2-vl-7b SMOKE) against the JAX package's,
+from the same parameters (built by JAX ``init_lm``, carried over
 through ``repro_torch.convert``) and the same numpy tokens.
 
 Tolerances: 1e-4 at float32 compute (both sides in float32, sums in
 another order); at bfloat16 compute the two frameworks round the
 activations at different places: 5e-2 for llama3.2-1b and for
 minicpm3-4b (MLA; measured 3.9e-2 to 4.3e-2 over three token draws, under
-the JAX model's own bfloat16-to-float32 gap of 6.9e-2 to 1.1e-1), 0.15 for
+the JAX model's own bfloat16-to-float32 gap of 6.9e-2 to 1.1e-1) and for
+the dense minitron-8b, granite-20b (learned positions) and qwen2-vl-7b
+(M-RoPE), 0.15 for
 mamba2-780m, whose bfloat16 logits lie several times farther from their
 own float32 logits than llama's do, on both sides (the gated norm, the
 conv and the scan each round), 0.2 for hybrid hymba-1.5b (its SSM half
@@ -31,15 +34,30 @@ from repro_torch.convert import (cache_from_numpy, cache_to_numpy, params_from_n
 from repro_torch.models import lm as tlm
 from repro_torch.models.registry import build
 
-ARCHS = ("llama3.2-1b", "mamba2-780m", "minicpm3-4b", "hymba-1.5b")
-BF16_TOL = {"llama3.2-1b": 5e-2, "mamba2-780m": 0.15, "minicpm3-4b": 5e-2, "hymba-1.5b": 0.2}
+ARCHS = ("llama3.2-1b", "mamba2-780m", "minicpm3-4b", "hymba-1.5b", "minitron-8b",
+         "granite-20b", "qwen2-vl-7b")
+BF16_TOL = {"llama3.2-1b": 5e-2, "mamba2-780m": 0.15, "minicpm3-4b": 5e-2, "hymba-1.5b": 0.2,
+            "minitron-8b": 5e-2, "granite-20b": 5e-2, "qwen2-vl-7b": 5e-2}
 CACHE_KEYS = {"llama3.2-1b": ("k", "v"), "mamba2-780m": ("ssm_state", "conv_state"),
               "minicpm3-4b": ("ckv", "krope"),
-              "hymba-1.5b": ("k", "v", "ssm_state", "conv_state")}
+              "hymba-1.5b": ("k", "v", "ssm_state", "conv_state"),
+              "minitron-8b": ("k", "v"), "granite-20b": ("k", "v"), "qwen2-vl-7b": ("k", "v")}
 # 20: not a multiple of mamba2's or hymba's SMOKE chunk 16, and past
 # hymba's window 16
-PROMPT = {"llama3.2-1b": 16, "mamba2-780m": 20, "minicpm3-4b": 16, "hymba-1.5b": 20}
+PROMPT = {"llama3.2-1b": 16, "mamba2-780m": 20, "minicpm3-4b": 16, "hymba-1.5b": 20,
+          "minitron-8b": 16, "granite-20b": 16, "qwen2-vl-7b": 16}
 CPU = torch.device("cpu")
+
+
+@pytest.fixture(autouse=True)
+def _one_thread():
+    """One intra-op thread: SMOKE-size ops gain nothing from more, and the
+    threads of the suite's parallel workers would contend for the cores
+    (a 52-layer decode loop ran ~200x slower with six workers of eight)."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
 
 
 def _cfgs(arch, compute_dtype):

@@ -1,6 +1,7 @@
 """The slices as a whole: greedy serving of llama3.2-1b, mamba2-780m,
-minicpm3-4b (MLA: expanded prefill, absorbed latent decode) and hymba-1.5b
-(hybrid: windowed attention beside an SSM) SMOKE by the JAX package and by
+minicpm3-4b (MLA: expanded prefill, absorbed latent decode), hymba-1.5b
+(hybrid: windowed attention beside an SSM), minitron-8b, granite-20b
+(learned positions) and qwen2-vl-7b (M-RoPE) SMOKE by the JAX package and by
 the port from the same numpy parameters and prompts (20 tokens: not a
 multiple of mamba2's or hymba's SMOKE chunk 16, so the sequence padding
 runs; past hymba's window 16, so it cuts), and the port's serve entry point with its durable
@@ -21,7 +22,19 @@ from repro_torch.convert import params_from_numpy
 from repro_torch.launch import serve
 from repro_torch.models.registry import build
 
-ARCHS = ("llama3.2-1b", "mamba2-780m", "minicpm3-4b", "hymba-1.5b")
+ARCHS = ("llama3.2-1b", "mamba2-780m", "minicpm3-4b", "hymba-1.5b", "minitron-8b",
+         "granite-20b", "qwen2-vl-7b")
+
+
+@pytest.fixture(autouse=True)
+def _one_thread():
+    """One intra-op thread: SMOKE-size ops gain nothing from more, and the
+    threads of the suite's parallel workers would contend for the cores
+    (a 52-layer decode loop ran ~200x slower with six workers of eight)."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
 
 
 def _jax_generate(model, params, prompts, n_tokens):
@@ -58,7 +71,7 @@ def test_serve_main_logs_requests_durably(capsys, arch):
     res = serve.main(["--arch", arch, "--smoke", "--device", "cpu", "--batch", "2",
                       "--prompt-len", "12", "--tokens", "5", "--seed", "3"])
     printed = json.loads(capsys.readouterr().out.strip().splitlines()[-1])
-    assert printed["arch"] == f"{arch}-smoke" and printed["batch"] == 2
+    assert printed["arch"] == get_smoke(arch).arch and printed["batch"] == 2
     assert printed["tokens_per_s"] > 0
     assert printed["sample"] == res.tokens[0, :8].tolist()
     assert res.tokens.shape == (2, 5) and res.tokens.dtype == torch.int32

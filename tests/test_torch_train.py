@@ -1,6 +1,7 @@
 """The port's training path (llama3.2-1b SMOKE) against the JAX package's:
 the loss and every parameter gradient (also for mamba2-780m, MLA's
-minicpm3-4b and hybrid hymba-1.5b), remat, AdamW with clipping, the
+minicpm3-4b, hybrid hymba-1.5b, minitron-8b, granite-20b with its learned
+position table and qwen2-vl-7b), remat, AdamW with clipping, the
 schedule and int8 gradient compression step by step on identical
 gradients, the data pipeline, the NVCache-backed loop with crash-safe
 resume, and the launcher, all on the CPU.
@@ -60,6 +61,17 @@ POL = dict(entry_size=16384, log_entries=8192, page_size=4096,
            read_cache_pages=64, batch_min=8, batch_max=512, verify_crc=False)
 
 
+@pytest.fixture(autouse=True)
+def _one_thread():
+    """One intra-op thread: SMOKE-size ops gain nothing from more, and the
+    threads of the suite's parallel workers would contend for the cores
+    (a 52-layer decode loop ran ~200x slower with six workers of eight)."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 @pytest.fixture(scope="module")
 def np_params():
     return jax.tree.map(np.asarray, jlm.init_lm(jax_smoke(ARCH), jax.random.PRNGKey(0)))
@@ -88,8 +100,10 @@ def _jax_grads(np_params, toks, compute_dtype="float32", arch=ARCH):
 
 
 # parameter leaves of each SMOKE model (MLA's attention has seven; hymba
-# adds the SSM's eight, the two fuse weights and an untied unembedding)
-LEAVES = {"llama3.2-1b": 11, "mamba2-780m": 11, "minicpm3-4b": 14, "hymba-1.5b": 22}
+# adds the SSM's eight, the two fuse weights and an untied unembedding;
+# minitron and qwen2-vl an untied unembedding; granite that and its table)
+LEAVES = {"llama3.2-1b": 11, "mamba2-780m": 11, "minicpm3-4b": 14, "hymba-1.5b": 22,
+          "minitron-8b": 12, "granite-20b": 13, "qwen2-vl-7b": 12}
 
 
 @pytest.mark.parametrize("arch", list(LEAVES))
