@@ -15,24 +15,30 @@ Phases, each of which must pass:
              and at hymba-1.5b's shapes (K1 at 25 query heads on 5 kv heads
              with window 1024 and without, forward and backward; K3 at state
              16 over 50 heads, reading the views of one 3232-wide row), and
-             K1 at head dim 128 at minitron-8b's, granite-20b's (MQA) and
-             qwen2-vl-7b's groups of 4, 48 and 7 query heads per kv head,
-             with its time at its main path's shape beside the plain version's, a
+             K1 at head dim 128 at minitron-8b's, granite-20b's (MQA),
+             qwen2-vl-7b's and qwen3-moe-30b-a3b's groups of 4, 48, 7 and 8
+             query heads per kv head, and the K1 backward at granite-20b's
+             full shape (from 8 query heads a kv head on: fp32 row sums,
+             then P and dS as two bf16 terms), and at the MoE SMOKE steps'
+             shapes, with its time at its main path's shape beside the plain version's, a
              library call's (where one PyTorch call computes the same) and
              the card's bound; two K1 backward runs must agree (dq adds with
              atomics); each K1 and K3 case names the route it must take and
              is checked to have taken it; K1's times and the library's
-             (at llama's, minicpm3's, hymba's, minitron's, granite's and
-             qwen2-vl's prefill, SDPA given hymba's window as a boolean
-             mask), and K3's and its plain version's (at
+             (at llama's, minicpm3's, hymba's, minitron's, granite's,
+             qwen2-vl's and qwen3-moe's prefill, SDPA given hymba's window
+             as a boolean mask), the backward's (at llama's, minicpm3's and
+             granite's), and K3's and its plain version's (at
              mamba2's and hymba's), are taken in turns, with those of an earlier
              commit's K1 and K3 sources when they are copied into
              build/parent/ (an older K1, whose C interface has no Dv, is
              timed at llama's shape only);
   3. serve   llama3.2-1b, mamba2-780m, minicpm3-4b, hymba-1.5b (K1 and K3
              in every layer), minitron-8b, granite-20b (learned positions,
-             bfloat16 parameters: its float32 ones do not fit the card) and
-             qwen2-vl-7b (M-RoPE) at full width (batch 4, prompt 2048, 32
+             bfloat16 parameters: its float32 ones do not fit the card),
+             qwen2-vl-7b (M-RoPE) and qwen3-moe-30b-a3b (128 experts, top
+             8, bfloat16 parameters; the (token, k) pairs a prefill drops
+             over capacity printed) at full width (batch 4, prompt 2048, 32
              new tokens) through ``repro_torch.launch.serve.main``, with the
              kernels' launch counts (and K1's and K3's routes) set to 0 just
              before and read just after each run, and the request log read
@@ -42,7 +48,8 @@ Phases, each of which must pass:
              absorbed latent decode against the expanded forward; hymba
              also from a 1040-token prefill, past its window of 1024;
              qwen2-vl also from a prefill of text and an image grid whose
-             three M-RoPE position streams differ);
+             three M-RoPE position streams differ; qwen3-moe, and arctic-480b
+             at SMOKE size, at a capacity that drops nothing);
   5. train   llama3.2-1b at full width (batch 4 x 2048, bf16 compute, f32
              parameters, AdamW, int8-compressed gradients) for a few steps
              through ``init_train_state``/``make_train_step``, with exact
@@ -50,7 +57,9 @@ Phases, each of which must pass:
              size: its loss and gradients on the card against the CPU route
              from the same parameters, then one step and the launcher's
              loop with exact launch counts; granite-20b at SMOKE size
-             (learned positions, MQA) the same way; then the training loop at
+             (learned positions, MQA), qwen3-moe-30b-a3b and arctic-480b
+             (MoE, the aux loss in the loss, routes on the card held to the
+             CPU route's first) the same way; then the training loop at
              SMOKE size through
              ``repro_torch.launch.train.main``, and a crash, NVMM-log
              recovery and resume that lands on the exact step.
@@ -76,7 +85,7 @@ PEAK_BYTES = 3.35e12          # H100 SXM HBM3
 # the kernels each arch's prefill launches, once per layer each
 ARCHS = {"llama3.2-1b": ("k1",), "mamba2-780m": ("k3",), "minicpm3-4b": ("k1",),
          "hymba-1.5b": ("k1", "k3"), "minitron-8b": ("k1",), "granite-20b": ("k1",),
-         "qwen2-vl-7b": ("k1",)}
+         "qwen2-vl-7b": ("k1",), "qwen3-moe-30b-a3b": ("k1",)}
 # K1 cases: (B, Sq, Skv, H, KV, D, Dv, dtype, causal, window), D of q/k, Dv of v
 SLICE = dict(B=4, Sq=2048, Skv=2048, H=32, KV=8, D=64, Dv=64)   # llama3.2-1b prefill, batch 4
 MASKS = [(True, None), (False, None), (True, 24)]
@@ -118,12 +127,13 @@ HYMBA_CASES = [(*HYMBA.values(), dtype, True, window)
     (1, S, S, 25, 5, 64, 64, dtype, True, window)
     for S in (64, 1, 1088, 1040) for dtype in ("float32", "bfloat16")
     for window in (HYMBA_WINDOW, None)]
-# minitron-8b, granite-20b and qwen2-vl-7b: head dim 128 with (H, KV) of
-# (32, 8), (48, 1) and (28, 4), groups of 4, 48 (MQA) and 7.  Serve's
-# prefills, then the decode phase's forwards over 64 tokens and its
-# one-token prefills in both dtypes, and qwen2-vl's image-grid run: a
-# 264-token prefill and the forward over 296 tokens
-D128_SERVE = {"minitron-8b": (32, 8), "granite-20b": (48, 1), "qwen2-vl-7b": (28, 4)}
+# minitron-8b, granite-20b, qwen2-vl-7b and qwen3-moe-30b-a3b: head dim 128
+# with (H, KV) of (32, 8), (48, 1), (28, 4) and (32, 4), groups of 4, 48
+# (MQA), 7 and 8.  Serve's prefills, then the decode phase's forwards over
+# 64 tokens and its one-token prefills in both dtypes, and qwen2-vl's
+# image-grid run: a 264-token prefill and the forward over 296 tokens
+D128_SERVE = {"minitron-8b": (32, 8), "granite-20b": (48, 1), "qwen2-vl-7b": (28, 4),
+              "qwen3-moe-30b-a3b": (32, 4)}
 D128_SERVE_CASES = [(4, 2048, 2048, H, KV, 128, 128, "bfloat16", True, None)
                     for H, KV in D128_SERVE.values()] + [
     (1, S, S, H, KV, 128, 128, dtype, True, None)
@@ -134,6 +144,14 @@ D128_SERVE_CASES = [(4, 2048, 2048, H, KV, 128, 128, "bfloat16", True, None)
 # of 16) in both dtypes, and its launcher's loop (seq 64), forward and backward
 GRANITE_SMOKE_CASES = [(2, S, S, 4, 1, 16, 16, dtype, True, None)
                        for S, dtype in ((32, "float32"), (32, "bfloat16"), (64, "bfloat16"))]
+# the MoE SMOKE models (4 heads on 2 kv heads; qwen3-moe of 32, arctic of 16):
+# phase 5's steps in both dtypes and the launcher's loop (seq 64), forward
+# and backward, and phase 4's arctic decode (64 tokens, one-token prefill)
+MOE_SMOKE_CASES = [(B, S, S, 4, 2, D, D, dtype, True, None)
+                   for D in (32, 16)
+                   for B, S, dtype in ((2, 32, "float32"), (2, 32, "bfloat16"),
+                                       (2, 64, "bfloat16"))] + [
+    (1, S, S, 4, 2, 16, 16, dtype, True, None) for S in (64, 1) for dtype in ("float32", "bfloat16")]
 # The attention sources of an earlier commit, when they are stashed here
 # (build/ is not committed): phase 2 then times them beside the kernels of
 # this tree and the library call, in turns, in this one process.
@@ -155,13 +173,27 @@ MLA_BWD_CASES = [(*MLA.values(), "bfloat16", True, None),
 # and at hymba's prefill shape with its window: off every main path (hymba
 # trains on the card once K3 has a backward), but dk and dv sum over G = 5
 HYMBA_BWD_CASES = [(*HYMBA.values(), "bfloat16", True, HYMBA_WINDOW)]
-# phase 5's minicpm3 and granite SMOKE steps on the card against the CPU
-# route, same parameters and tokens: float32 sums in another order (the
+# and at granite-20b's prefill shape: MQA, 48 query heads' dk and dv summed
+# into one kv head, so the wgmma backward first takes the row sums in fp32
+# and then feeds P and dS as two bf16 terms (TWO_TERM_GROUP in its source);
+# timed, off every main path (granite trains at SMOKE size)
+GRANITE = dict(B=4, Sq=2048, Skv=2048, H=48, KV=1, D=128, Dv=128)
+GRANITE_BWD_CASES = [(*GRANITE.values(), "bfloat16", True, None)]
+# phase 5's minicpm3, granite and MoE SMOKE steps on the card against the
+# CPU route, same parameters and tokens: float32 sums in another order (the
 # card's float32 products in full fp32); bfloat16 rounds P and dS in the
 # kernels and the activations at other places, as the CPU tests' bf16
 # bounds against JAX:
 # loss |d| <= tol, gradients |d| <= tol·(1+|ref|)
 STEP_TOL = {"float32": (1e-4, 1e-4), "bfloat16": (5e-3, 1e-2)}   # (loss, gradients)
+# An MoE step's routes on the card are held to the CPU route's first: the
+# same ordered experts wherever the CPU's router probabilities among a
+# token's k + 1 largest lie further apart than twice the largest |dp|
+# between the two sides' (only rounding can flip or reorder a token's
+# experts there; those few take the CPU's experts, as
+# tests/test_torch_moe.py::routes_as_jax does against JAX), and |dp| at
+# most ROUTER_DP (the CPU tests' bounds against JAX)
+ROUTER_DP = {"float32": 1e-5, "bfloat16": 1e-2}
 TRAIN_STEPS = 4
 # Adam's first steps move every weight by about lr, so a layer's output
 # moves by about lr * d_model: at d_model 2048, lr 1e-3 (SMOKE's, d_model 64)
@@ -241,7 +273,18 @@ DECODE_TOL = {"float32": 2e-3, "bfloat16": 0.25}
 # such as llama's 0.25 would be a guess at granite's 52 layers of 6144.
 # Factor per arch:
 NOISE_HELD = {"mamba2-780m": 1, "hymba-1.5b": 2, "minitron-8b": 2, "granite-20b": 2,
-              "qwen2-vl-7b": 2}
+              "qwen2-vl-7b": 2, "qwen3-moe-30b-a3b": 2, "arctic-480b": 2}
+# qwen3-moe-30b-a3b and arctic-480b SMOKE are held to twice the noise too:
+# at SMOKE widths and qwen3-moe's 48 layers on the CPU, with a capacity that
+# drops nothing, the bf16 mean gap is 0.003-0.24x the noise in JAX and 0-0.23x
+# in the port over three token draws, a routing flip at a near tie making
+# all of it (tests/test_torch_lm.py::
+# test_qwen3_moe_decode_gap_at_full_depth_tracks_jax): routing adds no drift
+# with depth.  Their decode checks run at capacity factor E / k (C >= the
+# group), where the forward drops no (token, k) pair: a decode step never
+# drops one, and at 1.25 the forward does, so the two differ at those tokens
+# in JAX as in the port (tests/test_torch_moe.py::
+# test_decode_differs_from_forward_at_dropped_pairs_in_jax_too).
 # (prompt, tokens, image grid) of each teacher-forced decode check: a
 # one-token prefill and 63 steps; for hymba-1.5b also a 1040-token prefill
 # and 48 steps, each of which sees only the last 1024 keys in its windowed
@@ -335,6 +378,7 @@ def quantize_bound(n, group, itemsize):
 
 
 def main() -> int:
+    import numpy
     import torch
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this check runs only on the card", file=sys.stderr)
@@ -356,6 +400,7 @@ def main() -> int:
     from repro_torch.launch.profile_serve import one_card_config
     from repro_torch.launch import train as launch_train
     from repro_torch.launch.bench_attention import cuda_ms, in_turns
+    from repro_torch.models import moe
     from repro_torch.models.registry import build
     from repro_torch.optim.adamw import AdamW, tree_leaves
     from repro_torch.storage.fsapi import NVCacheFS
@@ -552,7 +597,7 @@ def main() -> int:
         gen = torch.Generator(dev).manual_seed(0)
         bad, errs, slices = [], {}, {}
         for case in (SWEEP + MODEL_CASES + D128_CASES + MLA_CASES + HYMBA_CASES
-                     + D128_SERVE_CASES + GRANITE_SMOKE_CASES):
+                     + D128_SERVE_CASES + GRANITE_SMOKE_CASES + MOE_SMOKE_CASES):
             B, Sq, Skv, H, KV, D, Dv, dtype, causal, window = case
             q, k, v = attention_inputs(gen, B, Sq, Skv, H, KV, D, Dv, dtype)
             want_route = fa.route(q.dtype, D, Dv)
@@ -570,7 +615,8 @@ def main() -> int:
                   f"max_abs_err={errs[case]:.3e} tol={TOL[dtype]} {'ok' if ok else 'MISMATCH'}")
             if not ok:
                 bad.append(case)
-            if case in (MODEL_CASES[0], MLA_CASES[0], *HYMBA_CASES[:2], *D128_SERVE_CASES[:3]):
+            if case in (MODEL_CASES[0], MLA_CASES[0], *HYMBA_CASES[:2],
+                        *D128_SERVE_CASES[:len(D128_SERVE)]):
                 slices[case] = q, k, v
             del q, k, v, got, want, diff
         k1["max_abs_err"] = errs[MODEL_CASES[0]]   # at llama's serving prefill shape
@@ -581,7 +627,7 @@ def main() -> int:
         for key, case in (("hymba", HYMBA_CASES[0]), ("hymba_global", HYMBA_CASES[1])):
             k1[key] = {"shape": HYMBA, "window": case[-1], "max_abs_err": errs[case]}
             time_forward(k1[key], HYMBA, *slices[case], window=case[-1])
-        # head dim 128 at minitron's, granite's and qwen2-vl's prefill
+        # head dim 128 at minitron's, granite's, qwen2-vl's and qwen3-moe's prefill
         for arch, case in zip(D128_SERVE, D128_SERVE_CASES):
             shape = dict(zip(("B", "Sq", "Skv", "H", "KV", "D", "Dv"), case[:7]))
             k1[arch] = {"shape": shape, "max_abs_err": errs[case]}
@@ -711,7 +757,8 @@ def main() -> int:
         gen = torch.Generator(dev).manual_seed(2)
         bad, errs, timed = [], {}, {}
         for case in (SWEEP + BWD_CASES + D128_CASES + MLA_BWD_CASES + MLA_CASES[5:]
-                     + HYMBA_BWD_CASES + GRANITE_SMOKE_CASES):
+                     + HYMBA_BWD_CASES + GRANITE_SMOKE_CASES + MOE_SMOKE_CASES[:6]
+                     + GRANITE_BWD_CASES):
             B, Sq, Skv, H, KV, D, Dv, dtype, causal, window = case
             q, k, v = attention_inputs(gen, B, Sq, Skv, H, KV, D, Dv, dtype)
             do = torch.randn((B, Sq, H, Dv), generator=gen, device=dev).to(q.dtype)
@@ -737,14 +784,17 @@ def main() -> int:
                   f"max_abs_err dq/dk/dv {err:.3e} tol {BWD_TOL[dtype]} {'ok' if ok else 'MISMATCH'}")
             if not ok:
                 bad.append(case)
-            if case in (BWD_CASES[0], MLA_BWD_CASES[0]):
+            if case in (BWD_CASES[0], MLA_BWD_CASES[0], GRANITE_BWD_CASES[0]):
                 timed[case] = q, k, v, o, lse, do
-            del want, leaves
+            del want, leaves, got
         k1b["max_abs_err"] = errs[BWD_CASES[0]]    # at llama's training shape
         k1b["mla"] = {"shape": MLA, "max_abs_err": errs[MLA_BWD_CASES[0]]}
         k1b["hymba"] = {"shape": HYMBA, "window": HYMBA_WINDOW,
                         "max_abs_err": errs[HYMBA_BWD_CASES[0]]}   # checked, not timed
-        for entry, shape, case in ((k1b, TRAIN, BWD_CASES[0]), (k1b["mla"], MLA, MLA_BWD_CASES[0])):
+        k1b["granite"] = {"shape": GRANITE, "plan": "row sums, then P and dS as two bf16 terms",
+                          "max_abs_err": errs[GRANITE_BWD_CASES[0]]}
+        for entry, shape, case in ((k1b, TRAIN, BWD_CASES[0]), (k1b["mla"], MLA, MLA_BWD_CASES[0]),
+                                   (k1b["granite"], GRANITE, GRANITE_BWD_CASES[0])):
             if not time_backward(entry, shape, *timed.pop(case)):
                 bad.append(f"run twice at {shape}")
         if bad:
@@ -799,13 +849,14 @@ def main() -> int:
 
     # ---------------------------------------------------------------- serve
     def serve_full_width(arch):
-        cfg = one_card_config(arch)   # granite-20b: bfloat16 parameters
+        cfg = one_card_config(arch)   # granite-20b, qwen3-moe-30b-a3b: bfloat16 parameters
         B, P, T = 4, 2048, 32
         torch.cuda.empty_cache()      # the last model's blocks: room for this one's
         torch.cuda.reset_peak_memory_stats()
         zero_counts()
-        res = serve.main(["--arch", arch, "--batch", str(B), "--prompt-len", str(P),
-                          "--tokens", str(T), "--seed", "0"], cfg=cfg)
+        with moe.count_drops() as drops:   # (token, k) pairs over capacity (MoE)
+            res = serve.main(["--arch", arch, "--batch", str(B), "--prompt-len", str(P),
+                              "--tokens", str(T), "--seed", "0"], cfg=cfg)
         counts = read_counts(f"serve {arch}")
         own = ARCHS[arch]
         for key in own:   # the last arch's counts stand: K1's at qwen2-vl, K3's at hymba
@@ -815,6 +866,18 @@ def main() -> int:
               f"{res.prefill_s * 1e3:.2f} ms, decode {B * T / res.decode_s:.1f} tokens/s "
               f"({res.decode_s / T * 1e3:.2f} ms/step), peak memory {peak:.2f} GiB, "
               f"launches {counts}")
+        if cfg.family == "moe":   # a decode step's capacity of 4 drops nothing
+            # random weights collapse the routing with depth (the attention
+            # output's shared part leads every token's router input), so the
+            # later layers drop most pairs (tests/test_torch_moe.py::
+            # test_random_weights_collapse_the_routing_with_depth)
+            per_layer = [int(n) / (B * P * cfg.top_k) for n in drops[:cfg.n_layers]]
+            pairs = B * P * cfg.top_k * cfg.n_layers
+            print(f"  {int(sum(drops))} of the prefill's {pairs} (token, k) pairs dropped over "
+                  f"capacity {moe.moe_capacity(cfg, min(cfg.moe_group, B * P))} "
+                  f"({len(drops)} MoE calls, decode {int(sum(drops[cfg.n_layers:]))}); by "
+                  f"layer: " + ", ".join(f"{x:.3f}" for x in per_layer))
+            assert len(drops) == cfg.n_layers * (1 + T) and int(sum(drops[cfg.n_layers:])) == 0
         want = {key: cfg.n_layers if key in own else 0 for key in kernels}
         assert counts == want, f"{arch}: kernel launches {counts} in one request, want {want}"
         # every prefill layer on the wgmma route (K1: bf16 at head dims 64 or
@@ -834,15 +897,20 @@ def main() -> int:
         phase(f"serve {arch}", lambda: serve_full_width(arch))
 
     # --------------------------------------------------------------- decode
-    def decode_matches_forward(arch):
+    def decode_matches_forward(arch, cfg=None):
         """Teacher-forced decode against the forward, for each of the arch's
         ``DECODE_RUNS``: a prefill of ``P`` tokens, then a decode step for
         each of the others up to ``S``, each step's logits against the
         forward's over all ``S`` tokens; with an image grid, the forward and
-        the prefill take its M-RoPE positions."""
-        cfg = one_card_config(arch)   # granite-20b: bfloat16 parameters
+        the prefill take its M-RoPE positions.  ``cfg`` in place of the
+        arch's one-card config (granite-20b and qwen3-moe-30b-a3b: bfloat16
+        parameters, which float32 compute casts up a layer at a time); an
+        MoE model at capacity factor E / k, where its forward drops no pair."""
+        cfg = one_card_config(arch) if cfg is None else cfg
+        if cfg.family == "moe":
+            cfg = dataclasses.replace(cfg, capacity_factor=cfg.n_experts / cfg.top_k)
         torch.cuda.empty_cache()
-        plain_scan = "k3" in ARCHS[arch]
+        plain_scan = "k3" in ARCHS.get(arch, ())
         for P, S, grid in DECODE_RUNS.get(arch, ((1, 64, None),)):
             full_f32 = None
             pos = {}
@@ -857,7 +925,9 @@ def main() -> int:
                     toks = torch.randint(1, cfg.vocab - 1, (1, S), generator=gen, device=dev,
                                          dtype=torch.int32)
                     before = dict(ssd.ssd_cuda.routes)
-                    full, _ = model.forward(params, {"tokens": toks, **pos})
+                    with moe.count_drops() as drops:
+                        full, _ = model.forward(params, {"tokens": toks, **pos})
+                    assert int(sum(drops)) == 0, f"{int(sum(drops))} pairs dropped"
                     if dtype == "float32" and plain_scan:
                         kernel_ssd, ops.ssd = ops.ssd, ref.ssd_ref
                         try:
@@ -878,7 +948,7 @@ def main() -> int:
                     # one padded to 64 rows): the wgmma route in bf16, fma in f32
                     took = {r: k - before[r] for r, k in ssd.ssd_cuda.routes.items()}
                     want = dict.fromkeys(ssd.ROUTES, 0)
-                    if "k3" in ARCHS[arch]:
+                    if plain_scan:
                         want["wgmma" if dtype == "bfloat16" else "fma"] = 2 * cfg.n_layers
                     assert took == want, f"{dtype}: K3 routes {took}, want {want}"
                     outs = []
@@ -891,8 +961,8 @@ def main() -> int:
                 gap, scale = float(diff.max()), float(full.abs().max())
                 if dtype == "float32":
                     full_f32 = full
-                what = (f"{arch} {dtype}, prefill {P}{' (text and image grid)' if grid else ''} "
-                        f"then {S - P} steps")
+                what = (f"{cfg.arch} {dtype}, prefill {P}"
+                        f"{' (text and image grid)' if grid else ''} then {S - P} steps")
                 if dtype == "bfloat16" and arch in NOISE_HELD:
                     noise = float((full - full_f32).abs().mean())
                     print(f"  decode vs forward, {what}: mean |logit gap| "
@@ -913,6 +983,8 @@ def main() -> int:
 
     for arch in ARCHS:
         phase(f"decode {arch}", lambda: decode_matches_forward(arch))
+    phase("decode arctic-480b SMOKE",
+          lambda: decode_matches_forward("arctic-480b", get_smoke("arctic-480b")))
 
     # ---------------------------------------------------------------- train
     def train_full_width():
@@ -996,13 +1068,59 @@ def main() -> int:
         assert len(hist1) == 17 and len(hist2) == 3 and pipe2.step == 20
         assert int(state2["opt"]["step"]) == 20 and state2["params"]["embed"].is_cuda
 
+    def record_routes():
+        """Patch ``moe._top_k`` to record each call's (experts, router
+        probabilities) as numpy; returns (the list, the undo)."""
+        calls, top_k = [], moe._top_k
+
+        def spy(probs, K):
+            w, idx = top_k(probs, K)
+            calls.append((idx.cpu().numpy(), probs.detach().float().cpu().numpy()))
+            return w, idx
+
+        moe._top_k = spy
+        return calls, lambda: setattr(moe, "_top_k", top_k)
+
+    def hold_routes(recorded, max_dp):
+        """Patch ``moe._top_k`` to hold each call to the recorded call of the
+        same shape whose probabilities lie nearest (|dp| <= ``max_dp``):
+        the same ordered experts wherever its neighbouring probabilities
+        among a token's k + 1 largest lie further apart than twice that |dp|
+        (the order of the k choices sets their slots), and its experts taken
+        where they differ (ROUTER_DP's comment).  Returns (a report, the
+        undo)."""
+        report, top_k = {"calls": 0, "forced": 0, "max_dp": 0.0}, moe._top_k
+
+        def held(probs, K):
+            w, idx = top_k(probs, K)
+            p = probs.detach().float().cpu().numpy()
+            dp, ri, rp = min(((float(abs(p - rp).max()), ri, rp) for ri, rp in recorded
+                              if rp.shape == p.shape), key=lambda c: c[0])
+            srt = -numpy.sort(-rp, -1)[..., :K + 1]   # neighbours among the k + 1 largest
+            gap = (srt[..., :-1] - srt[..., 1:]).min(-1)
+            differ = (idx.cpu().numpy() != ri).any(-1)
+            assert dp <= max_dp, f"router probabilities {dp:.3e} apart"
+            assert (gap[differ] <= 2 * dp).all(), "experts differ beyond the rounding"
+            report["calls"] += 1
+            report["forced"] += int(differ.sum())
+            report["max_dp"] = max(report["max_dp"], dp)
+            if differ.any():
+                idx = torch.from_numpy(ri.copy()).to(idx.device, idx.dtype)
+                w = torch.gather(probs, -1, idx)
+            return w, idx
+
+        moe._top_k = held
+        return report, lambda: setattr(moe, "_top_k", top_k)
+
     def train_smoke(arch, leaves):
         """``arch``'s SMOKE config (minicpm3-4b: K1 and its backward at head
         dims 24 / 16; granite-20b: learned positions, 4 heads on one kv head
-        of 16): the loss and every gradient (``leaves`` of them) on the card
-        against the CPU route, from the same parameters and tokens, in
-        float32 and bfloat16; then one optimizer step on the card with
-        int8-compressed gradients, and the launcher's loop."""
+        of 16; qwen3-moe-30b-a3b and arctic-480b: MoE, their routes on the
+        card held to the CPU route's first, ``hold_routes``): the loss and
+        every gradient (``leaves`` of them) on the card against the CPU
+        route, from the same parameters and tokens, in float32 and bfloat16;
+        then one optimizer step on the card with int8-compressed gradients,
+        and the launcher's loop."""
         base = get_smoke(arch)
         toks = torch.from_numpy(SyntheticTokens(base.vocab, 2, 32, seed=0).next()["tokens"])
         cpu = torch.device("cpu")
@@ -1021,10 +1139,26 @@ def main() -> int:
             cfg = dataclasses.replace(base, compute_dtype=dtype)
             model = build(cfg)
             np_params = params_to_numpy(model.init(torch.Generator(cpu).manual_seed(0)))
-            want_loss, want = loss_and_grads(model, params_from_numpy(np_params, cpu), cpu)
+            routes, undo = record_routes()
+            try:
+                want_loss, want = loss_and_grads(model, params_from_numpy(np_params, cpu), cpu)
+            finally:
+                undo()
+            report, undo = hold_routes(routes, ROUTER_DP[dtype])
             zero_counts()
-            loss, got = loss_and_grads(model, params_from_numpy(np_params, dev), dev)
+            try:
+                loss, got = loss_and_grads(model, params_from_numpy(np_params, dev), dev)
+            finally:
+                undo()
             counts = read_counts(f"train {arch} SMOKE {dtype}")
+            if cfg.family == "moe":
+                srt = numpy.concatenate([-numpy.sort(-p, -1).reshape(-1, p.shape[-1])
+                                         for _, p in routes])
+                gaps = srt[:, cfg.top_k - 1] - srt[:, cfg.top_k]
+                print(f"  {arch} SMOKE {dtype} routes: {len(routes)} CPU calls, smallest gap "
+                      f"{float(gaps[gaps > 0].min()):.3e}, card {report}")
+                assert report["calls"] == len(routes)
+                assert dtype == "bfloat16" or report["forced"] == 0, report
             routes = dict(fa.flash_attention_cuda.routes), dict(fa.flash_attention_bwd_cuda.routes)
             route = fa.route(cfg.cdt, cfg.head_dim, cfg.v_head_dim or cfg.head_dim)
             loss_tol, grad_tol = STEP_TOL[dtype]
@@ -1067,6 +1201,10 @@ def main() -> int:
     phase("train minicpm3-4b SMOKE", lambda: train_smoke("minicpm3-4b", 14))
     # embed, unembed, final_norm, pos_table and the layers' 9 (GQA, MLP, norms)
     phase("train granite-20b SMOKE", lambda: train_smoke("granite-20b", 13))
+    # embed, unembed, final_norm and the layers' 10: GQA, the router and
+    # three expert tensors, the norms; arctic also its dense MLP's three
+    phase("train qwen3-moe-30b-a3b SMOKE", lambda: train_smoke("qwen3-moe-30b-a3b", 13))
+    phase("train arctic-480b SMOKE", lambda: train_smoke("arctic-480b", 16))
     phase("train loop SMOKE", train_loop_smoke)
 
     print(json.dumps({"kernels": [k1, k1b, k2, k3]}))

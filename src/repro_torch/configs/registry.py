@@ -13,6 +13,8 @@ ARCHS = {   # in the order of repro.configs.registry.ARCHS
     "minicpm3-4b": "minicpm3_4b",
     "granite-20b": "granite_20b",
     "minitron-8b": "minitron_8b",
+    "arctic-480b": "arctic_480b",
+    "qwen3-moe-30b-a3b": "qwen3_moe_30b_a3b",
     "hymba-1.5b": "hymba_1_5b",
     "qwen2-vl-7b": "qwen2_vl_7b",
     "mamba2-780m": "mamba2_780m",

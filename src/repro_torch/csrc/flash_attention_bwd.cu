@@ -41,6 +41,14 @@
 //        n32 product (column blocks 0 and 1) and dQ is n64 on warpgroup 0
 //        and n32 on warpgroup 1; S^T and dP^T take 6 and DV / 16 k16 steps;
 //     3. bwd_dq_finish: dq = scale * that accumulator, as bf16.
+//     dK and dV sum G * Sq terms a key.  From bw::TWO_TERM_GROUP query heads
+//     a kv head on, one bf16 term of P and dS, and D_i from the bf16 O, put
+//     a few elements past the bound (granite-20b's G 48 at the first keys),
+//     so there steps 1 and 2 become: the wgmma kernel's ROW_SUMS pass, which
+//     stops after P and adds D_i = sum_j P_ij dP_ij in fp32 with atomics
+//     (the S^T and dP^T products again), then its TWO_TERM pass, which feeds
+//     P^T and dS^T to the dV and dK products as hi + lo bf16 terms (two
+//     products each): nine products a visible pair where five do.
 //   * bf16, D and Dv at most 32, and f32: delta (one warp per row for f32), then
 //     dQ: one block per (batch * head, 64-row q tile) over the kv tiles the
 //     forward visits, recomputing S and dP; then dK/dV: one block per
@@ -613,6 +621,26 @@ constexpr int BM = 64;        // q rows per tile of the ring
 constexpr int STAGES = 3;     // Q / dO / lse / delta ring depth
 constexpr int THREADS = 384;  // warpgroups 0-1 consume, warpgroup 2 produces
 
+// How bwd_wgmma rounds P and dS for the dV and dK products, and what it does.
+enum Plan {
+  ONE_TERM,  // P and dS as one bf16 term each; D_i = dO_i . O_i from the bf16 O
+  ROW_SUMS,  // no gradient: D_i = sum_j P_ij dP_ij in fp32, added with atomics
+  TWO_TERM,  // P and dS as hi + lo bf16 terms (two products each), after ROW_SUMS
+};
+
+// dK and dV sum G * Sq terms a key.  Below this group size the one-term
+// plan keeps within 2e-2 (1 + |ref|) of the fp32 gradient; from it on the
+// call first takes the row sums in fp32 and then runs the two-term plan.
+// The rounding plans emulated on the CPU at head dim 128 over the first
+// 128-key tile of B 2 x 2048 queries (tests/test_torch_flash_attention.py::
+// test_wgmma_bwd_rounding_plan_holds_at_large_groups): the one-term plan's
+// worst |d| / (1 + |ref|) is 0.48x the bound at G 4, 0.63x at G 7, 0.83x at
+// G 8 and 16 and 1.33x at G 48 (granite-20b); the row sums and two terms
+// 0.17-0.29x at each of those G.  Two terms alone, with D_i still from the
+// bf16 O, stay 2.6x as far off as both at G 48: O's rounding in D_i is the
+// other half of the error.
+constexpr int TWO_TERM_GROUP = 8;
+
 // Offset of the fp32 dQ accumulator in the `delta` scratch: delta's
 // B * H * Sq floats rounded up to 4, so float2 atomics stay aligned.
 __host__ __device__ __forceinline__ long long dq_acc_offset(const Params& p) {
@@ -671,8 +699,13 @@ __global__ void __launch_bounds__(256) bwd_delta_bf16(Params p) {
 // dim (A = dS^T read MN-major, B = K read MN-major) and adds it with float2
 // atomics into the fp32 accumulator.  dS^T is double-buffered, so one
 // barrier per q tile suffices.  Q and K are D wide (DB 64-column blocks,
-// the last one half used at D 96), V and dO DV wide.
-template <int D, int DV>
+// the last one half used at D 96), V and dO DV wide.  PLAN (bw::Plan):
+// ONE_TERM and TWO_TERM as above, P^T and dS^T going in as one or as two
+// bf16 terms (hi, then lo: dV and dK take two products each); ROW_SUMS
+// stops after P^T and adds each q column's sum of P^T dP^T over the block's
+// k rows into `delta` (zeroed by the caller) with atomics: the fp32 D_i the
+// TWO_TERM pass that follows reads.
+template <int D, int DV, int PLAN>
 __global__ void __launch_bounds__(bw::THREADS, 1) bwd_wgmma(Params p) {
   using namespace hopper;
   constexpr int BN = bw::BN, BM = bw::BM, STAGES = bw::STAGES;
@@ -794,7 +827,39 @@ __global__ void __launch_bounds__(bw::THREADS, 1) bwd_wgmma(Params p) {
           if (!visible(p, q0 + 8 * (e >> 2) + 2 * qd + (e & 1), j_row[(e >> 1) & 1]))
             s[e] = -INFINITY;  // P = exp2(-inf) = 0
       }
-      uint32_t pa[4][4], da[4][4];
+      if constexpr (PLAN == bw::ROW_SUMS) {
+        // column c = 8 m/2 + 2 qd + m%2 of this thread: the sum of P^T dP^T
+        // over its two k rows, then over the warp's 16 (the 8 lanes of a qd)
+        float part[16];
+#pragma unroll
+        for (int e = 0; e < 32; e += 2) {
+          const int c = 8 * (e >> 2) + 2 * qd, m = 2 * (e >> 2);
+          const float2 lse2 = *reinterpret_cast<const float2*>(Ls + c);
+          const float p0 = exp2_approx(fmaf(s[e], scale2, -lse2.x * LOG2E)) * dp[e];
+          const float p1 = exp2_approx(fmaf(s[e + 1], scale2, -lse2.y * LOG2E)) * dp[e + 1];
+          part[m] = (e >> 1) & 1 ? part[m] + p0 : p0;
+          part[m + 1] = (e >> 1) & 1 ? part[m + 1] + p1 : p1;
+        }
+#pragma unroll
+        for (int m = 0; m < 16; ++m)
+#pragma unroll
+          for (int off = 4; off < 32; off <<= 1)
+            part[m] += __shfl_xor_sync(0xffffffffu, part[m], off);
+        __syncwarp();
+        if (lane == 0) mbar_arrive(&empty[st]);
+        if (g == 0) {
+          float* dst = p.delta + (static_cast<long long>(b) * p.H + h) * p.Sq + q0;
+#pragma unroll
+          for (int m = 0; m < 16; ++m) {
+            const int c = 8 * (m >> 1) + 2 * qd + (m & 1);
+            if (q0 + c < p.Sq) atomicAdd(dst + c, part[m]);
+          }
+        }
+        continue;
+      }
+      // P^T and dS^T as A fragments: one bf16 term, or hi (pa, da) and lo
+      constexpr int LO = PLAN == bw::TWO_TERM ? 4 : 1;
+      uint32_t pa[4][4], da[4][4], pa_lo[LO][4], da_lo[LO][4];
       unsigned char* ds_buf = dSs + (t & 1) * DS_BYTES;
 #pragma unroll
       for (int e = 0; e < 32; e += 2) {
@@ -803,9 +868,16 @@ __global__ void __launch_bounds__(bw::THREADS, 1) bwd_wgmma(Params p) {
         const float2 dl2 = *reinterpret_cast<const float2*>(Dl + c);
         const float p0 = exp2_approx(fmaf(s[e], scale2, -lse2.x * LOG2E));
         const float p1 = exp2_approx(fmaf(s[e + 1], scale2, -lse2.y * LOG2E));
-        pa[e >> 3][(e >> 1) & 3] = pack_bf16x2(p0, p1);
-        const uint32_t dsw = pack_bf16x2(p0 * (dp[e] - dl2.x), p1 * (dp[e + 1] - dl2.y));
-        da[e >> 3][(e >> 1) & 3] = dsw;
+        const float ds0 = p0 * (dp[e] - dl2.x), ds1 = p1 * (dp[e + 1] - dl2.y);
+        uint32_t& pw = pa[e >> 3][(e >> 1) & 3];
+        uint32_t& dsw = da[e >> 3][(e >> 1) & 3];
+        if constexpr (PLAN == bw::TWO_TERM) {
+          split2(p0, p1, pw, pa_lo[e >> 3][(e >> 1) & 3]);
+          split2(ds0, ds1, dsw, da_lo[e >> 3][(e >> 1) & 3]);
+        } else {
+          pw = pack_bf16x2(p0, p1);
+          dsw = pack_bf16x2(ds0, ds1);
+        }
         const int r = 64 * w + 16 * warp + g + 8 * rr;  // row of dS^T: k row within the block
         *reinterpret_cast<uint32_t*>(ds_buf + swz(r, c >> 3) + (c & 7) * 2) = dsw;
       }
@@ -813,15 +885,24 @@ __global__ void __launch_bounds__(bw::THREADS, 1) bwd_wgmma(Params p) {
 
       wgmma_fence();
 #pragma unroll
-      for (int kk = 0; kk < 4; ++kk)
-        wgmma_rs<1>(dv, pa[kk], desc_b128(do_addr + kk * 16 * 128, BM * 128, 1024), 1);
+      for (int kk = 0; kk < 4; ++kk) {
+        const uint64_t b_desc = desc_b128(do_addr + kk * 16 * 128, BM * 128, 1024);
+        wgmma_rs<1>(dv, pa[kk], b_desc, 1);
+        if constexpr (PLAN == bw::TWO_TERM) wgmma_rs<1>(dv, pa_lo[kk], b_desc, 1);
+      }
 #pragma unroll
-      for (int kk = 0; kk < 4; ++kk)
-        wgmma_rs<1>(dk, da[kk], desc_b128(q_addr + kk * 16 * 128, BM * 128, 1024), 1);
+      for (int kk = 0; kk < 4; ++kk) {
+        const uint64_t b_desc = desc_b128(q_addr + kk * 16 * 128, BM * 128, 1024);
+        wgmma_rs<1>(dk, da[kk], b_desc, 1);
+        if constexpr (PLAN == bw::TWO_TERM) wgmma_rs<1>(dk, da_lo[kk], b_desc, 1);
+      }
       if constexpr (DK1 > 0) {
 #pragma unroll
-        for (int kk = 0; kk < 4; ++kk)
-          wgmma_rs<1>(dk1, da[kk], desc_b128(q_addr + BM * 128 + kk * 16 * 128, BM * 128, 1024), 1);
+        for (int kk = 0; kk < 4; ++kk) {
+          const uint64_t b_desc = desc_b128(q_addr + BM * 128 + kk * 16 * 128, BM * 128, 1024);
+          wgmma_rs<1>(dk1, da[kk], b_desc, 1);
+          if constexpr (PLAN == bw::TWO_TERM) wgmma_rs<1>(dk1, da_lo[kk], b_desc, 1);
+        }
       }
       wgmma_commit();
 
@@ -867,6 +948,7 @@ __global__ void __launch_bounds__(bw::THREADS, 1) bwd_wgmma(Params p) {
         dq_part(dq, QW0);
       }
     }
+    if constexpr (PLAN == bw::ROW_SUMS) return;
 
 #pragma unroll
     for (int rr = 0; rr < 2; ++rr) {
@@ -938,14 +1020,22 @@ cudaError_t launch_bf16(const Params& p, cudaStream_t st) {
                 tiles + 2 * 64 * static_cast<int>(sizeof(float)), p, st);
 }
 
+// The wgmma kernel of `plan` (after the row sums for TWO_TERM), then dq.
 template <int D, int DV>
-cudaError_t launch_wgmma(const Params& p, cudaStream_t st) {
+cudaError_t launch_wgmma(const Params& p, bw::Plan plan, cudaStream_t st) {
   constexpr int DB = (D + 63) / 64, DVB = DV / 64;
   constexpr int smem = 1024 + bw::BN * (DB + DVB) * 128 + bw::STAGES * bw::BM * (DB + DVB) * 128 +
                        2 * bw::BN * bw::BM * 2 + bw::STAGES * 2 * bw::BM * 4 + 64;
   static_assert(smem <= 232448, "more shared memory than a block can have");
-  cudaError_t err = launch(bwd_wgmma<D, DV>, dim3(p.B * p.KV, (p.Skv + bw::BN - 1) / bw::BN),
-                           bw::THREADS, smem, p, st);
+  const dim3 grid(p.B * p.KV, (p.Skv + bw::BN - 1) / bw::BN);
+  cudaError_t err;
+  if (plan == bw::TWO_TERM) {
+    err = launch(bwd_wgmma<D, DV, bw::ROW_SUMS>, grid, bw::THREADS, smem, p, st);
+    if (err != cudaSuccess) return err;
+    err = launch(bwd_wgmma<D, DV, bw::TWO_TERM>, grid, bw::THREADS, smem, p, st);
+  } else {
+    err = launch(bwd_wgmma<D, DV, bw::ONE_TERM>, grid, bw::THREADS, smem, p, st);
+  }
   if (err != cudaSuccess) return err;
   const long long n4 = static_cast<long long>(p.B) * p.Sq * p.H * p.D / 4;
   bwd_dq_finish<<<static_cast<unsigned>((n4 + 255) / 256), 256, 0, st>>>(p);
@@ -981,8 +1071,9 @@ struct Launch {
       return err != cudaSuccess ? err : launch_bf16<D, DV>(p, st);
     } else {
       constexpr int DW = D < 64 ? 64 : D, DVW = DV < 64 ? 64 : DV;
+      if (p.G >= bw::TWO_TERM_GROUP) return launch_wgmma<DW, DVW>(p, bw::TWO_TERM, st);
       err = launch_delta_bf16<DVW>(p, st);
-      return err != cudaSuccess ? err : launch_wgmma<DW, DVW>(p, st);
+      return err != cudaSuccess ? err : launch_wgmma<DW, DVW>(p, bw::ONE_TERM, st);
     }
   }
 };
@@ -993,9 +1084,10 @@ struct Launch {
 // D is the head dim of q, k, dq, dk; Dv that of v, o, dout, dv; each at
 // most 128.  Strides are in elements; the last dim of q, k, v, o and dout
 // is contiguous.  lse: B * H * Sq floats.  delta: fp32 scratch of B * H *
-// Sq floats; for bf16 with D or Dv above 32 (the wgmma kernels) followed,
-// from the next multiple of 4 floats, by a zeroed B * Sq * H * D
-// accumulator for dQ.  dq: (B, Sq, H, D), dk: (B, Skv, KV, D) and dv:
+// Sq floats; for bf16 with D or Dv above 32 (the wgmma kernels) zeroed
+// and followed, from the next multiple of 4 floats, by a zeroed B * Sq * H
+// * D accumulator for dQ (from TWO_TERM_GROUP query heads a kv head on,
+// the row sums add into the first part too).  dq: (B, Sq, H, D), dk: (B, Skv, KV, D) and dv:
 // (B, Skv, KV, Dv), contiguous.  Returns 0 on success.
 extern "C" int flash_attention_bwd(
     const void* q, const void* k, const void* v, const void* o, const void* dout,

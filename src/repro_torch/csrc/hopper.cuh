@@ -193,6 +193,15 @@ __device__ __forceinline__ uint32_t pack_bf16x2(float lo, float hi) {
   return *reinterpret_cast<uint32_t*>(&v);
 }
 
+// a, b as hi + lo bf16 pairs: hi = bf16(v), lo = bf16(v - hi), about 16
+// mantissa bits as two tensor-core operands.
+__device__ __forceinline__ void split2(float a, float b, uint32_t& hi, uint32_t& lo) {
+  const __nv_bfloat162 hv = __floats2bfloat162_rn(a, b);
+  const float2 hf = __bfloat1622float2(hv);
+  hi = *reinterpret_cast<const uint32_t*>(&hv);
+  lo = pack_bf16x2(a - hf.x, b - hf.y);
+}
+
 // D (64 x N, fp32) += A (64 x 16, bf16) * B (16 x N, bf16), issued by one
 // warpgroup.  Accumulator layout: thread t of the warpgroup holds, for the
 // n8 block j, d[4j + e] at row 16 (t / 32) + (t % 32) / 4 + 8 (e / 2) and

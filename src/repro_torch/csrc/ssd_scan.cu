@@ -377,14 +377,6 @@ __device__ __forceinline__ void copy_rows(unsigned char* dst, const bf16* src, l
   }
 }
 
-// a, b as hi + lo bf16 pairs: hi = bf16(v), lo = bf16(v - hi).
-__device__ __forceinline__ void split2(float a, float b, uint32_t& hi, uint32_t& lo) {
-  const __nv_bfloat162 hv = __floats2bfloat162_rn(a, b);
-  const float2 hf = __bfloat1622float2(hv);
-  hi = *reinterpret_cast<const uint32_t*>(&hv);
-  lo = hopper::pack_bf16x2(a - hf.x, b - hf.y);
-}
-
 // dt of rows [0, rows) of the chunk into dts, and their cums; every thread
 // of the block calls it.
 __device__ __forceinline__ void chunk_cums(const float* dth, long long dt_ss, int rows, float A,
@@ -521,10 +513,10 @@ __global__ void __launch_bounds__(WG) ssd_carry(Params p) {
     for (int k = 0; k < AHEAD; ++k) {
       if (c0 + k >= p.nc) break;
       uint4 hl[2];  // hi, lo
-      split2(s[0], s[1], hl[0].x, hl[1].x);
-      split2(s[2], s[3], hl[0].y, hl[1].y);
-      split2(s[4], s[5], hl[0].z, hl[1].z);
-      split2(s[6], s[7], hl[0].w, hl[1].w);
+      hopper::split2(s[0], s[1], hl[0].x, hl[1].x);
+      hopper::split2(s[2], s[3], hl[0].y, hl[1].y);
+      hopper::split2(s[4], s[5], hl[0].z, hl[1].z);
+      hopper::split2(s[6], s[7], hl[0].w, hl[1].w);
       uint4* at = reinterpret_cast<uint4*>(slot + static_cast<long long>(c0 + k) * PN);
       at[0] = hl[0];
       at[1] = hl[1];

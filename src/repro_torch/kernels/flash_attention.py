@@ -186,8 +186,9 @@ flash_attention_cuda.routes = dict.fromkeys(ROUTES, 0)
 def _bwd_scratch(q, Dv):
     """The backward's fp32 scratch: the row sums D = rowsum(dO * O), B * H *
     Sq floats, and, for the wgmma route (Dv is v's head dim), after them (at
-    the next multiple of 4 floats) the zeroed (B, Sq, H, D) dQ accumulator
-    that its atomics add into."""
+    the next multiple of 4 floats) the (B, Sq, H, D) dQ accumulator that its
+    atomics add into; on that route all of it is zeroed, since from 8 query
+    heads a kv head on the row sums are added up with atomics too."""
     B, Sq, H, D = q.shape
     n = B * H * Sq
     if route(q.dtype, D, Dv) == "wgmma":
@@ -239,7 +240,10 @@ def flash_attention_bwd_cuda(q, k, v, o, lse, do, *, causal=True, window=0, scal
     runs three kernels: the row sums D = rowsum(dO * O), then, on the wgmma
     route, the wgmma kernel (dK, dV, and dQ added with atomics into an fp32
     accumulator) and the kernel that scales that into dq; otherwise dQ,
-    then dK/dV."""
+    then dK/dV.  On the wgmma route with 8 or more query heads a kv head the
+    wgmma kernel runs twice, first for the row sums as sums of P dP in fp32,
+    then with P and dS as two bf16 terms each (``csrc/flash_attention_bwd.cu``,
+    ``TWO_TERM_GROUP``)."""
     _check_device((q, k, v, o, lse, do), "flash_attention_bwd_cuda")
     with torch.cuda.device(q.device):
         grads = launch_bwd(_bwd_entry(), q, k, v, o, lse, do, causal=causal, window=window,

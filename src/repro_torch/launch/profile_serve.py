@@ -2,12 +2,13 @@
 
     python -m repro_torch.launch.profile_serve [ARCH ...]
 
-Serves each ported arch in turn (the registry's, in its order: llama3.2-1b,
-minicpm3-4b, granite-20b, minitron-8b, hymba-1.5b, qwen2-vl-7b,
-mamba2-780m), or those named on the command line, at full width (batch 4,
-prompt 2048, 32 new tokens, seed 0; granite-20b with bfloat16 parameters,
-:func:`one_card_config`), each one's parameters freed before the next is
-drawn, with
+Serves each ported arch that fits one card in turn (the registry's, in
+its order: llama3.2-1b, minicpm3-4b, granite-20b, minitron-8b,
+qwen3-moe-30b-a3b, hymba-1.5b, qwen2-vl-7b, mamba2-780m; not arctic-480b,
+``WAITING``), or those named on the command line, at full width (batch 4,
+prompt 2048, 32 new tokens, seed 0; granite-20b and qwen3-moe-30b-a3b with
+bfloat16 parameters, :func:`one_card_config`), each one's parameters freed
+before the next is drawn, with
 ``repro_torch.launch.serve``'s prefill and decode: one run to warm up
 (allocator, cuBLAS, kernel library), ``REPS`` timed on the host clock
 around synchronised work (their median is reported, with the fastest and
@@ -17,9 +18,12 @@ warm prefill time, the decode time per step, the device-busy share of each
 (device kernel time over the median timed run's wall time), the kernels
 that take the most device time, the hand-written kernels' launches per
 prefill and, summed over the CUDA kernels each of them runs (``OWN``),
-their device time per prefill and share of the prefill's device time,
-then one JSON line with those numbers and the card's name and power
-limit.  Needs a CUDA card.
+their device time per prefill and share of the prefill's device time;
+for an MoE model the device time per prefill and per decode step of its
+expert products, dispatch and combine (the ``moe.*`` spans of
+``models/moe.py``) and the (token, k) pairs a prefill drops over
+capacity; then one JSON line with those numbers and the card's name and
+power limit.  Needs a CUDA card.
 """
 from __future__ import annotations
 
@@ -37,6 +41,7 @@ from repro_torch.configs.registry import all_archs, get_config
 from repro_torch.kernels.flash_attention import flash_attention_cuda
 from repro_torch.kernels.ssd_scan import ssd_cuda
 from repro_torch.launch.serve import decode, prefill
+from repro_torch.models import moe
 from repro_torch.models.registry import build
 
 B, P, T, SEED = 4, 2048, 32, 0   # the slices' serving shape
@@ -46,13 +51,30 @@ OWN = {"k1": ("fa_fwd_",), "k3": ("ssd_fwd", "ssd_chunk_state", "ssd_carry", "ss
 TOP = 12                         # kernels listed per phase
 REPS = 5                         # timed runs of each phase
 # what an arch's config must change to serve on one 80 GB card: granite-20b's
-# float32 parameters (28.37 B, 105.7 GiB) do not fit, its bfloat16 ones do
-ONE_CARD = {"granite-20b": {"param_dtype": "bfloat16"}}
+# float32 parameters (28.37 B, 105.7 GiB) do not fit, its bfloat16 ones (52.8
+# GiB) do; qwen3-moe-30b-a3b's likewise (30.53 B: 113.7 GiB, 56.9 GiB)
+ONE_CARD = {"granite-20b": {"param_dtype": "bfloat16"},
+            "qwen3-moe-30b-a3b": {"param_dtype": "bfloat16"}}
+# archs no one-card config serves at full width
+WAITING = {"arctic-480b": "~477 B parameters, ~27 GB of bfloat16 a layer: two of its "
+                          "35 layers fill an 80 GB card"}
+SPANS = ("moe.experts", "moe.dispatch", "moe.combine")   # models/moe.py's record_function
 
 
 def one_card_config(arch: str):
-    """``arch``'s config as it serves on one 80 GB card."""
+    """``arch``'s config as it serves on one 80 GB card; raises ValueError
+    for an arch in ``WAITING``."""
+    if arch in WAITING:
+        raise ValueError(f"{arch} does not serve on one card at full width: {WAITING[arch]}")
     return dataclasses.replace(get_config(arch), **ONE_CARD.get(arch, {}))
+
+
+def _span_ms(prof, name):
+    """Device time (ms) of the kernels launched inside ``record_function(name)``:
+    the device time of its host-side row's children (its device-side row
+    spans the GPU timeline, idle gaps included)."""
+    return sum(e.device_time_total for e in prof.key_averages()
+               if e.key == name and e.device_type == torch.autograd.DeviceType.CPU) / 1e3
 
 
 def _timed(fn):
@@ -66,9 +88,11 @@ def _timed(fn):
 def _device_ms(prof):
     """Device time (ms) by kernel name, largest first.  Operator rows (on
     the CPU) are left out: their device time is that of the kernels they
-    launched, which are rows of their own."""
+    launched, which are rows of their own; so are the device-side rows of
+    ``record_function`` spans, which time a stretch of the GPU's timeline."""
     rows = [(e.key, e.self_device_time_total / 1e3) for e in prof.key_averages()
-            if e.device_type != torch.autograd.DeviceType.CPU and e.self_device_time_total > 0]
+            if e.device_type != torch.autograd.DeviceType.CPU and e.self_device_time_total > 0
+            and not getattr(e, "is_user_annotation", False) and e.key not in SPANS]
     return sorted(rows, key=lambda r: -r[1])
 
 
@@ -103,6 +127,11 @@ def profile_arch(arch: str, card: str, cfg=None):
             torch.cuda.synchronize()
         for k, fn in KERNELS.items():
             result[f"{k}_launches_per_prefill"] = fn.launches - launches[k]
+        if cfg.family == "moe":
+            with moe.count_drops() as drops:
+                prefill(model, params, prompts, T)
+            result["moe_dropped_pairs_per_prefill"] = int(sum(drops))
+            result["moe_pairs_per_prefill"] = B * P * cfg.top_k * cfg.n_layers
 
     for name, prof, wall_s, steps in (("prefill", prof_p, prefill_s, 1),
                                       ("decode", prof_d, decode_s, T)):
@@ -119,6 +148,12 @@ def profile_arch(arch: str, card: str, cfg=None):
         for key, ms in rows[:TOP]:
             print(f"  {ms / steps:9.3f} ms  {ms / dev_ms:6.1%}  {key[:100]}")
         result[f"{name}_top"] = [[key[:100], ms / steps] for key, ms in rows[:TOP]]
+        if cfg.family == "moe":
+            for span in SPANS:
+                ms = _span_ms(prof, span) / steps
+                result[f"{span.replace('.', '_')}_ms_per_{name}"] = ms
+                print(f"  {span}: {ms:.3f} ms{' per step' if steps > 1 else ''} of device "
+                      f"time, {ms * steps / dev_ms:.1%}")
         if name == "prefill":
             for k, names in OWN.items():
                 ms = sum(v for key, v in rows if any(n in key for n in names))
@@ -137,7 +172,8 @@ def profile_arch(arch: str, card: str, cfg=None):
 def main(argv=None):
     if not torch.cuda.is_available():
         raise SystemExit("profile_serve measures the card: no CUDA device")
-    archs = (sys.argv[1:] if argv is None else argv) or all_archs()
+    archs = (sys.argv[1:] if argv is None else argv) or [a for a in all_archs()
+                                                         if a not in WAITING]
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                          capture_output=True, text=True, timeout=60)
     results = []

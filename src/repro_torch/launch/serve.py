@@ -5,11 +5,12 @@ decode — no request is lost to a crash).
     python -m repro_torch.launch.serve --arch llama3.2-1b --smoke --tokens 16
 
 ``--arch`` is one of the ported architectures: llama3.2-1b, minicpm3-4b,
-granite-20b, minitron-8b, hymba-1.5b, qwen2-vl-7b or mamba2-780m.  Runs on
-the CUDA device unless ``--device cpu`` is given.  ``main``'s ``cfg``
-keyword serves a config of the caller's in place of ``--arch``'s, e.g.
-granite-20b with ``param_dtype="bfloat16"`` (its float32 parameters do not
-fit one 80 GB card):
+granite-20b, minitron-8b, arctic-480b, qwen3-moe-30b-a3b, hymba-1.5b,
+qwen2-vl-7b or mamba2-780m.  Runs on the CUDA device unless ``--device
+cpu`` is given.  ``main``'s ``cfg`` keyword serves a config of the caller's
+in place of ``--arch``'s, e.g. granite-20b or qwen3-moe-30b-a3b with
+``param_dtype="bfloat16"`` (their float32 parameters do not fit one 80 GB
+card; ``launch.profile_serve.one_card_config`` gives that config):
 
     main(["--arch", "granite-20b"],
          cfg=dataclasses.replace(get_config("granite-20b"), param_dtype="bfloat16"))

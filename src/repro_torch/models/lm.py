@@ -1,14 +1,17 @@
 """Decoder-only LM assembly, dense (GQA or MLA attention), vlm (dense GQA
-with M-RoPE's three position streams, as qwen2-vl), ssm and hybrid (GQA
-attention and an SSM side by side on the same normed input, as hymba)
-families, with rope, M-RoPE or learned absolute positions (granite): a
+with M-RoPE's three position streams, as qwen2-vl), moe (a routed
+mixture of experts in place of the MLP, plus a dense MLP beside it with
+``dense_residual``, as arctic), ssm and hybrid (GQA attention and an SSM
+side by side on the same normed input, as hymba) families, with rope,
+M-RoPE or learned absolute positions (granite): a
 Python loop over the stacked ``(L, ...)`` layer
 parameters (the layout ``repro.models.lm`` builds with ``vmap`` and scans
 over, so keys and shapes match its pytree), and four entry points —
-``forward`` (full sequence, with ``cfg.remat`` when autograd records),
-``loss_fn`` (next-token cross-entropy), ``prefill`` (build caches) and
-``decode_step`` (one token).  The other families come with their own
-slices."""
+``forward`` (full sequence, with ``cfg.remat`` when autograd records;
+it returns the MoE layers' summed load-balancing loss), ``loss_fn``
+(next-token cross-entropy plus ``aux_weight`` times that loss),
+``prefill`` (build caches) and ``decode_step`` (one token).  The
+encoder-decoder family comes with its own slice."""
 from __future__ import annotations
 
 import functools
@@ -17,6 +20,7 @@ import torch
 from torch.utils.checkpoint import CheckpointPolicy, checkpoint, create_selective_checkpoint_contexts
 
 from repro_torch.models import attention as attn
+from repro_torch.models import moe as moe_mod
 from repro_torch.models import ssm as ssm_mod
 from repro_torch.models.common import ModelConfig
 from repro_torch.models.layers import (dense_init, mrope_cos_sin, rmsnorm, rope_cos_sin,
@@ -25,7 +29,6 @@ from repro_torch.models.layers import (dense_init, mrope_cos_sin, rmsnorm, rope_
 NEG_WINDOW_OFF = 1 << 30   # "window" value that disables windowing
 
 _LATER = {
-    "moe": "the MoE slice",
     "encdec": "the enc-dec slice",
 }
 
@@ -35,7 +38,7 @@ def check_ported(cfg: ModelConfig):
     ValueError for position settings that do not fit the model: an unknown
     scheme, a learned table of no rows, or M-RoPE sections that do not sum
     to half the rotated width (the JAX model asserts that too)."""
-    if cfg.family not in ("dense", "vlm", "ssm", "hybrid"):
+    if cfg.family not in ("dense", "vlm", "moe", "ssm", "hybrid"):
         raise NotImplementedError(f"{cfg.arch}: family {cfg.family!r} comes with "
                                   f"{_LATER.get(cfg.family, 'a later slice')}")
     if cfg.family == "ssm":
@@ -69,8 +72,11 @@ def _layer_init(cfg: ModelConfig, gen):
         return {"norm1": norm1, "ssm": ssm_mod.ssm_init(cfg, gen)}
     p = {"norm1": norm1,
          "attn": (attn.mla_init if cfg.attn_kind == "mla" else attn.gqa_init)(cfg, gen),
-         "norm2": torch.ones((cfg.d_model,), dtype=cfg.pdt, device=gen.device),
-         "mlp": _mlp_init(cfg, gen)}
+         "norm2": torch.ones((cfg.d_model,), dtype=cfg.pdt, device=gen.device)}
+    if cfg.family == "moe":
+        p["moe"] = moe_mod.moe_init(cfg, gen)
+    if cfg.family != "moe" or cfg.dense_residual:
+        p["mlp"] = _mlp_init(cfg, gen)
     if cfg.family == "hybrid":
         p["ssm"] = ssm_mod.ssm_init(cfg, gen)
         p["fuse_a"] = torch.full((cfg.d_model,), 0.5, dtype=cfg.pdt, device=gen.device)
@@ -163,18 +169,29 @@ def _fuse(pl, x, a, s_out):
     return x + pl["fuse_a"].to(x.dtype) * a + pl["fuse_s"].to(x.dtype) * s_out
 
 
+def _ffn(cfg: ModelConfig, pl, h2):
+    """The block's second half on the normed ``h2``: (out, aux).  moe: the
+    routed experts, plus the dense MLP with ``dense_residual``, and the
+    layer's load-balancing loss; otherwise the MLP and aux None."""
+    if cfg.family != "moe":
+        return _mlp(pl, h2), None
+    m, aux = moe_mod.moe_forward(cfg, pl["moe"], h2)
+    return (m + _mlp(pl, h2) if cfg.dense_residual else m), aux
+
+
 def _block(cfg: ModelConfig, pl, x, rope, window: int, *, return_kv=False):
-    """One block, full-sequence path.  Returns (x, kv): with ``return_kv``,
-    the layer's cache entries in ``_cache_keys`` order: (k, v), MLA's
-    (ckv, krope), for ssm its (ssm state, conv state), for hybrid
-    (k, v, ssm state, conv state).  MLA takes no window."""
+    """One block, full-sequence path.  Returns (x, aux, kv): aux the MoE
+    layer's load-balancing loss (None for the other families); with
+    ``return_kv`` kv is the layer's cache entries in ``_cache_keys`` order:
+    (k, v), MLA's (ckv, krope), for ssm its (ssm state, conv state), for
+    hybrid (k, v, ssm state, conv state).  MLA takes no window."""
     if cfg.family == "ssm":
         out = ssm_mod.ssm_forward(cfg, pl["ssm"], rmsnorm(x, pl["norm1"], cfg.norm_eps),
                                   return_state=return_kv)
         if return_kv:
             out, state = out
-            return x + out, state
-        return x + out, None
+            return x + out, None, state
+        return x + out, None, None
     h = rmsnorm(x, pl["norm1"], cfg.norm_eps)
     if cfg.attn_kind == "mla":
         a = attn.mla_forward(cfg, pl["attn"], h, rope, return_kv=return_kv)
@@ -191,8 +208,8 @@ def _block(cfg: ModelConfig, pl, x, rope, window: int, *, return_kv=False):
         x = _fuse(pl, x, a, s_out)
     else:
         x = x + a
-    h2 = rmsnorm(x, pl["norm2"], cfg.norm_eps)
-    return x + _mlp(pl, h2), kv
+    out, aux = _ffn(cfg, pl, rmsnorm(x, pl["norm2"], cfg.norm_eps))
+    return x + out, aux, kv
 
 
 # ----------------------------------------------------------------- forward
@@ -262,8 +279,9 @@ def _remat(cfg: ModelConfig, fn):
 
 def forward(cfg: ModelConfig, params, tokens, positions=None):
     """Full-sequence logits.  tokens: (B,S) int; positions (B,S), or
-    (3,B,S) for mrope, default 0..S-1.  Returns (logits_f32, aux).  When
-    autograd records, each layer runs under ``cfg.remat``."""
+    (3,B,S) for mrope, default 0..S-1.  Returns (logits_f32, aux): aux the
+    float32 sum of the MoE layers' load-balancing losses (0 for the other
+    families).  When autograd records, each layer runs under ``cfg.remat``."""
     check_ported(cfg)
     if positions is None:
         positions = _positions(cfg, tokens)
@@ -271,13 +289,16 @@ def forward(cfg: ModelConfig, params, tokens, positions=None):
     rope = _rope_for(cfg, positions)
 
     def body(pl, x, win):
-        return _block(cfg, pl, x, rope, win)[0]
+        return _block(cfg, pl, x, rope, win)[:2]
 
     if torch.is_grad_enabled():
         body = _remat(cfg, body)
+    aux = torch.zeros((), device=x.device)
     for pl, win in zip(_layers(params["layers"], cfg.n_layers), layer_windows(cfg)):
-        x = body(pl, x, int(win))
-    return _unembed(cfg, params, x), torch.zeros((), device=x.device)
+        x, layer_aux = body(pl, x, int(win))
+        if layer_aux is not None:
+            aux = aux + layer_aux
+    return _unembed(cfg, params, x), aux
 
 
 def loss_fn(cfg: ModelConfig, params, batch, *, aux_weight=0.01):
@@ -341,7 +362,7 @@ def prefill(cfg: ModelConfig, params, tokens, max_len: int, positions=None):
     cache["pos"].fill_(S)
     for i, (pl, win) in enumerate(zip(_layers(params["layers"], cfg.n_layers),
                                       layer_windows(cfg))):
-        x, kv = _block(cfg, pl, x, rope, int(win), return_kv=True)
+        x, _, kv = _block(cfg, pl, x, rope, int(win), return_kv=True)
         for key, val in zip(_cache_keys(cfg), kv):
             if key in _SSM_KEYS:
                 cache[key][i] = val
@@ -374,8 +395,8 @@ def _block_decode(cfg: ModelConfig, pl, x, rope, window: int, caches, pos):
         new += caches[2:]
     else:
         x = x + a
-    h2 = rmsnorm(x, pl["norm2"], cfg.norm_eps)
-    return x + _mlp(pl, h2), tuple(new)
+    out, _ = _ffn(cfg, pl, rmsnorm(x, pl["norm2"], cfg.norm_eps))
+    return x + out, tuple(new)
 
 
 def decode_step(cfg: ModelConfig, params, cache, tokens):

@@ -87,6 +87,12 @@ inline unsigned char* shim_smem() { return shim::buffer + 16; }
 inline void __syncthreads() { shim::block_bar->arrive_and_wait(); }
 inline void __syncwarp() { shim::warp_sync(); }
 
+inline float atomicAdd(float* p, float v) {
+  std::lock_guard<std::mutex> lock(shim::mu);
+  const float old = *p;
+  *p += v;
+  return old;
+}
 inline float2 atomicAdd(float2* p, float2 v) {
   std::lock_guard<std::mutex> lock(shim::mu);
   const float2 old = *p;

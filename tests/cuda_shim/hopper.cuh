@@ -85,6 +85,12 @@ inline uint32_t pack_bf16x2(float lo, float hi) {
   __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
   uint32_t u; memcpy(&u, &v, 4); return u;
 }
+inline void split2(float a, float b, uint32_t& hi, uint32_t& lo) {
+  const __nv_bfloat162 hv = __floats2bfloat162_rn(a, b);
+  const float2 hf = __bfloat1622float2(hv);
+  memcpy(&hi, &hv, 4);
+  lo = pack_bf16x2(a - hf.x, b - hf.y);
+}
 
 // element (mn, k) of a B128-swizzled operand
 inline float desc_elem(uint64_t d, int mn, int k, int trans) {

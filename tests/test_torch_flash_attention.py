@@ -38,10 +38,13 @@ TOL = {"float32": 1e-4, "bfloat16": 2e-2}
 # on the card, besides: D=128 with several full 128-row tiles (the bf16
 # wgmma kernels take D in {64, 128}), and the decode phase's Sq=1 and Sq=64
 # at llama3.2-1b's heads; the gradient also at G=8 and MQA, where many
-# query heads add into one kv head's dk/dv and the dQ atomics meet
+# query heads add into one kv head's dk/dv and the dQ atomics meet (from G 8
+# on the wgmma backward takes the row sums and two bf16 terms of P and dS),
+# and at granite-20b's G 48 at head dim 128
 CARD_SHAPES = SHAPES + [(2, 200, 200, 8, 2, 128), (2, 512, 512, 8, 2, 128),
                         (1, 1, 1, 32, 8, 64), (1, 64, 64, 32, 8, 64)]
-GRAD_SHAPES = CARD_SHAPES + [(1, 256, 256, 8, 1, 64), (2, 192, 192, 16, 2, 64)]
+GRAD_SHAPES = CARD_SHAPES + [(1, 256, 256, 8, 1, 64), (2, 192, 192, 16, 2, 64),
+                             (1, 384, 384, 48, 1, 128)]
 CARD_MASKS = MASKS + [(False, 24), (True, 1 << 30)]
 # MLA (minicpm3-4b): q/k head dim 96 (nope 64 + rope 32), v 64; SMOKE 24 / 16
 MLA_DIMS = [(96, 64), (24, 16)]
@@ -194,6 +197,79 @@ def test_bwd_scratch_holds_delta_then_the_zeroed_dq_accumulator(dtype, D, accumu
         assert bool((scratch == 0).all())
     else:
         assert scratch.numel() == 2 * 3 * 5
+
+
+def _bf16(x):
+    return x.to(torch.bfloat16).to(x.dtype)
+
+
+def _wgmma_bwd_plans(B, S, G, D, keys=128, seed=0):
+    """Worst |d| / (1 + |ref|) of dk and dv over the first ``keys`` keys of
+    one kv head of G query heads (causal, bf16 inputs from a seed), the
+    reference rounded to bf16 as autograd of ``attention_ref`` gives it,
+    under each rounding plan of the wgmma backward: {(row sums, two terms):
+    err}.  As the kernel does: P = exp(s - lse) in fp32 and dP in fp32,
+    dV = P^T dO and dK = scale dS^T Q over fp32 sums, P and dS fed as one
+    bf16 term or as hi + lo; D_i from the forward's bf16 O (its P rounded
+    for the P V product, as K1 does) or as the fp32 row sums of P dP."""
+    gen = np.random.default_rng(seed)
+    draw = lambda: _bf16(torch.from_numpy(gen.standard_normal((S, D), dtype=np.float32)))  # noqa: E731
+    terms = lambda x, two: (_bf16(x), _bf16(x - _bf16(x))) if two else (_bf16(x),)  # noqa: E731
+    scale, seen = D ** -0.5, torch.ones(S, S, dtype=torch.bool).tril()
+    plans = {(rows, two): [0, 0] for rows in (False, True) for two in (False, True)}
+    exact = [0, 0]
+    for _ in range(B):
+        k, v = draw(), draw()
+        for _ in range(G):
+            q, do = draw(), draw()
+            s = (q @ k.T * scale).masked_fill(~seen, -np.inf)
+            m = s.amax(-1, keepdim=True)
+            pt = torch.exp(s - m)
+            lse = (m + pt.sum(-1, keepdim=True).log())[:, 0]
+            o = _bf16((_bf16(pt) @ v) / pt.sum(-1, keepdim=True))
+            rows = (do * (torch.exp(s - lse[:, None]) @ v)).sum(-1)
+            p = torch.exp(s[:, :keys] - lse[:, None])
+            dp = do @ v[:keys].T
+            p64, dp64 = p.double(), dp.double()
+            exact[0] = exact[0] + p64.T @ do.double()
+            exact[1] = exact[1] + scale * (p64 * (dp64 - rows.double()[:, None])).T @ q.double()
+            for (by_rows, two), acc in plans.items():
+                ds = p * (dp - (rows if by_rows else (do * o).sum(-1))[:, None])
+                acc[0] = acc[0] + sum(t.T @ do for t in terms(p, two)).double()
+                acc[1] = acc[1] + scale * sum(t.T @ q for t in terms(ds, two)).double()
+    ref = [_bf16(x) for x in exact]
+    return {plan: max(float(((_bf16(a) - r).abs() / (1 + r.abs())).max()) for a, r in zip(acc, ref))
+            for plan, acc in plans.items()}
+
+
+def test_wgmma_bwd_rounding_plan_holds_at_large_groups():
+    """The K1 backward's wgmma kernel at granite-20b's group (48 query heads
+    on one kv head, D 128), emulated over the first 128-key tile, which
+    every one of the 2048 queries of each head sees (B 2): one bf16 term of
+    P and dS, with D_i from the bf16 O, misses 2e-2·(1+|ref|) at the first
+    keys, as the card did; two terms alone still leave O's rounding in D_i
+    (at least 2x the chosen plan's error); the fp32 row sums and two terms
+    hold it with room.  Below ``TWO_TERM_GROUP`` (the source's threshold,
+    from which on the kernel runs the row sums and two terms) the one-term
+    plan keeps within 0.75 of the bound."""
+    import re
+    threshold = int(re.search(r"TWO_TERM_GROUP = (\d+);", fa.BWD_SRC.read_text()).group(1))
+    assert 1 < threshold <= 48
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)   # the suite's parallel workers share the cores
+    try:
+        errs = {G: _wgmma_bwd_plans(2, 2048, G, 128) for G in (48, threshold - 1)}
+    finally:
+        torch.set_num_threads(n)
+    for G, e in errs.items():
+        print(f"G {G}: " + ", ".join(f"{'row sums' if rows else 'D_i from O'} / "
+                                     f"{'two terms' if two else 'one term'} {err:.3e}"
+                                     for (rows, two), err in e.items()))
+    tol = TOL["bfloat16"]
+    assert errs[48][False, False] > tol
+    assert errs[48][True, True] <= tol / 2
+    assert errs[48][False, True] >= 2 * errs[48][True, True]
+    assert errs[threshold - 1][False, False] <= 0.75 * tol
 
 
 def test_bench_attention_refuses_to_run_without_a_card(monkeypatch):

@@ -50,8 +50,14 @@ CASES = [  # (B, Sq, Skv, H, KV, D, Dv, dtype, causal, window, v a view)
     # 128-row q tiles and a ragged last k tile of 16 rows
     (1, 272, 272, 14, 2, 128, 128, "bfloat16", True, None, False),
     # MQA at head dim 128, as granite-20b's 48 heads on one kv head: 12 query
-    # heads whose dk and dv sum into one, Skv != Sq
+    # heads whose dk and dv sum into one, Skv != Sq.  From 9 query heads a kv
+    # head on the backward runs its row-sums pass, then P and dS as two bf16
+    # terms each (bw::TWO_TERM_GROUP): here, causal over 16 heads with Sq >
+    # Skv, and at D 96 (dK's second column block takes the lo term too) over
+    # 10 heads with a window and v a view
     (1, 80, 200, 12, 1, 128, 128, "bfloat16", False, None, False),
+    (1, 144, 96, 16, 1, 128, 128, "bfloat16", True, None, False),
+    (1, 80, 136, 10, 1, 96, 64, "bfloat16", False, 40, True),
     # mma.sync: minicpm3 SMOKE's 24 / 16 (MQA, Skv != Sq), and a window
     (1, 48, 80, 4, 1, 24, 16, "bfloat16", True, None, True),
     (2, 40, 40, 4, 2, 24, 16, "bfloat16", True, 12, False),

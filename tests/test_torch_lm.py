@@ -1,7 +1,11 @@
 """The port's LM (llama3.2-1b, mamba2-780m, minicpm3-4b, hymba-1.5b,
-minitron-8b, granite-20b and qwen2-vl-7b SMOKE) against the JAX package's,
+minitron-8b, granite-20b, qwen2-vl-7b, and the MoE qwen3-moe-30b-a3b and
+arctic-480b SMOKE) against the JAX package's,
 from the same parameters (built by JAX ``init_lm``, carried over
-through ``repro_torch.convert``) and the same numpy tokens.
+through ``repro_torch.convert``) and the same numpy tokens.  For the MoE
+models each comparison holds the routes to JAX's first
+(``test_torch_moe.routes_as_jax``: equal experts wherever the rounding
+cannot have flipped them) and the aux loss to JAX's.
 
 Tolerances: 1e-4 at float32 compute (both sides in float32, sums in
 another order); at bfloat16 compute the two frameworks round the
@@ -9,14 +13,16 @@ activations at different places: 5e-2 for llama3.2-1b and for
 minicpm3-4b (MLA; measured 3.9e-2 to 4.3e-2 over three token draws, under
 the JAX model's own bfloat16-to-float32 gap of 6.9e-2 to 1.1e-1) and for
 the dense minitron-8b, granite-20b (learned positions) and qwen2-vl-7b
-(M-RoPE), 0.15 for
+(M-RoPE) and the MoE qwen3-moe-30b-a3b and arctic-480b, 0.15 for
 mamba2-780m, whose bfloat16 logits lie several times farther from their
 own float32 logits than llama's do, on both sides (the gated norm, the
 conv and the scan each round), 0.2 for hybrid hymba-1.5b (its SSM half
 rounds as mamba2's does; ``test_torch_hybrid.py`` gives the measurements);
 decode-equals-forward < 2e-1 as in
 ``tests/test_models_smoke.py`` (for MLA: the absorbed latent decode
-against the expanded forward)."""
+against the expanded forward; for MoE at a capacity that drops nothing,
+as decode never drops: ``test_torch_moe.py``)."""
+import contextlib
 import dataclasses
 import importlib
 
@@ -33,20 +39,42 @@ from repro_torch.convert import (cache_from_numpy, cache_to_numpy, params_from_n
                                  params_to_numpy)
 from repro_torch.models import lm as tlm
 from repro_torch.models.registry import build
+from test_torch_moe import ROUTER_DP, jax_routes, min_gap, routes_as_jax
 
 ARCHS = ("llama3.2-1b", "mamba2-780m", "minicpm3-4b", "hymba-1.5b", "minitron-8b",
-         "granite-20b", "qwen2-vl-7b")
+         "granite-20b", "qwen2-vl-7b", "qwen3-moe-30b-a3b", "arctic-480b")
 BF16_TOL = {"llama3.2-1b": 5e-2, "mamba2-780m": 0.15, "minicpm3-4b": 5e-2, "hymba-1.5b": 0.2,
-            "minitron-8b": 5e-2, "granite-20b": 5e-2, "qwen2-vl-7b": 5e-2}
+            "minitron-8b": 5e-2, "granite-20b": 5e-2, "qwen2-vl-7b": 5e-2,
+            "qwen3-moe-30b-a3b": 5e-2, "arctic-480b": 5e-2}
 CACHE_KEYS = {"llama3.2-1b": ("k", "v"), "mamba2-780m": ("ssm_state", "conv_state"),
               "minicpm3-4b": ("ckv", "krope"),
               "hymba-1.5b": ("k", "v", "ssm_state", "conv_state"),
-              "minitron-8b": ("k", "v"), "granite-20b": ("k", "v"), "qwen2-vl-7b": ("k", "v")}
+              "minitron-8b": ("k", "v"), "granite-20b": ("k", "v"), "qwen2-vl-7b": ("k", "v"),
+              "qwen3-moe-30b-a3b": ("k", "v"), "arctic-480b": ("k", "v")}
 # 20: not a multiple of mamba2's or hymba's SMOKE chunk 16, and past
 # hymba's window 16
 PROMPT = {"llama3.2-1b": 16, "mamba2-780m": 20, "minicpm3-4b": 16, "hymba-1.5b": 20,
-          "minitron-8b": 16, "granite-20b": 16, "qwen2-vl-7b": 16}
+          "minitron-8b": 16, "granite-20b": 16, "qwen2-vl-7b": 16, "qwen3-moe-30b-a3b": 16,
+          "arctic-480b": 16}
 CPU = torch.device("cpu")
+
+
+@contextlib.contextmanager
+def _as_jax(jax_call, dtype):
+    """Run ``jax_call()`` recording its MoE routes, then hold the port's
+    routes inside the block to them (``routes_as_jax``); yields the JAX
+    result.  Prints the inputs' smallest gap and the route report."""
+    with jax_routes() as routes:
+        out = jax_call()
+        jax.effects_barrier()
+    if not routes:
+        yield out
+        return
+    with routes_as_jax(routes, ROUTER_DP[dtype]) as report:
+        yield out
+    K = routes[0][0].shape[-1]
+    print(f"routes: {len(routes)} JAX calls, min gap {min_gap(routes, K):.3e}, {report}")
+    assert report["calls"] >= len(routes)
 
 
 @pytest.fixture(autouse=True)
@@ -91,10 +119,10 @@ def test_configs_match_and_unported_archs_raise(arch):
         assert dataclasses.asdict(getattr(mod, f)) == dataclasses.asdict(getattr(own, f))
     assert get_config(arch) is own.CONFIG
     assert get_smoke(arch).cdt == torch.bfloat16 and get_smoke(arch).pdt == torch.float32
-    with pytest.raises(KeyError, match="qwen3-moe-30b-a3b"):
-        get_config("qwen3-moe-30b-a3b")
-    with pytest.raises(NotImplementedError, match="MoE"):
-        build(dataclasses.replace(get_smoke(arch), family="moe"))
+    with pytest.raises(KeyError, match="whisper-small"):
+        get_config("whisper-small")
+    with pytest.raises(NotImplementedError, match="enc-dec"):
+        build(dataclasses.replace(get_smoke(arch), family="encdec"))
     with pytest.raises(NotImplementedError, match="hybrid"):
         build(dataclasses.replace(get_smoke("mamba2-780m"), attn_kind="gqa"))
     model = build(get_smoke(arch))
@@ -133,9 +161,11 @@ def test_init_fills_the_stack_layer_by_layer(arch):
 def test_forward_matches_jax_f32(arch, np_params):
     jc, tc = _cfgs(arch, "float32")
     toks = _tokens(2, 24, tc.vocab)
-    want, _ = jlm.forward(jc, np_params, jnp.asarray(toks))
-    got, aux = tlm.forward(tc, params_from_numpy(np_params, CPU), torch.from_numpy(toks))
-    assert got.dtype == torch.float32 and float(aux) == 0.0
+    with _as_jax(lambda: jlm.forward(jc, np_params, jnp.asarray(toks)), "float32") as (want, jaux):
+        got, aux = tlm.forward(tc, params_from_numpy(np_params, CPU), torch.from_numpy(toks))
+    assert got.dtype == torch.float32 and aux.dtype == torch.float32
+    assert (float(aux) == 0.0) == (tc.family != "moe")
+    assert abs(float(aux) - float(jaux)) <= 1e-5
     _close(got, want, 1e-4)
 
 
@@ -154,9 +184,10 @@ def test_forward_matches_jax_f32_untied_unembed(arch):
 def test_forward_matches_jax_bf16(arch, np_params):
     jc, tc = _cfgs(arch, "bfloat16")
     toks = _tokens(2, 24, tc.vocab, seed=1)
-    want, _ = jlm.forward(jc, np_params, jnp.asarray(toks))
-    got, _ = tlm.forward(tc, params_from_numpy(np_params, CPU), torch.from_numpy(toks))
+    with _as_jax(lambda: jlm.forward(jc, np_params, jnp.asarray(toks)), "bfloat16") as (want, jaux):
+        got, aux = tlm.forward(tc, params_from_numpy(np_params, CPU), torch.from_numpy(toks))
     _close(got, want, BF16_TOL[arch])
+    assert abs(float(aux) - float(jaux)) <= 1e-2   # probabilities within ROUTER_DP
 
 
 def test_prefill_and_decode_match_jax_f32(arch, np_params):
@@ -196,16 +227,21 @@ def test_bf16_cache_carries_over_exactly(arch, np_params):
     for key in CACHE_KEYS[arch]:
         np.testing.assert_array_equal(back[key], np_cache[key].astype(np.float32))
     nxt = _tokens(2, 1, tc.vocab, seed=4)
-    jlog, _ = jlm.decode_step(jc, np_params, jcache, jnp.asarray(nxt))
-    tlog, _ = tlm.decode_step(tc, params_from_numpy(np_params, CPU), tcache,
-                              torch.from_numpy(nxt))
+    with _as_jax(lambda: jlm.decode_step(jc, np_params, jcache, jnp.asarray(nxt)),
+                 "bfloat16") as (jlog, _):
+        tlog, _ = tlm.decode_step(tc, params_from_numpy(np_params, CPU), tcache,
+                                  torch.from_numpy(nxt))
     _close(tlog, jlog, BF16_TOL[arch])
 
 
 def test_decode_matches_forward(arch):
     """Teacher-forced decode reproduces the full-sequence logits (the
-    port's own model, bfloat16 compute)."""
-    model = build(get_smoke(arch))
+    port's own model, bfloat16 compute; MoE at capacity E / k, where the
+    forward drops no pair, as decode never does)."""
+    cfg = get_smoke(arch)
+    if cfg.family == "moe":
+        cfg = dataclasses.replace(cfg, capacity_factor=cfg.n_experts / cfg.top_k)
+    model = build(cfg)
     params = model.init(torch.Generator(CPU).manual_seed(0))
     S = 16
     toks = torch.from_numpy(_tokens(1, S, model.cfg.vocab, seed=5))
@@ -220,10 +256,11 @@ def test_decode_matches_forward(arch):
     assert int(cache["pos"]) == S
 
 
-def _decode_gap(arch, n_layers, dtype, S=16):
-    """Mean |teacher-forced decode - forward| logit gap of the JAX model and
-    of the port, from the same numpy parameters and tokens."""
-    jc, tc = (dataclasses.replace(c, n_layers=n_layers) for c in _cfgs(arch, dtype))
+def _decode_gaps(arch, n_layers, dtype, S=16, **overrides):
+    """|teacher-forced decode - forward| logit gaps of the JAX model and of
+    the port, from the same numpy parameters and tokens, with both sides'
+    forward logits: (jax gap, port gap, jax forward, port forward)."""
+    jc, tc = (dataclasses.replace(c, n_layers=n_layers, **overrides) for c in _cfgs(arch, dtype))
     params = jax.tree.map(np.asarray, jlm.init_lm(jc, jax.random.PRNGKey(0)))
     toks = _tokens(1, S, tc.vocab, seed=9)
     jfull, _ = jax.jit(lambda p, t: jlm.forward(jc, p, t))(params, jnp.asarray(toks))
@@ -238,8 +275,15 @@ def _decode_gap(arch, n_layers, dtype, S=16):
         jouts.append(np.asarray(lg[:, 0]))
         lg, tcache = model.decode_step(tp, tcache, tt[:, t:t + 1])
         touts.append(lg[:, 0].numpy())
-    return (float(np.abs(np.stack(jouts, 1) - np.asarray(jfull)[:, 1:]).mean()),
-            float(np.abs(np.stack(touts, 1) - tfull[:, 1:].numpy()).mean()))
+    return (np.abs(np.stack(jouts, 1) - np.asarray(jfull)[:, 1:]),
+            np.abs(np.stack(touts, 1) - tfull[:, 1:].numpy()), np.asarray(jfull), tfull.numpy())
+
+
+def _decode_gap(arch, n_layers, dtype, S=16):
+    """Mean |teacher-forced decode - forward| logit gap of the JAX model and
+    of the port, from the same numpy parameters and tokens."""
+    jgap, tgap, _, _ = _decode_gaps(arch, n_layers, dtype, S)
+    return float(jgap.mean()), float(tgap.mean())
 
 
 def _gap_tracks_jax_with_depth(arch):
@@ -268,3 +312,26 @@ def test_hymba_decode_gap_tracks_jax_with_depth():
     at 32 layers: ``chip_smoke.py`` holds hymba's bfloat16 decode to its
     forward's own bfloat16 noise, as mamba2's."""
     _gap_tracks_jax_with_depth("hymba-1.5b")
+
+
+def test_qwen3_moe_decode_gap_at_full_depth_tracks_jax():
+    """qwen3-moe-30b-a3b at its 48 layers (SMOKE widths; capacity E / k, so
+    that the forward drops no pair, as decode never does): in float32 decode
+    equals the forward on both sides (gap under 2e-3); in bfloat16 neither
+    side's mean gap reaches its own bfloat16 noise (mean |bf16 forward - f32
+    forward|).  On the CPU both sides' gap is mostly 0, and a routing flip at
+    a near tie makes the rest: over three token draws 0.003-0.24x the noise
+    in JAX and 0-0.23x in the port.  MoE routing adds no drift with depth,
+    so ``chip_smoke.py`` phase 4 holds the full-width bfloat16 decode, whose
+    forward runs K1, to twice the noise, as it holds the dense models."""
+    cfg = get_smoke("qwen3-moe-30b-a3b")
+    kw = dict(n_layers=get_config("qwen3-moe-30b-a3b").n_layers,
+              capacity_factor=cfg.n_experts / cfg.top_k)
+    f32 = _decode_gaps("qwen3-moe-30b-a3b", dtype="float32", **kw)
+    bf16 = _decode_gaps("qwen3-moe-30b-a3b", dtype="bfloat16", **kw)
+    for side, name in ((0, "jax"), (1, "port")):
+        noise = float(np.abs(bf16[2 + side] - f32[2 + side]).mean())
+        print(f"{name}: f32 gap max {f32[side].max():.3e}, bf16 gap mean "
+              f"{bf16[side].mean():.3e} max {bf16[side].max():.3e}, noise {noise:.3e}")
+        assert f32[side].max() < 2e-3
+        assert bf16[side].mean() < noise

@@ -1,7 +1,8 @@
 """The slices as a whole: greedy serving of llama3.2-1b, mamba2-780m,
 minicpm3-4b (MLA: expanded prefill, absorbed latent decode), hymba-1.5b
 (hybrid: windowed attention beside an SSM), minitron-8b, granite-20b
-(learned positions) and qwen2-vl-7b (M-RoPE) SMOKE by the JAX package and by
+(learned positions), qwen2-vl-7b (M-RoPE), qwen3-moe-30b-a3b and arctic-480b
+(MoE, arctic with its dense residual MLP) SMOKE by the JAX package and by
 the port from the same numpy parameters and prompts (20 tokens: not a
 multiple of mamba2's or hymba's SMOKE chunk 16, so the sequence padding
 runs; past hymba's window 16, so it cuts), and the port's serve entry point with its durable
@@ -23,7 +24,7 @@ from repro_torch.launch import serve
 from repro_torch.models.registry import build
 
 ARCHS = ("llama3.2-1b", "mamba2-780m", "minicpm3-4b", "hymba-1.5b", "minitron-8b",
-         "granite-20b", "qwen2-vl-7b")
+         "granite-20b", "qwen2-vl-7b", "qwen3-moe-30b-a3b", "arctic-480b")
 
 
 @pytest.fixture(autouse=True)

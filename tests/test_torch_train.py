@@ -1,7 +1,9 @@
 """The port's training path (llama3.2-1b SMOKE) against the JAX package's:
 the loss and every parameter gradient (also for mamba2-780m, MLA's
 minicpm3-4b, hybrid hymba-1.5b, minitron-8b, granite-20b with its learned
-position table and qwen2-vl-7b), remat, AdamW with clipping, the
+position table, qwen2-vl-7b, and the MoE qwen3-moe-30b-a3b and arctic-480b
+with their aux loss, routes held to JAX's as ``test_torch_moe.py`` does),
+remat, AdamW with clipping, the
 schedule and int8 gradient compression step by step on identical
 gradients, the data pipeline, the NVCache-backed loop with crash-safe
 resume, and the launcher, all on the CPU.
@@ -54,6 +56,7 @@ from repro_torch.storage.fsapi import NVCacheFS
 from repro_torch.storage.tiers import DRAM, Tier
 from repro_torch.train import loop as train_loop
 from repro_torch.train import steps as tsteps
+from test_torch_moe import ROUTER_DP, jax_routes, min_gap, routes_as_jax
 
 ARCH = "llama3.2-1b"
 CPU = torch.device("cpu")
@@ -101,9 +104,12 @@ def _jax_grads(np_params, toks, compute_dtype="float32", arch=ARCH):
 
 # parameter leaves of each SMOKE model (MLA's attention has seven; hymba
 # adds the SSM's eight, the two fuse weights and an untied unembedding;
-# minitron and qwen2-vl an untied unembedding; granite that and its table)
+# minitron and qwen2-vl an untied unembedding; granite that and its table;
+# qwen3-moe an untied unembedding and the router and three expert tensors in
+# place of the MLP; arctic the MLP's three beside them)
 LEAVES = {"llama3.2-1b": 11, "mamba2-780m": 11, "minicpm3-4b": 14, "hymba-1.5b": 22,
-          "minitron-8b": 12, "granite-20b": 13, "qwen2-vl-7b": 12}
+          "minitron-8b": 12, "granite-20b": 13, "qwen2-vl-7b": 12, "qwen3-moe-30b-a3b": 13,
+          "arctic-480b": 16}
 
 
 @pytest.mark.parametrize("arch", list(LEAVES))
@@ -117,10 +123,18 @@ def test_loss_and_grads_match_jax(np_params, arch, compute_dtype, tol, loss_tol)
     toks = _tokens()
     jloss, jmetrics, jgrads = _jax_grads(np_params, toks, compute_dtype, arch)
     tc = dataclasses.replace(get_smoke(arch), compute_dtype=compute_dtype)
-    loss, metrics, grads = _torch_loss_and_grads(tc, params_from_numpy(np_params, CPU), toks)
+    with jax_routes() as routes:   # the MoE routes of JAX's forward, held below
+        jlm.forward(dataclasses.replace(jax_smoke(arch), compute_dtype=compute_dtype),
+                    np_params, jnp.asarray(toks))
+        jax.effects_barrier()
+    with routes_as_jax(routes, ROUTER_DP[compute_dtype]) as report:
+        loss, metrics, grads = _torch_loss_and_grads(tc, params_from_numpy(np_params, CPU), toks)
+    if routes:
+        print(f"routes: min gap {min_gap(routes, tc.top_k):.3e}, {report}")
     assert abs(float(loss) - float(jloss)) <= loss_tol
     assert abs(float(metrics["ce"].detach()) - float(jmetrics["ce"])) <= loss_tol
-    assert float(metrics["aux"]) == 0.0
+    assert abs(float(metrics["aux"].detach()) - float(jmetrics["aux"])) <= loss_tol
+    assert (float(metrics["aux"].detach()) == 0.0) == (tc.family != "moe")
     want = jax.tree.leaves(jgrads)     # sorted-key order, as tree_leaves gives
     assert len(want) == len(grads) == LEAVES[arch]
     for g, w in zip(grads, want):
