@@ -29,16 +29,23 @@ Phases, each of which must pass:
              qwen2-vl's and qwen3-moe's prefill, SDPA given hymba's window
              as a boolean mask), the backward's (at llama's, minicpm3's and
              granite's), and K3's and its plain version's (at
-             mamba2's and hymba's), are taken in turns, with those of an earlier
+             mamba2's and hymba's), are taken in turns; K1 at whisper-small's
+             shapes, forward and backward: non-causal over its 1500 encoder
+             frames, and in cross-attention from 8 and 188 decoder tokens to
+             them (a ragged last key tile, one q tile), the forward timed at
+             the encoder's shape beside SDPA; with those of an earlier
              commit's K1 and K3 sources when they are copied into
              build/parent/ (an older K1, whose C interface has no Dv, is
              timed at llama's shape only);
   3. serve   llama3.2-1b, mamba2-780m, minicpm3-4b, hymba-1.5b (K1 and K3
              in every layer), minitron-8b, granite-20b (learned positions,
              bfloat16 parameters: its float32 ones do not fit the card),
-             qwen2-vl-7b (M-RoPE) and qwen3-moe-30b-a3b (128 experts, top
+             qwen2-vl-7b (M-RoPE), qwen3-moe-30b-a3b (128 experts, top
              8, bfloat16 parameters; the (token, k) pairs a prefill drops
-             over capacity printed) at full width (batch 4, prompt 2048, 32
+             over capacity printed) and whisper-small (the encoder-decoder:
+             prompt 1500 zero frames, a decoder prompt of 8 tokens; K1 in
+             its 12 encoder layers and twice in each of its 12 decoder
+             layers) at full width (batch 4, prompt 2048, 32
              new tokens) through ``repro_torch.launch.serve.main``, with the
              kernels' launch counts (and K1's and K3's routes) set to 0 just
              before and read just after each run, and the request log read
@@ -49,7 +56,8 @@ Phases, each of which must pass:
              also from a 1040-token prefill, past its window of 1024;
              qwen2-vl also from a prefill of text and an image grid whose
              three M-RoPE position streams differ; qwen3-moe, and arctic-480b
-             at SMOKE size, at a capacity that drops nothing);
+             at SMOKE size, at a capacity that drops nothing; whisper-small
+             over 1500 random frames);
   5. train   llama3.2-1b at full width (batch 4 x 2048, bf16 compute, f32
              parameters, AdamW, int8-compressed gradients) for a few steps
              through ``init_train_state``/``make_train_step``, with exact
@@ -59,7 +67,8 @@ Phases, each of which must pass:
              loop with exact launch counts; granite-20b at SMOKE size
              (learned positions, MQA), qwen3-moe-30b-a3b and arctic-480b
              (MoE, the aux loss in the loss, routes on the card held to the
-             CPU route's first) the same way; then the training loop at
+             CPU route's first) and whisper-small (frames and decoder
+             tokens) the same way; then the training loop at
              SMOKE size through
              ``repro_torch.launch.train.main``, and a crash, NVMM-log
              recovery and resume that lands on the exact step.
@@ -82,10 +91,11 @@ from pathlib import Path
 PEAK_BF16_FLOPS = 989e12      # H100 SXM dense bf16 tensor-core peak
 PEAK_F32_FLOPS = 67e12        # H100 SXM fp32 on the CUDA cores
 PEAK_BYTES = 3.35e12          # H100 SXM HBM3
-# the kernels each arch's prefill launches, once per layer each
+# the kernels each arch's prefill launches, once per layer each (K1:
+# ``k1_calls``, three a whisper-small encoder and decoder layer pair)
 ARCHS = {"llama3.2-1b": ("k1",), "mamba2-780m": ("k3",), "minicpm3-4b": ("k1",),
          "hymba-1.5b": ("k1", "k3"), "minitron-8b": ("k1",), "granite-20b": ("k1",),
-         "qwen2-vl-7b": ("k1",), "qwen3-moe-30b-a3b": ("k1",)}
+         "qwen2-vl-7b": ("k1",), "qwen3-moe-30b-a3b": ("k1",), "whisper-small": ("k1",)}
 # K1 cases: (B, Sq, Skv, H, KV, D, Dv, dtype, causal, window), D of q/k, Dv of v
 SLICE = dict(B=4, Sq=2048, Skv=2048, H=32, KV=8, D=64, Dv=64)   # llama3.2-1b prefill, batch 4
 MASKS = [(True, None), (False, None), (True, 24)]
@@ -152,6 +162,28 @@ MOE_SMOKE_CASES = [(B, S, S, 4, 2, D, D, dtype, True, None)
                    for B, S, dtype in ((2, 32, "float32"), (2, 32, "bfloat16"),
                                        (2, 64, "bfloat16"))] + [
     (1, S, S, 4, 2, 16, 16, dtype, True, None) for S in (64, 1) for dtype in ("float32", "bfloat16")]
+# whisper-small (the encoder-decoder): 12 heads of 64, each its own kv head.
+# Serve's prefill (batch 4): the encoder non-causal over its 1500 frames, the
+# decoder's self-attention causal over its 8-token prompt, and cross-attention
+# non-causal from those 8 queries (one q tile) to the 1500 frames (a ragged
+# last key tile: 1500 = 11·128 + 92 = 23·64 + 28); then the decode phase's
+# encoder, its forward over 64 decoder tokens and its one-token prefill, in
+# both dtypes
+WHISPER = dict(B=4, Sq=1500, Skv=1500, H=12, KV=12, D=64, Dv=64)   # the encoder, batch 4
+WHISPER_CASES = [(*WHISPER.values(), "bfloat16", False, None),
+                 (4, 8, 8, 12, 12, 64, 64, "bfloat16", True, None),
+                 (4, 8, 1500, 12, 12, 64, 64, "bfloat16", False, None)] + [
+    (1, Sq, Skv, 12, 12, 64, 64, dtype, causal, None)
+    for Sq, Skv, causal in ((1500, 1500, False), (64, 64, True), (1, 1, True),
+                            (64, 1500, False), (1, 1500, False))
+    for dtype in ("float32", "bfloat16")]
+# phase 5's whisper-small SMOKE step (batch 2: 32 frames, 4 decoder tokens;
+# 4 heads of 16) in both dtypes, and its launcher's loop (64 frames, 8
+# tokens), forward and backward: encoder, decoder self and cross
+WHISPER_SMOKE_CASES = [(2, Sq, Skv, 4, 4, 16, 16, dtype, causal, None)
+                       for enc, dtype in ((32, "float32"), (32, "bfloat16"), (64, "bfloat16"))
+                       for Sq, Skv, causal in ((enc, enc, False), (enc // 8, enc // 8, True),
+                                               (enc // 8, enc, False))]
 # The attention sources of an earlier commit, when they are stashed here
 # (build/ is not committed): phase 2 then times them beside the kernels of
 # this tree and the library call, in turns, in this one process.
@@ -173,6 +205,13 @@ MLA_BWD_CASES = [(*MLA.values(), "bfloat16", True, None),
 # and at hymba's prefill shape with its window: off every main path (hymba
 # trains on the card once K3 has a backward), but dk and dv sum over G = 5
 HYMBA_BWD_CASES = [(*HYMBA.values(), "bfloat16", True, HYMBA_WINDOW)]
+# and at whisper-small's encoder (non-causal, Skv = Sq = 1500) and at the
+# cross-attention of a training batch of 1500 frames (``SyntheticTokens``'
+# encdec draw has 1500 // 8 = 187 decoder tokens; 188 rounds up): what a
+# full-width whisper-small step would run on the wgmma route; off every main
+# path (whisper trains at SMOKE size, on the mma route)
+WHISPER_BWD_CASES = [(*WHISPER.values(), "bfloat16", False, None)] + [
+    (4, Sq, 1500, 12, 12, 64, 64, "bfloat16", False, None) for Sq in (187, 188)]
 # and at granite-20b's prefill shape: MQA, 48 query heads' dk and dv summed
 # into one kv head, so the wgmma backward first takes the row sums in fp32
 # and then feeds P and dS as two bf16 terms (TWO_TERM_GROUP in its source);
@@ -273,7 +312,14 @@ DECODE_TOL = {"float32": 2e-3, "bfloat16": 0.25}
 # such as llama's 0.25 would be a guess at granite's 52 layers of 6144.
 # Factor per arch:
 NOISE_HELD = {"mamba2-780m": 1, "hymba-1.5b": 2, "minitron-8b": 2, "granite-20b": 2,
-              "qwen2-vl-7b": 2, "qwen3-moe-30b-a3b": 2, "arctic-480b": 2}
+              "qwen2-vl-7b": 2, "qwen3-moe-30b-a3b": 2, "arctic-480b": 2,
+              "whisper-small": 2}
+# whisper-small is held to twice the noise too: at SMOKE widths and its 12 +
+# 12 layers on the CPU its bf16 mean gap is 0-4e-6x the noise in JAX and
+# 0-0.20x in the port over three draws, and at 2 + 2 layers under the noise
+# as well (tests/test_torch_encdec.py::test_bf16_decode_gap_at_full_depth_tracks_jax):
+# no drift with depth, and on the card its forward's three attentions run K1
+# (P in bf16) where decode's run plain torch, as the dense models'.
 # qwen3-moe-30b-a3b and arctic-480b SMOKE are held to twice the noise too:
 # at SMOKE widths and qwen3-moe's 48 layers on the CPU, with a capacity that
 # drops nothing, the bf16 mean gap is 0.003-0.24x the noise in JAX and 0-0.23x
@@ -286,12 +332,36 @@ NOISE_HELD = {"mamba2-780m": 1, "hymba-1.5b": 2, "minitron-8b": 2, "granite-20b"
 # in JAX as in the port (tests/test_torch_moe.py::
 # test_decode_differs_from_forward_at_dropped_pairs_in_jax_too).
 # (prompt, tokens, image grid) of each teacher-forced decode check: a
-# one-token prefill and 63 steps; for hymba-1.5b also a 1040-token prefill
+# one-token prefill and 63 steps (whisper-small's decoder tokens, over
+# WHISPER_FRAMES random frames); for hymba-1.5b also a 1040-token prefill
 # and 48 steps, each of which sees only the last 1024 keys in its windowed
 # layers; for qwen2-vl-7b also a prefill of 8 text tokens and a 16 x 16 image
 # (image_grid_positions) and 32 steps
 DECODE_RUNS = {"hymba-1.5b": ((1, 64, None), (1040, 1088, None)),
                "qwen2-vl-7b": ((1, 64, None), (264, 296, (8, 16)))}
+WHISPER_FRAMES = 1500
+
+
+def k1_calls(cfg):
+    """K1 launches of one full-sequence pass (a prefill or a forward): one
+    a layer, or for the encoder-decoder one an encoder layer and two a
+    decoder layer (self-attention and cross-attention)."""
+    return cfg.enc_layers + 2 * cfg.dec_layers if cfg.family == "encdec" else cfg.n_layers
+
+
+def k1_train_calls(cfg):
+    """K1 launches of one training step's forward: ``k1_calls`` once, and
+    once more where remat recomputes the layers for the backward (the
+    decoder-only models; the encoder-decoder runs none, as the JAX model)."""
+    return k1_calls(cfg) * (1 if cfg.family == "encdec" or cfg.remat == "none" else 2)
+
+
+def model_batch(cfg, tokens, frames=None):
+    """A model's batch: {tokens}, or for the encoder-decoder {frames,
+    dec_tokens}."""
+    if cfg.family == "encdec":
+        return {"frames": frames, "dec_tokens": tokens}
+    return {"tokens": tokens}
 
 
 def image_grid_positions(text, side, extra):
@@ -397,6 +467,7 @@ def main() -> int:
     from repro_torch.kernels import quantize as quant
     from repro_torch.kernels import ssd_scan as ssd
     from repro_torch.launch import bench_ssd, serve
+    from repro_torch.launch.profile_serve import PROMPT as SERVE_PROMPT
     from repro_torch.launch.profile_serve import one_card_config
     from repro_torch.launch import train as launch_train
     from repro_torch.launch.bench_attention import cuda_ms, in_turns
@@ -545,10 +616,10 @@ def main() -> int:
         names = {getattr(SDPBackend, n).value: n for n in dir(SDPBackend) if n.isupper()}
         return names.get(int(torch._fused_sdp_choice(qt, kt, vt, **mask)), "unknown")
 
-    def time_forward(entry, shape, q, k, v, window=None, gqa=False):
+    def time_forward(entry, shape, q, k, v, window=None, gqa=False, causal=True):
         """K1 and SDPA in turns (with the stashed earlier K1 when there is
-        one), the plain version and the bound, at ``shape``, causal and with
-        ``window`` when one is given, into ``entry``.  SDPA has no window
+        one), the plain version and the bound, at ``shape``, causal (or
+        not) and with ``window`` when one is given, into ``entry``.  SDPA has no window
         argument: it gets the same mask as a boolean ``attn_mask``, and its
         output is held to K1's.  SDPA takes the kv heads repeated to H, or
         with ``gqa`` the compact ones with ``enable_gqa`` (one call on K1's
@@ -559,8 +630,8 @@ def main() -> int:
             j = torch.arange(k.shape[1], device=dev)[None]
             mask = {"attn_mask": (j <= i) & (j > i - window)}
         else:
-            mask = {"is_causal": True}
-        fns = [("kernel", lambda: fa.flash_attention_cuda(q, k, v, causal=True, window=window)),
+            mask = {"is_causal": causal}
+        fns = [("kernel", lambda: fa.flash_attention_cuda(q, k, v, causal=causal, window=window)),
                ("sdpa", lambda: F.scaled_dot_product_attention(qt, kt, vt, **mask))]
         library = (qt, kt, vt), mask
         if gqa:
@@ -571,7 +642,8 @@ def main() -> int:
         for name, fn in fns[1:]:
             lib = fn().transpose(1, 2).float()
             if not bool(((got - lib).abs() <= TOL["bfloat16"] * (1 + lib.abs())).all()):
-                raise AssertionError(f"{name} and K1 disagree at {shape}, window {window}")
+                raise AssertionError(f"{name} and K1 disagree at {shape}, causal {causal}, "
+                                     f"window {window}")
         del got, lib
         earlier = "_entry" in parent and (parent["k1_takes_dv"] or shape["D"] == shape["Dv"])
         if earlier:
@@ -585,10 +657,10 @@ def main() -> int:
         if earlier:
             entry["earlier_ms"] = sum(times["earlier kernel"]) / 2
         entry["plain_ms"] = cuda_ms(
-            lambda: ref.attention_ref(q, k, v, causal=True, window=window or 0), 5)
+            lambda: ref.attention_ref(q, k, v, causal=causal, window=window or 0), 5)
         entry["bound_ms"], entry["bound_by"] = attention_bound(
-            *shape.values(), 2, True, window or 0, PEAK_BF16_FLOPS)
-        print(f"  K1 at {shape} bf16 causal window {window}, in turns: "
+            *shape.values(), 2, causal, window or 0, PEAK_BF16_FLOPS)
+        print(f"  K1 at {shape} bf16 causal {causal} window {window}, in turns: "
               + ", ".join(f"{name} {a:.4f}/{b:.4f} ms" for name, (a, b) in times.items())
               + f" (SDPA backend {backend}); plain {entry['plain_ms']:.4f} ms, bound "
               f"{entry['bound_ms']:.4f} ms ({entry['bound_by']})")
@@ -597,7 +669,8 @@ def main() -> int:
         gen = torch.Generator(dev).manual_seed(0)
         bad, errs, slices = [], {}, {}
         for case in (SWEEP + MODEL_CASES + D128_CASES + MLA_CASES + HYMBA_CASES
-                     + D128_SERVE_CASES + GRANITE_SMOKE_CASES + MOE_SMOKE_CASES):
+                     + D128_SERVE_CASES + GRANITE_SMOKE_CASES + MOE_SMOKE_CASES
+                     + WHISPER_CASES + WHISPER_SMOKE_CASES):
             B, Sq, Skv, H, KV, D, Dv, dtype, causal, window = case
             q, k, v = attention_inputs(gen, B, Sq, Skv, H, KV, D, Dv, dtype)
             want_route = fa.route(q.dtype, D, Dv)
@@ -616,7 +689,7 @@ def main() -> int:
             if not ok:
                 bad.append(case)
             if case in (MODEL_CASES[0], MLA_CASES[0], *HYMBA_CASES[:2],
-                        *D128_SERVE_CASES[:len(D128_SERVE)]):
+                        *D128_SERVE_CASES[:len(D128_SERVE)], WHISPER_CASES[0]):
                 slices[case] = q, k, v
             del q, k, v, got, want, diff
         k1["max_abs_err"] = errs[MODEL_CASES[0]]   # at llama's serving prefill shape
@@ -632,6 +705,12 @@ def main() -> int:
             shape = dict(zip(("B", "Sq", "Skv", "H", "KV", "D", "Dv"), case[:7]))
             k1[arch] = {"shape": shape, "max_abs_err": errs[case]}
             time_forward(k1[arch], shape, *slices.pop(case), gqa=True)
+        # whisper-small's encoder: non-causal over 1500 frames; its decoder
+        # self and cross shapes checked above
+        k1["whisper"] = {"shape": WHISPER, "causal": False,
+                         "max_abs_err": errs[WHISPER_CASES[0]],
+                         "max_abs_err_cross": errs[WHISPER_CASES[2]]}
+        time_forward(k1["whisper"], WHISPER, *slices.pop(WHISPER_CASES[0]), causal=False)
         if bad:
             raise AssertionError(f"K1 disagrees with attention_ref in {bad}")
 
@@ -758,7 +837,7 @@ def main() -> int:
         bad, errs, timed = [], {}, {}
         for case in (SWEEP + BWD_CASES + D128_CASES + MLA_BWD_CASES + MLA_CASES[5:]
                      + HYMBA_BWD_CASES + GRANITE_SMOKE_CASES + MOE_SMOKE_CASES[:6]
-                     + GRANITE_BWD_CASES):
+                     + GRANITE_BWD_CASES + WHISPER_BWD_CASES + WHISPER_SMOKE_CASES):
             B, Sq, Skv, H, KV, D, Dv, dtype, causal, window = case
             q, k, v = attention_inputs(gen, B, Sq, Skv, H, KV, D, Dv, dtype)
             do = torch.randn((B, Sq, H, Dv), generator=gen, device=dev).to(q.dtype)
@@ -793,6 +872,9 @@ def main() -> int:
                         "max_abs_err": errs[HYMBA_BWD_CASES[0]]}   # checked, not timed
         k1b["granite"] = {"shape": GRANITE, "plan": "row sums, then P and dS as two bf16 terms",
                           "max_abs_err": errs[GRANITE_BWD_CASES[0]]}
+        k1b["whisper"] = {"shape": WHISPER, "causal": False,   # checked, not timed
+                          "max_abs_err": errs[WHISPER_BWD_CASES[0]],
+                          "max_abs_err_cross": max(errs[c] for c in WHISPER_BWD_CASES[1:])}
         for entry, shape, case in ((k1b, TRAIN, BWD_CASES[0]), (k1b["mla"], MLA, MLA_BWD_CASES[0]),
                                    (k1b["granite"], GRANITE, GRANITE_BWD_CASES[0])):
             if not time_backward(entry, shape, *timed.pop(case)):
@@ -850,7 +932,7 @@ def main() -> int:
     # ---------------------------------------------------------------- serve
     def serve_full_width(arch):
         cfg = one_card_config(arch)   # granite-20b, qwen3-moe-30b-a3b: bfloat16 parameters
-        B, P, T = 4, 2048, 32
+        B, P, T = 4, SERVE_PROMPT.get(arch, 2048), 32   # whisper-small: 1500 frames
         torch.cuda.empty_cache()      # the last model's blocks: room for this one's
         torch.cuda.reset_peak_memory_stats()
         zero_counts()
@@ -859,7 +941,7 @@ def main() -> int:
                               "--tokens", str(T), "--seed", "0"], cfg=cfg)
         counts = read_counts(f"serve {arch}")
         own = ARCHS[arch]
-        for key in own:   # the last arch's counts stand: K1's at qwen2-vl, K3's at hymba
+        for key in own:   # the last arch's counts stand: K1's at whisper-small, K3's at hymba
             kernels[key][0]["launches"] = counts[key]
         peak = torch.cuda.max_memory_allocated() / 2**30
         print(f"  serve {arch} ({cfg.param_dtype} parameters): prefill "
@@ -878,14 +960,15 @@ def main() -> int:
                   f"({len(drops)} MoE calls, decode {int(sum(drops[cfg.n_layers:]))}); by "
                   f"layer: " + ", ".join(f"{x:.3f}" for x in per_layer))
             assert len(drops) == cfg.n_layers * (1 + T) and int(sum(drops[cfg.n_layers:])) == 0
-        want = {key: cfg.n_layers if key in own else 0 for key in kernels}
+        per_prefill = {"k1": k1_calls(cfg), "k3": cfg.n_layers}
+        want = {key: per_prefill[key] if key in own else 0 for key in kernels}
         assert counts == want, f"{arch}: kernel launches {counts} in one request, want {want}"
-        # every prefill layer on the wgmma route (K1: bf16 at head dims 64 or
+        # every prefill call on the wgmma route (K1: bf16 at head dims 64 or
         # 128, or MLA's 96 and 64; K3: bf16 at p 64 and n 128 or 16 on the views)
         for key in own:
             routes = dict((ssd.ssd_cuda if key == "k3" else fa.flash_attention_cuda).routes)
             print(f"  {key.upper()} routes: {routes}")
-            assert routes == {**dict.fromkeys(routes, 0), "wgmma": cfg.n_layers}, routes
+            assert routes == {**dict.fromkeys(routes, 0), "wgmma": per_prefill[key]}, routes
         assert res.tokens.shape == (B, T) and bool(torch.isfinite(res.logits).all())
         assert int(res.tokens.min()) >= 0 and int(res.tokens.max()) < cfg.vocab
         lines = [json.loads(x) for x in res.log.decode().splitlines()]
@@ -924,9 +1007,11 @@ def main() -> int:
                     params = model.init(gen)
                     toks = torch.randint(1, cfg.vocab - 1, (1, S), generator=gen, device=dev,
                                          dtype=torch.int32)
+                    frames = (torch.randn((1, WHISPER_FRAMES, cfg.d_model), generator=gen,
+                                          device=dev) if cfg.family == "encdec" else None)
                     before = dict(ssd.ssd_cuda.routes)
                     with moe.count_drops() as drops:
-                        full, _ = model.forward(params, {"tokens": toks, **pos})
+                        full, _ = model.forward(params, {**model_batch(cfg, toks, frames), **pos})
                     assert int(sum(drops)) == 0, f"{int(sum(drops))} pairs dropped"
                     if dtype == "float32" and plain_scan:
                         kernel_ssd, ops.ssd = ops.ssd, ref.ssd_ref
@@ -942,7 +1027,7 @@ def main() -> int:
                         assert moved > 10 * DECODE_TOL[dtype], moved
                         del text_full
                     _, cache = model.prefill(
-                        params, {"tokens": toks[:, :P],
+                        params, {**model_batch(cfg, toks[:, :P], frames),
                                  **{k: v[..., :P] for k, v in pos.items()}}, S + 2)
                     # K3 per layer for the forward and the prefill (a short
                     # one padded to 64 rows): the wgmma route in bf16, fma in f32
@@ -962,7 +1047,9 @@ def main() -> int:
                 if dtype == "float32":
                     full_f32 = full
                 what = (f"{cfg.arch} {dtype}, prefill {P}"
-                        f"{' (text and image grid)' if grid else ''} then {S - P} steps")
+                        f"{' (text and image grid)' if grid else ''}"
+                        f"{f' over {WHISPER_FRAMES} frames' if frames is not None else ''} "
+                        f"then {S - P} steps")
                 if dtype == "bfloat16" and arch in NOISE_HELD:
                     noise = float((full - full_f32).abs().mean())
                     print(f"  decode vs forward, {what}: mean |logit gap| "
@@ -1021,7 +1108,7 @@ def main() -> int:
                   f"launches {per_step}")
             assert per_step == want, f"step {i + 1}: launches {per_step}, want {want}"
         counts = read_counts("train llama3.2-1b")
-        for key in ("k1b", "k2"):   # K1's stands at hymba's serve, this slice's path
+        for key in ("k1b", "k2"):   # K1's stands at whisper-small's serve, this slice's path
             kernels[key][0]["launches"] = counts[key]
         warm = times[1:]
         print(f"  train llama3.2-1b B={B} S={S}: warm step {sum(warm) / len(warm) * 1e3:.2f} ms "
@@ -1116,20 +1203,24 @@ def main() -> int:
         """``arch``'s SMOKE config (minicpm3-4b: K1 and its backward at head
         dims 24 / 16; granite-20b: learned positions, 4 heads on one kv head
         of 16; qwen3-moe-30b-a3b and arctic-480b: MoE, their routes on the
-        card held to the CPU route's first, ``hold_routes``): the loss and
+        card held to the CPU route's first, ``hold_routes``; whisper-small:
+        the encoder-decoder, on frames and decoder tokens): the loss and
         every gradient (``leaves`` of them) on the card against the CPU
-        route, from the same parameters and tokens, in float32 and bfloat16;
+        route, from the same parameters and batch, in float32 and bfloat16;
         then one optimizer step on the card with int8-compressed gradients,
-        and the launcher's loop."""
+        and the launcher's loop.  Launches a step: ``k1_train_calls`` K1,
+        ``k1_calls`` K1 backward."""
         base = get_smoke(arch)
-        toks = torch.from_numpy(SyntheticTokens(base.vocab, 2, 32, seed=0).next()["tokens"])
+        batch = {k: torch.from_numpy(v) for k, v in SyntheticTokens(
+            base.vocab, 2, 32, seed=0, family=base.family, d_model=base.d_model).next().items()}
         cpu = torch.device("cpu")
+        n_fwd, n_bwd = k1_train_calls(base), k1_calls(base)
 
         def loss_and_grads(model, params, device):
             leaves = list(tree_leaves(params))
             for t in leaves:
                 t.requires_grad_(True)
-            loss, _ = model.loss(params, {"tokens": toks.to(device)})
+            loss, _ = model.loss(params, {k: v.to(device) for k, v in batch.items()})
             grads = torch.autograd.grad(loss, leaves)
             for t in leaves:
                 t.requires_grad_(False)
@@ -1168,19 +1259,20 @@ def main() -> int:
                   f"(tol {grad_tol}), launches {counts}, K1 routes {routes[0]} / {routes[1]}")
             assert abs(loss - want_loss) <= loss_tol, (loss, want_loss)
             assert len(got) == len(want) == leaves and err <= grad_tol, err
-            # K1 once per layer in the forward and once in the remat recompute
-            want_counts = {"k1": 2 * cfg.n_layers, "k1b": cfg.n_layers, "k2": 0, "k3": 0}
+            # K1 once a call in the forward and once in the remat recompute
+            # (none in the encoder-decoder's), its backward once a call
+            want_counts = {"k1": n_fwd, "k1b": n_bwd, "k2": 0, "k3": 0}
             assert counts == want_counts, (counts, want_counts)
             assert routes == tuple({**dict.fromkeys(fa.ROUTES, 0), route: n}
-                                   for n in (2 * cfg.n_layers, cfg.n_layers)), routes
+                                   for n in (n_fwd, n_bwd)), routes
         opt = AdamW(lr=1e-3)
         state = {"params": params_from_numpy(np_params, dev)}
         state["opt"] = opt.init(state["params"])
         zero_counts()
         metrics = tsteps.make_train_step(model, opt, compress=True)(
-            state, {"tokens": toks.to(dev)})
+            state, {k: v.to(dev) for k, v in batch.items()})
         counts = read_counts(f"train {arch} SMOKE")
-        want_counts = {"k1": 2 * base.n_layers, "k1b": base.n_layers, "k2": leaves, "k3": 0}
+        want_counts = {"k1": n_fwd, "k1b": n_bwd, "k2": leaves, "k3": 0}
         print(f"  one bf16 step on the card, compressed gradients: loss "
               f"{float(metrics['loss']):.6f}, launches {counts}")
         assert counts == want_counts, (counts, want_counts)
@@ -1205,6 +1297,10 @@ def main() -> int:
     # three expert tensors, the norms; arctic also its dense MLP's three
     phase("train qwen3-moe-30b-a3b SMOKE", lambda: train_smoke("qwen3-moe-30b-a3b", 13))
     phase("train arctic-480b SMOKE", lambda: train_smoke("arctic-480b", 16))
+    # embed, dec_pos, the final LayerNorms' 4 and the layers' 12 (encoder:
+    # two LayerNorms, GQA, the MLP with biases) and 18 (decoder: three
+    # LayerNorms, self and cross GQA, the MLP)
+    phase("train whisper-small SMOKE", lambda: train_smoke("whisper-small", 36))
     phase("train loop SMOKE", train_loop_smoke)
 
     print(json.dumps({"kernels": [k1, k1b, k2, k3]}))

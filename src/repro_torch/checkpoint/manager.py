@@ -15,7 +15,7 @@ a checkpoint written by either package restores in the other.
 from __future__ import annotations
 
 import json
-from typing import Optional
+from typing import Callable, Optional
 
 from repro_torch.checkpoint import codec
 
@@ -100,17 +100,23 @@ class CheckpointManager:
         m = self._read_manifest()
         return m.get("latest")
 
-    def restore(self, tree_like, step: Optional[int] = None):
+    def restore(self, tree_like, step: Optional[int] = None,
+                slice_rows: Optional[Callable[[str, tuple], Optional[tuple]]] = None):
         """A dict shaped like ``tree_like`` of CPU tensors in their stored
-        dtypes.  (The JAX manager's ``slice_rows`` for resharded restore
-        comes with the port of elastic restore.)"""
+        dtypes.
+
+        ``slice_rows(key, global_shape) -> (lo, hi) | None`` selects a
+        row-range per leaf for resharded restore (None: the whole leaf)."""
         m = self._read_manifest()
         step = step if step is not None else m.get("latest")
         if step is None:
             raise FileNotFoundError("no checkpoint")
         path = m["files"][str(step)]["path"]
         r = codec.Reader(self.fs, path)
-        leaves = [(key, r.read_leaf(key)) for key, _ in flatten(tree_like)]
+        leaves = []
+        for key, like in flatten(tree_like):
+            rows = slice_rows(key, tuple(like.shape)) if slice_rows else None
+            leaves.append((key, r.read_leaf(key, rows=rows)))
         r.close()
         return unflatten(leaves)
 

@@ -1,7 +1,5 @@
-"""Architecture registry: ``--arch <id>`` resolution.
-
-Only the architectures whose port has landed are listed; the others come
-with the slices that port their model families."""
+"""Architecture registry: ``--arch <id>`` resolution, over the ten
+architectures of ``repro.configs.registry``, in its order."""
 from __future__ import annotations
 
 import importlib
@@ -13,6 +11,7 @@ ARCHS = {   # in the order of repro.configs.registry.ARCHS
     "minicpm3-4b": "minicpm3_4b",
     "granite-20b": "granite_20b",
     "minitron-8b": "minitron_8b",
+    "whisper-small": "whisper_small",
     "arctic-480b": "arctic_480b",
     "qwen3-moe-30b-a3b": "qwen3_moe_30b_a3b",
     "hymba-1.5b": "hymba_1_5b",
@@ -23,8 +22,7 @@ ARCHS = {   # in the order of repro.configs.registry.ARCHS
 
 def _mod(arch: str):
     if arch not in ARCHS:
-        raise KeyError(f"arch {arch!r} is not in the PyTorch port yet; "
-                       f"ported: {sorted(ARCHS)}")
+        raise KeyError(f"unknown arch {arch!r}; known: {sorted(ARCHS)}")
     return importlib.import_module(f"repro_torch.configs.{ARCHS[arch]}")
 
 

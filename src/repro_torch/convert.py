@@ -45,8 +45,9 @@ def params_to_numpy(tree):
 
 def cache_from_numpy(cache, device="cuda"):
     """Decode cache from numpy arrays: ``pos`` and the stacked ``(L, ...)``
-    entries, ``k``/``v`` (dense GQA), ``ckv``/``krope`` (MLA's latent) or
-    ``ssm_state``/``conv_state`` (ssm)."""
+    entries, ``k``/``v`` (dense GQA), ``ckv``/``krope`` (MLA's latent),
+    ``ssm_state``/``conv_state`` (ssm), or the encoder-decoder's ``k``/``v``
+    and its cross-attention's ``ek``/``ev``."""
     return params_from_numpy(cache, device)
 
 

@@ -4,11 +4,12 @@
 
 Serves each ported arch that fits one card in turn (the registry's, in
 its order: llama3.2-1b, minicpm3-4b, granite-20b, minitron-8b,
-qwen3-moe-30b-a3b, hymba-1.5b, qwen2-vl-7b, mamba2-780m; not arctic-480b,
-``WAITING``), or those named on the command line, at full width (batch 4,
-prompt 2048, 32 new tokens, seed 0; granite-20b and qwen3-moe-30b-a3b with
-bfloat16 parameters, :func:`one_card_config`), each one's parameters freed
-before the next is drawn, with
+whisper-small, qwen3-moe-30b-a3b, hymba-1.5b, qwen2-vl-7b, mamba2-780m;
+not arctic-480b, ``WAITING``), or those named on the command line, at full
+width (batch 4, prompt 2048, 32 new tokens, seed 0; whisper-small's
+prompt is its encoder's 1500 frames, ``PROMPT``; granite-20b and
+qwen3-moe-30b-a3b with bfloat16 parameters, :func:`one_card_config`),
+each one's parameters freed before the next is drawn, with
 ``repro_torch.launch.serve``'s prefill and decode: one run to warm up
 (allocator, cuBLAS, kernel library), ``REPS`` timed on the host clock
 around synchronised work (their median is reported, with the fastest and
@@ -22,7 +23,14 @@ their device time per prefill and share of the prefill's device time;
 for an MoE model the device time per prefill and per decode step of its
 expert products, dispatch and combine (the ``moe.*`` spans of
 ``models/moe.py``) and the (token, k) pairs a prefill drops over
-capacity; then one JSON line with those numbers and the card's name and
+capacity; for the encoder-decoder K1's device time per prefill by kind of
+call (encoder, decoder self-attention, cross-attention: its launches in
+the order the prefill makes them) and the cross-attention's device time
+per prefill and per decode step with its share of each (the
+``encdec.cross_attention`` span of ``models/encdec.py``; a span's device
+time counts the kernels of torch ops only, not those launched through
+``ctypes``, so the prefill's cross-attention is the span's plus K1's
+cross calls); then one JSON line with those numbers and the card's name and
 power limit.  Needs a CUDA card.
 """
 from __future__ import annotations
@@ -41,10 +49,11 @@ from repro_torch.configs.registry import all_archs, get_config
 from repro_torch.kernels.flash_attention import flash_attention_cuda
 from repro_torch.kernels.ssd_scan import ssd_cuda
 from repro_torch.launch.serve import decode, prefill
-from repro_torch.models import moe
+from repro_torch.models import encdec, moe
 from repro_torch.models.registry import build
 
 B, P, T, SEED = 4, 2048, 32, 0   # the slices' serving shape
+PROMPT = {"whisper-small": encdec.ENC_LEN}   # an arch's own prompt length (frames)
 KERNELS = {"k1": flash_attention_cuda, "k3": ssd_cuda}
 # device-kernel names of the hand-written kernels (substrings of the profiler's keys)
 OWN = {"k1": ("fa_fwd_",), "k3": ("ssd_fwd", "ssd_chunk_state", "ssd_carry", "ssd_chunk_out")}
@@ -58,7 +67,8 @@ ONE_CARD = {"granite-20b": {"param_dtype": "bfloat16"},
 # archs no one-card config serves at full width
 WAITING = {"arctic-480b": "~477 B parameters, ~27 GB of bfloat16 a layer: two of its "
                           "35 layers fill an 80 GB card"}
-SPANS = ("moe.experts", "moe.dispatch", "moe.combine")   # models/moe.py's record_function
+MOE_SPANS = ("moe.experts", "moe.dispatch", "moe.combine")   # models/moe.py's record_function
+SPANS = (*MOE_SPANS, encdec.CROSS_SPAN)
 
 
 def one_card_config(arch: str):
@@ -96,6 +106,24 @@ def _device_ms(prof):
     return sorted(rows, key=lambda r: -r[1])
 
 
+def _k1_by_kind(prof, cfg):
+    """An encoder-decoder prefill's K1 device time (ms) by kind of call,
+    from its K1 kernels in launch order: the encoder's layers, then each
+    decoder layer's self-attention and cross-attention.  None when the
+    profile holds another number of K1 kernels."""
+    calls = sorted((e for e in prof.events()
+                    if e.device_type != torch.autograd.DeviceType.CPU
+                    and any(n in e.name for n in OWN["k1"])),
+                   key=lambda e: e.time_range.start)
+    kinds = ["encoder"] * cfg.enc_layers + ["self", "cross"] * cfg.dec_layers
+    if len(calls) != len(kinds):
+        return None
+    out = dict.fromkeys(("encoder", "self", "cross"), 0.0)
+    for kind, e in zip(kinds, calls):
+        out[kind] += e.time_range.elapsed_us() / 1e3
+    return out
+
+
 def profile_arch(arch: str, card: str, cfg=None):
     """Warm prefill and decode of ``arch`` (``cfg`` in place of its config
     when given) at the serving shape; prints the breakdown and returns it
@@ -105,10 +133,11 @@ def profile_arch(arch: str, card: str, cfg=None):
     model = build(cfg)
     torch.cuda.reset_peak_memory_stats()
     gen = torch.Generator(dev).manual_seed(SEED)
-    result = {"arch": cfg.arch, "batch": B, "prompt_len": P, "tokens": T}
+    prompt_len = PROMPT.get(arch, P)
+    result = {"arch": cfg.arch, "batch": B, "prompt_len": prompt_len, "tokens": T}
     with torch.inference_mode():
         params = model.init(gen)
-        prompts = torch.randint(1, cfg.vocab - 1, (B, P), generator=gen, device=dev,
+        prompts = torch.randint(1, cfg.vocab - 1, (B, prompt_len), generator=gen, device=dev,
                                 dtype=torch.int32)
         logits, cache = prefill(model, params, prompts, T)            # warm-up
         decode(model, params, logits, cache, T)
@@ -131,7 +160,7 @@ def profile_arch(arch: str, card: str, cfg=None):
             with moe.count_drops() as drops:
                 prefill(model, params, prompts, T)
             result["moe_dropped_pairs_per_prefill"] = int(sum(drops))
-            result["moe_pairs_per_prefill"] = B * P * cfg.top_k * cfg.n_layers
+            result["moe_pairs_per_prefill"] = B * prompt_len * cfg.top_k * cfg.n_layers
 
     for name, prof, wall_s, steps in (("prefill", prof_p, prefill_s, 1),
                                       ("decode", prof_d, decode_s, T)):
@@ -148,12 +177,23 @@ def profile_arch(arch: str, card: str, cfg=None):
         for key, ms in rows[:TOP]:
             print(f"  {ms / steps:9.3f} ms  {ms / dev_ms:6.1%}  {key[:100]}")
         result[f"{name}_top"] = [[key[:100], ms / steps] for key, ms in rows[:TOP]]
-        if cfg.family == "moe":
-            for span in SPANS:
-                ms = _span_ms(prof, span) / steps
-                result[f"{span.replace('.', '_')}_ms_per_{name}"] = ms
-                print(f"  {span}: {ms:.3f} ms{' per step' if steps > 1 else ''} of device "
-                      f"time, {ms * steps / dev_ms:.1%}")
+        spans = {"moe": MOE_SPANS, "encdec": (encdec.CROSS_SPAN,)}.get(cfg.family, ())
+        for span in spans:
+            ms = _span_ms(prof, span) / steps
+            result[f"{span.replace('.', '_')}_ms_per_{name}"] = ms
+            result[f"{span.replace('.', '_')}_share_of_{name}"] = ms * steps / dev_ms
+            print(f"  {span}: {ms:.3f} ms{' per step' if steps > 1 else ''} of device "
+                  f"time, {ms * steps / dev_ms:.1%}")
+        if name == "prefill" and cfg.family == "encdec":
+            by_kind = _k1_by_kind(prof, cfg)
+            result["k1_ms_per_prefill_by_kind"] = by_kind
+            print(f"  k1 by kind of call (ms per prefill): {by_kind}")
+            if by_kind:
+                ms = _span_ms(prof, encdec.CROSS_SPAN) + by_kind["cross"]
+                result["cross_attention_ms_per_prefill"] = ms
+                result["cross_attention_share_of_prefill"] = ms / dev_ms
+                print(f"  cross-attention with its K1 calls: {ms:.3f} ms per prefill, "
+                      f"{ms / dev_ms:.1%}")
         if name == "prefill":
             for k, names in OWN.items():
                 ms = sum(v for key, v in rows if any(n in key for n in names))

@@ -4,11 +4,17 @@ decode — no request is lost to a crash).
 
     python -m repro_torch.launch.serve --arch llama3.2-1b --smoke --tokens 16
 
-``--arch`` is one of the ported architectures: llama3.2-1b, minicpm3-4b,
-granite-20b, minitron-8b, arctic-480b, qwen3-moe-30b-a3b, hymba-1.5b,
-qwen2-vl-7b or mamba2-780m.  Runs on the CUDA device unless ``--device
-cpu`` is given.  ``main``'s ``cfg`` keyword serves a config of the caller's
-in place of ``--arch``'s, e.g. granite-20b or qwen3-moe-30b-a3b with
+``--arch`` is one of the architectures: llama3.2-1b, minicpm3-4b,
+granite-20b, minitron-8b, whisper-small, arctic-480b, qwen3-moe-30b-a3b,
+hymba-1.5b, qwen2-vl-7b or mamba2-780m.  The encoder-decoder whisper-small
+encodes ``--prompt-len`` zero frames (the audio front end is a stub, as in
+the JAX launcher) and decodes from the first 8 prompt tokens:
+
+    python -m repro_torch.launch.serve --arch whisper-small --prompt-len 1500 --tokens 32
+
+Runs on the CUDA device unless ``--device cpu`` is given.  ``main``'s
+``cfg`` keyword serves a config of the caller's in place of ``--arch``'s,
+e.g. granite-20b or qwen3-moe-30b-a3b with
 ``param_dtype="bfloat16"`` (their float32 parameters do not fit one 80 GB
 card; ``launch.profile_serve.one_card_config`` gives that config):
 
@@ -45,9 +51,26 @@ def _sync(device: torch.device):
         torch.cuda.synchronize(device)
 
 
+DEC_PROMPT = 8   # an encoder-decoder's decoder prompt: the first 8 prompt tokens
+
+
+def prefill_batch(cfg, prompts):
+    """The prefill batch of ``prompts`` (B, P), as ``repro.launch.serve``
+    builds it: the tokens, or for the encoder-decoder P zero frames in the
+    compute dtype and the first ``DEC_PROMPT`` tokens as the decoder's."""
+    if cfg.family == "encdec":
+        B, P = prompts.shape
+        return {"frames": torch.zeros((B, P, cfg.d_model), dtype=cfg.cdt, device=prompts.device),
+                "dec_tokens": prompts[:, :DEC_PROMPT]}
+    return {"tokens": prompts}
+
+
 def prefill(model: Model, params, prompts, n_tokens: int):
-    """Batched prefill with room for ``n_tokens`` more.  Returns (logits, cache)."""
-    return model.prefill(params, {"tokens": prompts}, prompts.shape[1] + n_tokens + 8)
+    """Batched prefill with room for ``n_tokens`` more (the cache has
+    P + ``n_tokens`` + 8 rows, as the JAX launcher sizes it).  Returns
+    (logits, cache)."""
+    return model.prefill(params, prefill_batch(model.cfg, prompts),
+                         prompts.shape[1] + n_tokens + 8)
 
 
 def decode(model: Model, params, logits, cache, n_tokens: int):

@@ -1,4 +1,4 @@
-"""Shared layer primitives: norms, RoPE / M-RoPE, SwiGLU MLP, blocked
+"""Shared layer primitives: norms (RMSNorm, LayerNorm), RoPE / M-RoPE, SwiGLU MLP, blocked
 (flash-style) attention and single-step decode attention, in plain PyTorch.
 
 Layouts follow ``repro.models.layers``: activations are ``(B, S, H, D)``
@@ -28,6 +28,15 @@ def rmsnorm(x, w, eps=1e-5):
     x = x.float()
     x = x * torch.rsqrt(torch.mean(x * x, dim=-1, keepdim=True) + eps)
     return (x * w.float()).to(dt)
+
+
+def layernorm(x, w, b, eps=1e-5):
+    dt = x.dtype
+    x = x.float()
+    mu = torch.mean(x, dim=-1, keepdim=True)
+    var = torch.mean((x - mu) ** 2, dim=-1, keepdim=True)
+    y = (x - mu) * torch.rsqrt(var + eps)
+    return (y * w.float() + b.float()).to(dt)
 
 
 # ---------------------------------------------------------------------- RoPE

@@ -11,7 +11,8 @@ over, so keys and shapes match its pytree), and four entry points —
 it returns the MoE layers' summed load-balancing loss), ``loss_fn``
 (next-token cross-entropy plus ``aux_weight`` times that loss),
 ``prefill`` (build caches) and ``decode_step`` (one token).  The
-encoder-decoder family comes with its own slice."""
+encoder-decoder family is ``models/encdec.py``'s; ``check_ported`` holds
+the configs of both."""
 from __future__ import annotations
 
 import functools
@@ -27,20 +28,18 @@ from repro_torch.models.layers import (dense_init, mrope_cos_sin, rmsnorm, rope_
                                        swiglu)
 
 NEG_WINDOW_OFF = 1 << 30   # "window" value that disables windowing
-
-_LATER = {
-    "encdec": "the enc-dec slice",
-}
+FAMILIES = ("dense", "vlm", "moe", "ssm", "hybrid", "encdec")
 
 
 def check_ported(cfg: ModelConfig):
-    """Raise NotImplementedError for what the port cannot run yet, and
-    ValueError for position settings that do not fit the model: an unknown
-    scheme, a learned table of no rows, or M-RoPE sections that do not sum
-    to half the rotated width (the JAX model asserts that too)."""
-    if cfg.family not in ("dense", "vlm", "moe", "ssm", "hybrid"):
-        raise NotImplementedError(f"{cfg.arch}: family {cfg.family!r} comes with "
-                                  f"{_LATER.get(cfg.family, 'a later slice')}")
+    """Raise NotImplementedError for a family or attention the port does
+    not know, and ValueError for position settings that do not fit the
+    model: an unknown scheme, a learned table of no rows, or M-RoPE
+    sections that do not sum to half the rotated width (the JAX model
+    asserts that too)."""
+    if cfg.family not in FAMILIES:
+        raise NotImplementedError(f"{cfg.arch}: family {cfg.family!r} is not one of "
+                                  f"{', '.join(FAMILIES)}")
     if cfg.family == "ssm":
         if cfg.attn_kind != "none":
             raise NotImplementedError(f"{cfg.arch}: an ssm model with {cfg.attn_kind!r} "
@@ -48,6 +47,10 @@ def check_ported(cfg: ModelConfig):
     elif cfg.family == "hybrid" and cfg.attn_kind != "gqa":
         raise NotImplementedError(f"{cfg.arch}: a hybrid model runs GQA attention beside "
                                   f"its SSM, got {cfg.attn_kind!r}")
+    elif cfg.family == "encdec" and (cfg.attn_kind != "gqa" or cfg.pos != "learned"):
+        raise NotImplementedError(f"{cfg.arch}: an encoder-decoder runs GQA attention with "
+                                  f"learned decoder positions, got {cfg.attn_kind!r} and "
+                                  f"{cfg.pos!r}")
     elif cfg.attn_kind not in ("gqa", "mla"):
         raise NotImplementedError(f"{cfg.arch}: {cfg.attn_kind!r} attention is not "
                                   f"in the port")
@@ -91,13 +94,14 @@ def _mlp_init(cfg, gen):
             "wd": dense_init(gen, (f, d), f, cfg.pdt)}
 
 
-def _init_layers(cfg: ModelConfig, gen):
-    """Layer 0's draws, then layer 1's, ..., each written into the stacked
-    ``(L, ...)`` tensors as it is drawn, so one layer's copy is alive at a
+def init_stacked(n: int, draw):
+    """``n`` layers' parameters stacked ``(n, ...)``: layer 0's draws
+    (``draw()``, one layer's dict), then layer 1's, ..., each written into
+    the stacked tensors as it is drawn, so one layer's copy is alive at a
     time beside the stack."""
     def empty_stacked(tree):
         return {k: empty_stacked(v) if isinstance(v, dict)
-                else v.new_empty((cfg.n_layers, *v.shape)) for k, v in tree.items()}
+                else v.new_empty((n, *v.shape)) for k, v in tree.items()}
 
     def fill(dst, src, i):
         for k, v in src.items():
@@ -107,20 +111,20 @@ def _init_layers(cfg: ModelConfig, gen):
                 dst[k][i].copy_(v)
 
     stacked = None
-    for i in range(cfg.n_layers):
-        layer = _layer_init(cfg, gen)
+    for i in range(n):
+        layer = draw()
         if stacked is None:
             stacked = empty_stacked(layer)
         fill(stacked, layer, i)
     return stacked
 
 
-def _layers(tree, n: int):
+def unstack(tree, n: int):
     """The per-layer views of the stacked parameters, one dict per layer.
     One ``unbind`` per leaf: under autograd its backward stacks the layers'
     gradients once, where indexing would add a full-size gradient per
     layer."""
-    per_leaf = {k: _layers(v, n) if isinstance(v, dict) else v.unbind(0)
+    per_leaf = {k: unstack(v, n) if isinstance(v, dict) else v.unbind(0)
                 for k, v in tree.items()}
     return [{k: v[i] for k, v in per_leaf.items()} for i in range(n)]
 
@@ -134,7 +138,7 @@ def init_lm(cfg: ModelConfig, gen: torch.Generator):
     params = {
         "embed": dense_init(gen, (cfg.vocab, cfg.d_model), cfg.d_model, cfg.pdt),
         "final_norm": torch.ones((cfg.d_model,), dtype=cfg.pdt, device=gen.device),
-        "layers": _init_layers(cfg, gen),
+        "layers": init_stacked(cfg.n_layers, lambda: _layer_init(cfg, gen)),
     }
     if not cfg.tie_embeddings:
         params["unembed"] = dense_init(gen, (cfg.d_model, cfg.vocab), cfg.d_model, cfg.pdt)
@@ -294,7 +298,7 @@ def forward(cfg: ModelConfig, params, tokens, positions=None):
     if torch.is_grad_enabled():
         body = _remat(cfg, body)
     aux = torch.zeros((), device=x.device)
-    for pl, win in zip(_layers(params["layers"], cfg.n_layers), layer_windows(cfg)):
+    for pl, win in zip(unstack(params["layers"], cfg.n_layers), layer_windows(cfg)):
         x, layer_aux = body(pl, x, int(win))
         if layer_aux is not None:
             aux = aux + layer_aux
@@ -360,7 +364,7 @@ def prefill(cfg: ModelConfig, params, tokens, max_len: int, positions=None):
     rope = _rope_for(cfg, positions)
     cache = init_cache(cfg, B, max_len, tokens.device)
     cache["pos"].fill_(S)
-    for i, (pl, win) in enumerate(zip(_layers(params["layers"], cfg.n_layers),
+    for i, (pl, win) in enumerate(zip(unstack(params["layers"], cfg.n_layers),
                                       layer_windows(cfg))):
         x, _, kv = _block(cfg, pl, x, rope, int(win), return_kv=True)
         for key, val in zip(_cache_keys(cfg), kv):
@@ -415,7 +419,7 @@ def decode_step(cfg: ModelConfig, params, cache, tokens):
         x = x + params["pos_table"].index_select(0, row)[None].to(x.dtype)
     rope = _rope_for(cfg, positions)
     keys = _cache_keys(cfg)
-    for i, (pl, win) in enumerate(zip(_layers(params["layers"], cfg.n_layers),
+    for i, (pl, win) in enumerate(zip(unstack(params["layers"], cfg.n_layers),
                                       layer_windows(cfg))):
         x, _ = _block_decode(cfg, pl, x, rope, int(win), tuple(cache[k][i] for k in keys), pos)
     cache["pos"] = pos + 1

@@ -27,7 +27,8 @@ def _unflatten_like(tree, it):
 def make_train_step(model: Model, optimizer: AdamW, *, compress: bool = False):
     """``step(state, batch) -> metrics``: one optimizer step that updates
     ``state`` in place (the counterpart of the JAX step's donated state).
-    ``batch``: {"tokens": (B, S) int tensor on the state's device}.  The
+    ``batch``: the model's batch on the state's device, {"tokens": (B, S)
+    int} or, for the encoder-decoder, {"frames", "dec_tokens"}.  The
     metrics ("loss", "ce", "aux", "grad_norm") are 0-d tensors."""
     def step(state, batch):
         params = state["params"]

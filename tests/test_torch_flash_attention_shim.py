@@ -58,6 +58,10 @@ CASES = [  # (B, Sq, Skv, H, KV, D, Dv, dtype, causal, window, v a view)
     (1, 80, 200, 12, 1, 128, 128, "bfloat16", False, None, False),
     (1, 144, 96, 16, 1, 128, 128, "bfloat16", True, None, False),
     (1, 80, 136, 10, 1, 96, 64, "bfloat16", False, 40, True),
+    # whisper-small's cross-attention: G 1 at D 64, no mask, 8 decoder
+    # queries in one q tile against a ragged count of encoder frames (200:
+    # a last k tile of 72 of 128 rows), forward and backward
+    (1, 8, 200, 2, 2, 64, 64, "bfloat16", False, None, False),
     # mma.sync: minicpm3 SMOKE's 24 / 16 (MQA, Skv != Sq), and a window
     (1, 48, 80, 4, 1, 24, 16, "bfloat16", True, None, True),
     (2, 40, 40, 4, 2, 24, 16, "bfloat16", True, 12, False),

@@ -20,8 +20,8 @@ ENGINE = ([f"core/{n}.py" for n in ("__init__", "api", "cleanup", "drain", "lock
                                     "router", "recovery")]
           + [f"obs/{n}.py" for n in ("__init__", "flight", "metrics", "spans")]
           + ["storage/fsapi.py", "storage/tiers.py"])
-# numpy-only modules copied as they are
-VERBATIM = ENGINE + ["data/pipeline.py"]
+# numpy-only and stdlib-only modules copied as they are
+VERBATIM = ENGINE + ["data/pipeline.py", "runtime/fault.py"]
 _IMPORT = re.compile(r"^(\s*(?:from|import)\s+)repro\.", re.M)
 
 

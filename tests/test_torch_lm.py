@@ -1,8 +1,10 @@
-"""The port's LM (llama3.2-1b, mamba2-780m, minicpm3-4b, hymba-1.5b,
-minitron-8b, granite-20b, qwen2-vl-7b, and the MoE qwen3-moe-30b-a3b and
-arctic-480b SMOKE) against the JAX package's,
-from the same parameters (built by JAX ``init_lm``, carried over
-through ``repro_torch.convert``) and the same numpy tokens.  For the MoE
+"""The port's models (llama3.2-1b, mamba2-780m, minicpm3-4b, hymba-1.5b,
+minitron-8b, granite-20b, qwen2-vl-7b, the MoE qwen3-moe-30b-a3b and
+arctic-480b, and the encoder-decoder whisper-small SMOKE) against the JAX
+package's, through both registries' ``Model`` entry points, from the same
+parameters (built by the JAX model's ``init``, carried over through
+``repro_torch.convert``) and the same numpy tokens (and, for
+whisper-small, frames).  For the MoE
 models each comparison holds the routes to JAX's first
 (``test_torch_moe.routes_as_jax``: equal experts wherever the rounding
 cannot have flipped them) and the aux loss to JAX's.
@@ -13,7 +15,8 @@ activations at different places: 5e-2 for llama3.2-1b and for
 minicpm3-4b (MLA; measured 3.9e-2 to 4.3e-2 over three token draws, under
 the JAX model's own bfloat16-to-float32 gap of 6.9e-2 to 1.1e-1) and for
 the dense minitron-8b, granite-20b (learned positions) and qwen2-vl-7b
-(M-RoPE) and the MoE qwen3-moe-30b-a3b and arctic-480b, 0.15 for
+(M-RoPE), the MoE qwen3-moe-30b-a3b and arctic-480b and whisper-small
+(``test_torch_encdec.py`` holds it function by function), 0.15 for
 mamba2-780m, whose bfloat16 logits lie several times farther from their
 own float32 logits than llama's do, on both sides (the gated norm, the
 conv and the scan each round), 0.2 for hybrid hymba-1.5b (its SSM half
@@ -34,28 +37,31 @@ import torch
 
 from repro.configs.registry import get_smoke as jax_smoke
 from repro.models import lm as jlm
+from repro.models.registry import build as jax_build
 from repro_torch.configs.registry import get_config, get_smoke
 from repro_torch.convert import (cache_from_numpy, cache_to_numpy, params_from_numpy,
                                  params_to_numpy)
+from repro_torch.models import encdec as te
 from repro_torch.models import lm as tlm
 from repro_torch.models.registry import build
 from test_torch_moe import ROUTER_DP, jax_routes, min_gap, routes_as_jax
 
 ARCHS = ("llama3.2-1b", "mamba2-780m", "minicpm3-4b", "hymba-1.5b", "minitron-8b",
-         "granite-20b", "qwen2-vl-7b", "qwen3-moe-30b-a3b", "arctic-480b")
+         "granite-20b", "qwen2-vl-7b", "qwen3-moe-30b-a3b", "arctic-480b", "whisper-small")
 BF16_TOL = {"llama3.2-1b": 5e-2, "mamba2-780m": 0.15, "minicpm3-4b": 5e-2, "hymba-1.5b": 0.2,
             "minitron-8b": 5e-2, "granite-20b": 5e-2, "qwen2-vl-7b": 5e-2,
-            "qwen3-moe-30b-a3b": 5e-2, "arctic-480b": 5e-2}
+            "qwen3-moe-30b-a3b": 5e-2, "arctic-480b": 5e-2, "whisper-small": 5e-2}
 CACHE_KEYS = {"llama3.2-1b": ("k", "v"), "mamba2-780m": ("ssm_state", "conv_state"),
               "minicpm3-4b": ("ckv", "krope"),
               "hymba-1.5b": ("k", "v", "ssm_state", "conv_state"),
               "minitron-8b": ("k", "v"), "granite-20b": ("k", "v"), "qwen2-vl-7b": ("k", "v"),
-              "qwen3-moe-30b-a3b": ("k", "v"), "arctic-480b": ("k", "v")}
+              "qwen3-moe-30b-a3b": ("k", "v"), "arctic-480b": ("k", "v"),
+              "whisper-small": ("k", "v", "ek", "ev")}
 # 20: not a multiple of mamba2's or hymba's SMOKE chunk 16, and past
 # hymba's window 16
 PROMPT = {"llama3.2-1b": 16, "mamba2-780m": 20, "minicpm3-4b": 16, "hymba-1.5b": 20,
           "minitron-8b": 16, "granite-20b": 16, "qwen2-vl-7b": 16, "qwen3-moe-30b-a3b": 16,
-          "arctic-480b": 16}
+          "arctic-480b": 16, "whisper-small": 16}
 CPU = torch.device("cpu")
 
 
@@ -100,11 +106,28 @@ def arch(request):
 
 @pytest.fixture(scope="module")
 def np_params(arch):
-    return jax.tree.map(np.asarray, jlm.init_lm(jax_smoke(arch), jax.random.PRNGKey(0)))
+    return jax.tree.map(np.asarray, jax_build(jax_smoke(arch)).init(jax.random.PRNGKey(0)))
 
 
 def _tokens(B, S, vocab, seed=0):
     return np.random.default_rng(seed).integers(1, vocab - 1, size=(B, S)).astype(np.int32)
+
+
+def _batch(cfg, toks, seed=0):
+    """The numpy batch of ``toks`` for ``cfg``'s model: {tokens}, or for
+    the encoder-decoder {24 frames drawn from ``seed``, dec_tokens}."""
+    if cfg.family != "encdec":
+        return {"tokens": toks}
+    frames = np.random.default_rng(seed + 50).normal(size=(toks.shape[0], 24, cfg.d_model))
+    return {"frames": frames.astype(np.float32), "dec_tokens": toks}
+
+
+def _jb(batch):
+    return {k: jnp.asarray(v) for k, v in batch.items()}
+
+
+def _tb(batch):
+    return {k: torch.from_numpy(v) for k, v in batch.items()}
 
 
 def _close(got, want, tol):
@@ -113,21 +136,27 @@ def _close(got, want, tol):
 
 
 def test_configs_match_and_unported_archs_raise(arch):
+    """Each config equals the JAX package's; every arch of the JAX registry
+    resolves to the port's config (whisper-small too, now ported), and an
+    unknown arch or family raises."""
     mod = importlib.import_module(f"repro.configs.{arch.replace('.', '_').replace('-', '_')}")
     own = importlib.import_module(f"repro_torch.configs.{mod.__name__.split('.')[-1]}")
     for f in ("CONFIG", "SMOKE"):
         assert dataclasses.asdict(getattr(mod, f)) == dataclasses.asdict(getattr(own, f))
     assert get_config(arch) is own.CONFIG
     assert get_smoke(arch).cdt == torch.bfloat16 and get_smoke(arch).pdt == torch.float32
-    with pytest.raises(KeyError, match="whisper-small"):
-        get_config("whisper-small")
-    with pytest.raises(NotImplementedError, match="enc-dec"):
-        build(dataclasses.replace(get_smoke(arch), family="encdec"))
+    whisper = importlib.import_module("repro_torch.configs.whisper_small")
+    assert get_config("whisper-small") is whisper.CONFIG
+    assert build(get_smoke("whisper-small")).init is not None
+    with pytest.raises(KeyError, match="whisper-large"):
+        get_config("whisper-large")
+    with pytest.raises(NotImplementedError, match="foo"):
+        build(dataclasses.replace(get_smoke(arch), family="foo"))
     with pytest.raises(NotImplementedError, match="hybrid"):
         build(dataclasses.replace(get_smoke("mamba2-780m"), attn_kind="gqa"))
     model = build(get_smoke(arch))
-    toks = torch.from_numpy(_tokens(1, 8, model.cfg.vocab))
-    loss, metrics = model.loss(model.init(torch.Generator(CPU).manual_seed(0)), {"tokens": toks})
+    batch = _tb(_batch(model.cfg, _tokens(1, 8, model.cfg.vocab)))
+    loss, metrics = model.loss(model.init(torch.Generator(CPU).manual_seed(0)), batch)
     assert loss.shape == () and bool(torch.isfinite(loss)) and set(metrics) == {"ce", "aux"}
 
 
@@ -145,24 +174,33 @@ def test_params_roundtrip_and_layout(arch, np_params):
 
 def test_init_fills_the_stack_layer_by_layer(arch):
     """``init_lm`` draws the embedding, then each layer in turn, into the
-    stacked tensors: layer i equals the i-th of consecutive per-layer draws."""
+    stacked tensors: layer i equals the i-th of consecutive per-layer draws.
+    ``init_encdec`` draws the embedding and the position table, then the
+    encoder's layers, then the decoder's, the same way."""
     cfg = get_smoke(arch)
-    params = tlm.init_lm(cfg, torch.Generator(CPU).manual_seed(3))
+    params = build(cfg).init(torch.Generator(CPU).manual_seed(3))
     gen = torch.Generator(CPU).manual_seed(3)
     embed = tlm.dense_init(gen, (cfg.vocab, cfg.d_model), cfg.d_model, cfg.pdt)
     assert torch.equal(params["embed"], embed)
-    for layer in tlm._layers(params["layers"], cfg.n_layers):
-        want = params_to_numpy(tlm._layer_init(cfg, gen))
-        got = params_to_numpy(layer)
-        for a, b in zip(jax.tree.leaves(got), jax.tree.leaves(want)):
-            np.testing.assert_array_equal(a, b)
+    if cfg.family == "encdec":
+        torch.randn((cfg.max_positions, cfg.d_model), generator=gen)   # the table
+        stacks = (("enc_layers", te._enc_layer_init, cfg.enc_layers),
+                  ("dec_layers", te._dec_layer_init, cfg.dec_layers))
+    else:
+        stacks = (("layers", tlm._layer_init, cfg.n_layers),)
+    for key, draw, n in stacks:
+        for layer in tlm.unstack(params[key], n):
+            want = params_to_numpy(draw(cfg, gen))
+            got = params_to_numpy(layer)
+            for a, b in zip(jax.tree.leaves(got), jax.tree.leaves(want)):
+                np.testing.assert_array_equal(a, b)
 
 
 def test_forward_matches_jax_f32(arch, np_params):
     jc, tc = _cfgs(arch, "float32")
-    toks = _tokens(2, 24, tc.vocab)
-    with _as_jax(lambda: jlm.forward(jc, np_params, jnp.asarray(toks)), "float32") as (want, jaux):
-        got, aux = tlm.forward(tc, params_from_numpy(np_params, CPU), torch.from_numpy(toks))
+    batch = _batch(tc, _tokens(2, 24, tc.vocab))
+    with _as_jax(lambda: jax_build(jc).forward(np_params, _jb(batch)), "float32") as (want, jaux):
+        got, aux = build(tc).forward(params_from_numpy(np_params, CPU), _tb(batch))
     assert got.dtype == torch.float32 and aux.dtype == torch.float32
     assert (float(aux) == 0.0) == (tc.family != "moe")
     assert abs(float(aux) - float(jaux)) <= 1e-5
@@ -170,22 +208,30 @@ def test_forward_matches_jax_f32(arch, np_params):
 
 
 def test_forward_matches_jax_f32_untied_unembed(arch):
+    """With ``tie_embeddings=False`` the decoder-only models draw and use
+    an unembedding; the encoder-decoder's logits come from its embedding
+    whatever the flag says, in JAX as in the port."""
     jc, tc = (dataclasses.replace(c, tie_embeddings=False) for c in _cfgs(arch, "float32"))
-    params = jax.tree.map(np.asarray, jlm.init_lm(jc, jax.random.PRNGKey(1)))
-    assert params["unembed"].shape == (tc.d_model, tc.vocab)
-    toks = _tokens(2, 24, tc.vocab, seed=6)
-    want, _ = jlm.forward(jc, params, jnp.asarray(toks))
-    got, _ = tlm.forward(tc, params_from_numpy(params, CPU), torch.from_numpy(toks))
+    params = jax.tree.map(np.asarray, jax_build(jc).init(jax.random.PRNGKey(1)))
+    untied = tc.family != "encdec"
+    assert ("unembed" in params) == untied
+    if untied:
+        assert params["unembed"].shape == (tc.d_model, tc.vocab)
+    batch = _batch(tc, _tokens(2, 24, tc.vocab, seed=6), seed=6)
+    want, _ = jax_build(jc).forward(params, _jb(batch))
+    got, _ = build(tc).forward(params_from_numpy(params, CPU), _tb(batch))
     _close(got, want, 1e-4)
-    own = tlm.init_lm(tc, torch.Generator(CPU).manual_seed(0))
-    assert own["unembed"].shape == (tc.d_model, tc.vocab)
+    own = build(tc).init(torch.Generator(CPU).manual_seed(0))
+    assert ("unembed" in own) == untied
+    if untied:
+        assert own["unembed"].shape == (tc.d_model, tc.vocab)
 
 
 def test_forward_matches_jax_bf16(arch, np_params):
     jc, tc = _cfgs(arch, "bfloat16")
-    toks = _tokens(2, 24, tc.vocab, seed=1)
-    with _as_jax(lambda: jlm.forward(jc, np_params, jnp.asarray(toks)), "bfloat16") as (want, jaux):
-        got, aux = tlm.forward(tc, params_from_numpy(np_params, CPU), torch.from_numpy(toks))
+    batch = _batch(tc, _tokens(2, 24, tc.vocab, seed=1), seed=1)
+    with _as_jax(lambda: jax_build(jc).forward(np_params, _jb(batch)), "bfloat16") as (want, jaux):
+        got, aux = build(tc).forward(params_from_numpy(np_params, CPU), _tb(batch))
     _close(got, want, BF16_TOL[arch])
     assert abs(float(aux) - float(jaux)) <= 1e-2   # probabilities within ROUTER_DP
 
@@ -193,10 +239,11 @@ def test_forward_matches_jax_bf16(arch, np_params):
 def test_prefill_and_decode_match_jax_f32(arch, np_params):
     jc, tc = _cfgs(arch, "float32")
     S = PROMPT[arch]
-    toks = _tokens(2, S, tc.vocab, seed=2)
+    batch = _batch(tc, _tokens(2, S, tc.vocab, seed=2), seed=2)
     tp = params_from_numpy(np_params, CPU)
-    jlog, jcache = jlm.prefill(jc, np_params, jnp.asarray(toks), S + 8)
-    tlog, tcache = tlm.prefill(tc, tp, torch.from_numpy(toks), S + 8)
+    jm, tm = jax_build(jc), build(tc)
+    jlog, jcache = jm.prefill(np_params, _jb(batch), S + 8)
+    tlog, tcache = tm.prefill(tp, _tb(batch), S + 8)
     _close(tlog, jlog, 1e-4)
     assert set(tcache) == set(jcache) == {"pos", *CACHE_KEYS[arch]}
     for key in CACHE_KEYS[arch]:
@@ -204,8 +251,8 @@ def test_prefill_and_decode_match_jax_f32(arch, np_params):
     assert int(tcache["pos"]) == int(jcache["pos"]) == S
     for step in range(3):
         nxt = _tokens(2, 1, tc.vocab, seed=10 + step)
-        jlog, jcache = jlm.decode_step(jc, np_params, jcache, jnp.asarray(nxt))
-        tlog, tcache = tlm.decode_step(tc, tp, tcache, torch.from_numpy(nxt))
+        jlog, jcache = jm.decode_step(np_params, jcache, jnp.asarray(nxt))
+        tlog, tcache = tm.decode_step(tp, tcache, torch.from_numpy(nxt))
         _close(tlog, jlog, 1e-4)
     for key in CACHE_KEYS[arch]:
         _close(tcache[key], jcache[key], 1e-4)
@@ -216,8 +263,8 @@ def test_bf16_cache_carries_over_exactly(arch, np_params):
     """A JAX bfloat16 decode cache converts bit for bit, and the port
     decodes on from it as the JAX model does."""
     jc, tc = _cfgs(arch, "bfloat16")
-    toks = _tokens(2, 8, tc.vocab, seed=3)
-    _, jcache = jlm.prefill(jc, np_params, jnp.asarray(toks), 12)
+    batch = _batch(tc, _tokens(2, 8, tc.vocab, seed=3), seed=3)
+    _, jcache = jax_build(jc).prefill(np_params, _jb(batch), 12)
     np_cache = jax.tree.map(np.asarray, jcache)
     tcache = cache_from_numpy(np_cache, CPU)
     assert tcache["pos"].dtype == torch.int32
@@ -227,10 +274,10 @@ def test_bf16_cache_carries_over_exactly(arch, np_params):
     for key in CACHE_KEYS[arch]:
         np.testing.assert_array_equal(back[key], np_cache[key].astype(np.float32))
     nxt = _tokens(2, 1, tc.vocab, seed=4)
-    with _as_jax(lambda: jlm.decode_step(jc, np_params, jcache, jnp.asarray(nxt)),
+    with _as_jax(lambda: jax_build(jc).decode_step(np_params, jcache, jnp.asarray(nxt)),
                  "bfloat16") as (jlog, _):
-        tlog, _ = tlm.decode_step(tc, params_from_numpy(np_params, CPU), tcache,
-                                  torch.from_numpy(nxt))
+        tlog, _ = build(tc).decode_step(params_from_numpy(np_params, CPU), tcache,
+                                        torch.from_numpy(nxt))
     _close(tlog, jlog, BF16_TOL[arch])
 
 
@@ -244,9 +291,10 @@ def test_decode_matches_forward(arch):
     model = build(cfg)
     params = model.init(torch.Generator(CPU).manual_seed(0))
     S = 16
-    toks = torch.from_numpy(_tokens(1, S, model.cfg.vocab, seed=5))
-    full, _ = model.forward(params, {"tokens": toks})
-    _, cache = model.prefill(params, {"tokens": toks[:, :1]}, S + 2)
+    toks = _tokens(1, S, model.cfg.vocab, seed=5)
+    full, _ = model.forward(params, _tb(_batch(cfg, toks, seed=5)))
+    _, cache = model.prefill(params, _tb(_batch(cfg, toks[:, :1], seed=5)), S + 2)
+    toks = torch.from_numpy(toks)
     outs = []
     for t in range(1, S):
         lg, cache = model.decode_step(params, cache, toks[:, t:t + 1])

@@ -216,8 +216,12 @@ def test_positions_the_model_cannot_take_raise():
         tlm.check_ported(dataclasses.replace(base, pos="alibi"))
     with pytest.raises(NotImplementedError, match="MLA"):
         tlm.check_ported(dataclasses.replace(get_smoke("minicpm3-4b"), pos="learned"))
-    with pytest.raises(NotImplementedError, match="enc-dec"):
+    with pytest.raises(NotImplementedError, match="foo"):
+        tlm.check_ported(dataclasses.replace(base, family="foo"))
+    # the encoder-decoder is ported, with its learned decoder positions only
+    with pytest.raises(NotImplementedError, match="learned decoder positions"):
         tlm.check_ported(dataclasses.replace(base, family="encdec"))
+    tlm.check_ported(get_smoke("whisper-small"))
     tlm.check_ported(get_smoke("qwen3-moe-30b-a3b"))   # the MoE family is ported
 
 

@@ -2,8 +2,10 @@
 minicpm3-4b (MLA: expanded prefill, absorbed latent decode), hymba-1.5b
 (hybrid: windowed attention beside an SSM), minitron-8b, granite-20b
 (learned positions), qwen2-vl-7b (M-RoPE), qwen3-moe-30b-a3b and arctic-480b
-(MoE, arctic with its dense residual MLP) SMOKE by the JAX package and by
-the port from the same numpy parameters and prompts (20 tokens: not a
+(MoE, arctic with its dense residual MLP) and whisper-small (the
+encoder-decoder: 20 zero frames, a decoder prompt of the first 8 tokens,
+as ``repro.launch.serve`` builds its batch) SMOKE by the JAX package and
+by the port from the same numpy parameters and prompts (20 tokens: not a
 multiple of mamba2's or hymba's SMOKE chunk 16, so the sequence padding
 runs; past hymba's window 16, so it cuts), and the port's serve entry point with its durable
 request log."""
@@ -24,7 +26,7 @@ from repro_torch.launch import serve
 from repro_torch.models.registry import build
 
 ARCHS = ("llama3.2-1b", "mamba2-780m", "minicpm3-4b", "hymba-1.5b", "minitron-8b",
-         "granite-20b", "qwen2-vl-7b", "qwen3-moe-30b-a3b", "arctic-480b")
+         "granite-20b", "qwen2-vl-7b", "qwen3-moe-30b-a3b", "arctic-480b", "whisper-small")
 
 
 @pytest.fixture(autouse=True)
@@ -39,10 +41,15 @@ def _one_thread():
 
 
 def _jax_generate(model, params, prompts, n_tokens):
-    """The loop of ``repro.launch.serve.main``."""
-    max_len = prompts.shape[1] + n_tokens + 8
-    logits, cache = jax.jit(lambda p, b: model.prefill(p, b, max_len))(
-        params, {"tokens": prompts})
+    """The loop of ``repro.launch.serve.main``, its batch included."""
+    B, P = prompts.shape
+    max_len = P + n_tokens + 8
+    if model.cfg.family == "encdec":
+        batch = {"frames": jnp.zeros((B, P, model.cfg.d_model), model.cfg.cdt),
+                 "dec_tokens": prompts[:, :8]}
+    else:
+        batch = {"tokens": prompts}
+    logits, cache = jax.jit(lambda p, b: model.prefill(p, b, max_len))(params, batch)
     step = jax.jit(model.decode_step)
     out = []
     for _ in range(n_tokens):

@@ -1,8 +1,9 @@
 """The port's training path (llama3.2-1b SMOKE) against the JAX package's:
 the loss and every parameter gradient (also for mamba2-780m, MLA's
 minicpm3-4b, hybrid hymba-1.5b, minitron-8b, granite-20b with its learned
-position table, qwen2-vl-7b, and the MoE qwen3-moe-30b-a3b and arctic-480b
-with their aux loss, routes held to JAX's as ``test_torch_moe.py`` does),
+position table, qwen2-vl-7b, the MoE qwen3-moe-30b-a3b and arctic-480b
+with their aux loss, routes held to JAX's as ``test_torch_moe.py`` does,
+and the encoder-decoder whisper-small on frames and decoder tokens),
 remat, AdamW with clipping, the
 schedule and int8 gradient compression step by step on identical
 gradients, the data pipeline, the NVCache-backed loop with crash-safe
@@ -36,6 +37,7 @@ from repro.core import Policy as JPolicy
 from repro.data.pipeline import FileBackedTokens as JFileBackedTokens
 from repro.data.pipeline import SyntheticTokens as JSyntheticTokens
 from repro.models import lm as jlm
+from repro.models.registry import build as jax_build
 from repro.optim import adamw as jadamw
 from repro.optim import grad_compress as jgc
 from repro.optim import schedules as jsched
@@ -47,7 +49,6 @@ from repro_torch.convert import params_from_numpy, params_to_numpy
 from repro_torch.core import NVCache, Policy, recover
 from repro_torch.data.pipeline import FileBackedTokens, SyntheticTokens
 from repro_torch.launch import train as launch_train
-from repro_torch.models import lm as tlm
 from repro_torch.models.registry import build
 from repro_torch.optim import grad_compress
 from repro_torch.optim import schedules
@@ -84,11 +85,22 @@ def _tokens(B=2, S=32, vocab=256, seed=0):
     return np.random.default_rng(seed).integers(1, vocab - 1, size=(B, S)).astype(np.int32)
 
 
+def _batch(cfg, toks):
+    """The numpy batch of ``toks`` for ``cfg``'s model: {tokens}, or for
+    the encoder-decoder {frames, dec_tokens}: ``SyntheticTokens``' encdec
+    draw (frames of 32 rows at 0.02·N(0, 1), seq // 8 = 4 decoder tokens)."""
+    if cfg.family != "encdec":
+        return {"tokens": toks}
+    return SyntheticTokens(cfg.vocab, toks.shape[0], toks.shape[1], seed=0, family="encdec",
+                           d_model=cfg.d_model).next()
+
+
 def _torch_loss_and_grads(cfg, params, toks):
     leaves = list(tree_leaves(params))
     for p in leaves:
         p.requires_grad_(True)
-    loss, metrics = tlm.loss_fn(cfg, params, {"tokens": torch.from_numpy(toks)})
+    batch = {k: torch.from_numpy(v) for k, v in _batch(cfg, toks).items()}
+    loss, metrics = build(cfg).loss(params, batch)
     grads = torch.autograd.grad(loss, leaves)
     for p in leaves:
         p.requires_grad_(False)
@@ -97,8 +109,9 @@ def _torch_loss_and_grads(cfg, params, toks):
 
 def _jax_grads(np_params, toks, compute_dtype="float32", arch=ARCH):
     jc = dataclasses.replace(jax_smoke(arch), compute_dtype=compute_dtype)
+    batch = {k: jnp.asarray(v) for k, v in _batch(jc, toks).items()}
     (loss, metrics), grads = jax.value_and_grad(
-        lambda p: jlm.loss_fn(jc, p, {"tokens": jnp.asarray(toks)}), has_aux=True)(np_params)
+        lambda p: jax_build(jc).loss(p, batch), has_aux=True)(np_params)
     return loss, metrics, jax.tree.map(np.asarray, grads)
 
 
@@ -106,10 +119,12 @@ def _jax_grads(np_params, toks, compute_dtype="float32", arch=ARCH):
 # adds the SSM's eight, the two fuse weights and an untied unembedding;
 # minitron and qwen2-vl an untied unembedding; granite that and its table;
 # qwen3-moe an untied unembedding and the router and three expert tensors in
-# place of the MLP; arctic the MLP's three beside them)
+# place of the MLP; arctic the MLP's three beside them; whisper-small the
+# embedding, its position table, two final LayerNorms' 4, an encoder layer's
+# 12 and a decoder layer's 18)
 LEAVES = {"llama3.2-1b": 11, "mamba2-780m": 11, "minicpm3-4b": 14, "hymba-1.5b": 22,
           "minitron-8b": 12, "granite-20b": 13, "qwen2-vl-7b": 12, "qwen3-moe-30b-a3b": 13,
-          "arctic-480b": 16}
+          "arctic-480b": 16, "whisper-small": 36}
 
 
 @pytest.mark.parametrize("arch", list(LEAVES))
@@ -117,15 +132,16 @@ LEAVES = {"llama3.2-1b": 11, "mamba2-780m": 11, "minicpm3-4b": 14, "hymba-1.5b":
                                                          ("bfloat16", 1e-2, 5e-3)])
 def test_loss_and_grads_match_jax(np_params, arch, compute_dtype, tol, loss_tol):
     if arch != ARCH:
-        np_params = jax.tree.map(np.asarray, jlm.init_lm(jax_smoke(arch), jax.random.PRNGKey(0)))
+        np_params = jax.tree.map(np.asarray, jax_build(jax_smoke(arch)).init(
+            jax.random.PRNGKey(0)))
     if arch in ("mamba2-780m", "hymba-1.5b") and compute_dtype == "bfloat16":
         tol = 3e-2
     toks = _tokens()
     jloss, jmetrics, jgrads = _jax_grads(np_params, toks, compute_dtype, arch)
     tc = dataclasses.replace(get_smoke(arch), compute_dtype=compute_dtype)
     with jax_routes() as routes:   # the MoE routes of JAX's forward, held below
-        jlm.forward(dataclasses.replace(jax_smoke(arch), compute_dtype=compute_dtype),
-                    np_params, jnp.asarray(toks))
+        jc = dataclasses.replace(jax_smoke(arch), compute_dtype=compute_dtype)
+        jax_build(jc).forward(np_params, {k: jnp.asarray(v) for k, v in _batch(jc, toks).items()})
         jax.effects_barrier()
     with routes_as_jax(routes, ROUTER_DP[compute_dtype]) as report:
         loss, metrics, grads = _torch_loss_and_grads(tc, params_from_numpy(np_params, CPU), toks)
