@@ -36,7 +36,15 @@ Phases, each of which must pass:
              the encoder's shape beside SDPA; with those of an earlier
              commit's K1 and K3 sources when they are copied into
              build/parent/ (an older K1, whose C interface has no Dv, is
-             timed at llama's shape only);
+             timed at llama's shape only); K1 at llama3.2-1b's
+             prefill_32k shape (batch 16, S 32768) on sampled query rows
+             against the plain version over the keys they see, each block
+             also by its relative error norm, timed beside SDPA; K1 forward
+             and backward at phase 6's train_4k cut (4 x 4096) and 100m
+             example (8 x 512, 12 heads on 4); K3 at mamba2-780m's
+             prefill_32k (b 1, s 32768, timed) and at phase 6's cut of it
+             (b 16, x, B and C views of one 3328-wide row), every batch row
+             against the plain version;
   3. serve   llama3.2-1b, mamba2-780m, minicpm3-4b, hymba-1.5b (K1 and K3
              in every layer), minitron-8b, granite-20b (learned positions,
              bfloat16 parameters: its float32 ones do not fit the card),
@@ -71,7 +79,17 @@ Phases, each of which must pass:
              tokens) the same way; then the training loop at
              SMOKE size through
              ``repro_torch.launch.train.main``, and a crash, NVMM-log
-             recovery and resume that lands on the exact step.
+             recovery and resume that lands on the exact step;
+  6. shapes  the JAX package's assigned cells (``configs/shapes.py``)
+             through the port's step builders (``launch/dryrun.py``'s
+             card run): llama3.2-1b prefill_32k, decode_32k and train_4k,
+             mamba2-780m prefill_32k, decode_32k and long_500k, hymba-1.5b
+             long_500k, each at the largest power-of-two batch that does
+             not run out of memory, with exact launches a step and every
+             K1 and K3 launch on its wgmma route; then
+             ``examples/torch_train_e2e.py --preset 100m`` (20 steps,
+             checkpoints through NVCache) and ``launch/ckpt_bench.py`` at
+             64 MiB a leaf from a CUDA state, each restore held exactly.
 Prints a ``{"kernels": [...]}`` line, the card's name and power limit, and,
 last, ``{"ok": true, "device": {...}}``.  Exits non-zero, printing no
 result, when there is no CUDA card or a phase fails.
@@ -79,6 +97,8 @@ result, when there is no CUDA card or a phase fails.
 from __future__ import annotations
 
 import dataclasses
+import gc
+import importlib.util
 import json
 import math
 import subprocess
@@ -109,6 +129,12 @@ SWEEP = [(B, Sq, Skv, H, KV, D, D, dtype, causal, window)
 MODEL_CASES = [(*SLICE.values(), "bfloat16", True, None)] + [
     (1, S, S, 32, 8, 64, 64, dtype, True, None)
     for S in (64, 1) for dtype in ("float32", "bfloat16")]
+# phase 6's train shapes, forward and backward: llama3.2-1b's train_4k at its
+# batch cut (4 of 256) and examples/torch_train_e2e.py's 100m preset (batch
+# 8, seq 512, 12 heads on 4 kv heads of 64)
+SHAPE_K1_CASES = [(4, 4096, 4096, 32, 8, 64, 64, "bfloat16", True, None),
+                  (8, 512, 512, 12, 4, 64, 64, "bfloat16", True, None)]
+MODEL_CASES += SHAPE_K1_CASES
 TOL = {"float32": 1e-4, "bfloat16": 2e-2}
 # the bf16 wgmma kernels' other head dim, forward and backward: several full
 # 128-row tiles, and a window
@@ -197,7 +223,7 @@ BWD_TOL = {"float32": 1e-4, "bfloat16": 2e-2}
 TRAIN = dict(B=4, Sq=2048, Skv=2048, H=32, KV=8, D=64, Dv=64)
 BWD_CASES = [(*TRAIN.values(), "bfloat16", True, None),
              (2, 64, 64, 4, 2, 16, 16, "bfloat16", True, None),
-             (2, 32, 32, 4, 2, 16, 16, "bfloat16", True, None)]
+             (2, 32, 32, 4, 2, 16, 16, "bfloat16", True, None)] + SHAPE_K1_CASES
 # the backward at minicpm3's full shape (timed, and run twice), and at the
 # SMOKE step of phase 5 (batch 2, seq 32, 4 heads of 24 / 16)
 MLA_BWD_CASES = [(*MLA.values(), "bfloat16", True, None),
@@ -266,6 +292,33 @@ HYMBA_SSD_CASES = [(*HYMBA_SSD.values(), "bfloat16")] + [
     (1, S, 50, 64, 1, 16, chunk, dtype) for S, chunk in ((64, 64), (1280, 256))
     for dtype in ("float32", "bfloat16")]
 SSD_TOL = {"float32": 2e-3, "bfloat16": 2e-2}   # y; the float32 state is held to 2e-3
+# The JAX package's assigned long shapes (configs/shapes.py): K1 at
+# llama3.2-1b's prefill_32k, the batch cut as phase 6 runs it (the full 32
+# does not fit the card), checked on the sampled query rows ROWS_32K (the
+# first 256, a block in the middle and the last 256, each over the keys it
+# sees: the whole score matrix would take over 1 TB) and timed beside SDPA.
+# Each sampled block is also held to ||got - ref|| <= REL_32K ||ref||: late
+# rows average ~16k values and are ~0.01 in size, where the per-element
+# bound alone would pass an error twice their size.
+# K3 at mamba2-780m's prefill_32k shape, batch 1, 128 chunks of 256 (timed);
+# and at phase 6's batch cut, 16, with x, B and C the views of one 3328-wide
+# row as ssm_forward hands them over (a span of 1.7e9 elements)
+LLAMA_32K = dict(B=16, Sq=32768, Skv=32768, H=32, KV=8, D=64, Dv=64)
+ROWS_32K = ((0, 256), (16384, 16640), (32768 - 256, 32768))
+REL_32K = 1e-2
+SSD_32K = dict(b=1, s=32768, h=48, p=64, g=1, n=128, chunk=256)
+SSD_32K_CASE = (*SSD_32K.values(), "bfloat16")
+SSD_32K_CUT_CASE = (16, *SSD_32K_CASE[1:])
+# Phase 6: (arch, shape, steps) of the cells run on the card through
+# configs/shapes.py and train/steps.py (launch/dryrun.py's card run), each at
+# the largest power-of-two batch from the shape's own down that runs; train_4k
+# waits for mamba2 and hymba (ssd_cuda refuses grad)
+SHAPE_CELLS = [("llama3.2-1b", "prefill_32k", 2), ("llama3.2-1b", "decode_32k", 4),
+               ("llama3.2-1b", "train_4k", 2), ("mamba2-780m", "prefill_32k", 2),
+               ("mamba2-780m", "decode_32k", 4), ("mamba2-780m", "long_500k", 4),
+               ("hymba-1.5b", "long_500k", 4)]
+E2E_STEPS, E2E_CKPT_EVERY = 20, 10   # examples/torch_train_e2e.py --preset 100m
+CKPT_MIB = 64                        # repro_torch.launch.ckpt_bench from a CUDA state
 
 
 def ssd_route_wanted(p, n, chunk, dtype):
@@ -379,22 +432,13 @@ def image_grid_positions(text, side, extra):
     return torch.cat([i.expand(3, -1), img, after.expand(3, -1)], 1)[:, None].int()
 
 
-def visible_pairs(Sq, Skv, causal, window):
-    """The (query, key) pairs the masks leave visible."""
-    pairs = 0
-    for i in range(Sq):
-        hi = min(Skv, i + 1) if causal else Skv
-        lo = max(0, i - window + 1) if window else 0
-        pairs += max(0, hi - lo)
-    return pairs
-
-
 def attention_bound(B, Sq, Skv, H, KV, D, Dv, itemsize, causal, window, peak_flops):
     """Least time (ms) for one attention call: the larger of the operations
     the visible (query, key) pairs need (Q K^T over D, P V over Dv) over the
     peak rate and the bytes of q, k (D), v and o (Dv) read once and written
     once over the memory rate."""
-    flops = 2 * B * H * (D + Dv) * visible_pairs(Sq, Skv, causal, window)
+    from repro_torch.launch.dryrun import k1_call_flops
+    flops = k1_call_flops(B, Sq, Skv, H, D, Dv, causal, window)
     nbytes = itemsize * (B * Sq * H * (D + Dv) + B * Skv * KV * (D + Dv))
     t_ops, t_bytes = flops / peak_flops * 1e3, nbytes / PEAK_BYTES * 1e3
     return (t_ops, "operations") if t_ops >= t_bytes else (t_bytes, "bytes")
@@ -420,7 +464,8 @@ def attention_bwd_bound(B, Sq, Skv, H, KV, D, Dv, itemsize, causal, window, peak
     pair, S, dQ, dK over D and dP, dV over Dv, 2·(3D + 2Dv) flops, against
     the bytes of q, k, v, o, dO and the float32 log-sum-exp read once and
     dq, dk, dv written once."""
-    flops = 2 * B * H * (3 * D + 2 * Dv) * visible_pairs(Sq, Skv, causal, window)
+    from repro_torch.launch.dryrun import k1_call_flops
+    flops = k1_call_flops(B, Sq, Skv, H, D, Dv, causal, window, backward=True)
     # read q, dO, o and write dq: (B, Sq, H, D + 2 Dv + D); k, v, dk, dv likewise
     nbytes = (itemsize * (2 * B * Sq * H * (D + Dv) + 2 * B * Skv * KV * (D + Dv))
               + 4 * B * H * Sq)
@@ -466,7 +511,8 @@ def main() -> int:
     from repro_torch.kernels import ops, ref
     from repro_torch.kernels import quantize as quant
     from repro_torch.kernels import ssd_scan as ssd
-    from repro_torch.launch import bench_ssd, serve
+    from repro_torch.configs.shapes import SHAPES, scale_shape
+    from repro_torch.launch import bench_ssd, ckpt_bench, dryrun, serve
     from repro_torch.launch.profile_serve import PROMPT as SERVE_PROMPT
     from repro_torch.launch.profile_serve import one_card_config
     from repro_torch.launch import train as launch_train
@@ -665,6 +711,21 @@ def main() -> int:
               + f" (SDPA backend {backend}); plain {entry['plain_ms']:.4f} ms, bound "
               f"{entry['bound_ms']:.4f} ms ({entry['bound_by']})")
 
+    def plain_attention(q, k, v, **mask):
+        """attention_ref one batch row at a time: the f32 scores of a whole
+        train_4k batch would take tens of GB."""
+        return torch.cat([ref.attention_ref(q[b:b + 1], k[b:b + 1], v[b:b + 1], **mask)
+                          for b in range(q.shape[0])])
+
+    def plain_grads(q, k, v, do, **mask):
+        """dq, dk, dv by autograd of attention_ref, one batch row at a time."""
+        rows = []
+        for b in range(q.shape[0]):
+            leaves = [t[b:b + 1].clone().requires_grad_() for t in (q, k, v)]
+            rows.append(torch.autograd.grad(ref.attention_ref(*leaves, **mask), leaves,
+                                            do[b:b + 1]))
+        return [torch.cat(g) for g in zip(*rows)]
+
     def check_kernels():
         gen = torch.Generator(dev).manual_seed(0)
         bad, errs, slices = [], {}, {}
@@ -677,7 +738,7 @@ def main() -> int:
             before = dict(fa.flash_attention_cuda.routes)
             got = fa.flash_attention_cuda(q, k, v, causal=causal, window=window)
             took = [r for r, n in fa.flash_attention_cuda.routes.items() if n != before[r]]
-            want = ref.attention_ref(q, k, v, causal=causal, window=window or 0)
+            want = plain_attention(q, k, v, causal=causal, window=window or 0)
             torch.cuda.synchronize()
             diff = (got.float() - want.float()).abs()
             errs[case] = float(diff.max())
@@ -713,6 +774,66 @@ def main() -> int:
         time_forward(k1["whisper"], WHISPER, *slices.pop(WHISPER_CASES[0]), causal=False)
         if bad:
             raise AssertionError(f"K1 disagrees with attention_ref in {bad}")
+
+    def check_k1_long():
+        """K1 at llama3.2-1b's prefill_32k shape (``LLAMA_32K``): each batch
+        row's sampled query blocks ``ROWS_32K`` against the plain version
+        over the keys they see; then K1 and SDPA in turns, the bound, and
+        the plain version's time over those blocks."""
+        shape = LLAMA_32K
+        gen = torch.Generator(dev).manual_seed(4)
+        q, k, v = attention_inputs(gen, *shape.values(), "bfloat16")
+        before = dict(fa.flash_attention_cuda.routes)
+        got = fa.flash_attention_cuda(q, k, v, causal=True)
+        took = [r for r, n in fa.flash_attention_cuda.routes.items() if n != before[r]]
+
+        def plain_rows():
+            return [[ref.attention_ref(q[b:b + 1, lo:hi], k[b:b + 1, :hi], v[b:b + 1, :hi],
+                                       causal=True, q_start=lo) for lo, hi in ROWS_32K]
+                    for b in range(shape["B"])]
+
+        ok = took == ["wgmma"] and got.shape == (*q.shape[:3], shape["Dv"])
+        blocks = {f"{lo}-{hi}": {"max_abs_err": 0.0, "rel_err": 0.0} for lo, hi in ROWS_32K}
+        for b, row in enumerate(plain_rows()):
+            for (lo, hi), want in zip(ROWS_32K, row):
+                want = want.float()
+                d = got[b:b + 1, lo:hi].float() - want
+                block = blocks[f"{lo}-{hi}"]
+                block["max_abs_err"] = max(block["max_abs_err"], float(d.abs().max()))
+                block["rel_err"] = max(block["rel_err"], float(d.norm() / want.norm()))
+                ok &= bool((d.abs() <= TOL["bfloat16"] * (1 + want.abs())).all())
+        err = max(block["max_abs_err"] for block in blocks.values())
+        ok &= all(block["rel_err"] <= REL_32K for block in blocks.values())
+        for name, block in blocks.items():
+            print(f"  K1 at S 32768, query rows {name}: max |d| {block['max_abs_err']:.3e}, "
+                  f"largest ||d|| / ||ref|| over the batch rows {block['rel_err']:.3e} "
+                  f"(tol {REL_32K})")
+        qt, kt, vt = q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2)
+        mask = {"is_causal": True, "enable_gqa": True}
+        lib = F.scaled_dot_product_attention(qt, kt, vt, **mask).transpose(1, 2)
+        for lo, hi in ROWS_32K:
+            a, b = got[:, lo:hi].float(), lib[:, lo:hi].float()
+            ok &= bool(((a - b).abs() <= TOL["bfloat16"] * (1 + b.abs())).all())
+        del got, lib
+        times = in_turns([("kernel", lambda: fa.flash_attention_cuda(q, k, v, causal=True)),
+                          ("sdpa enable_gqa", lambda: F.scaled_dot_product_attention(
+                              qt, kt, vt, **mask))], 3)
+        entry = k1["llama_32k"] = {"shape": shape, "rows": ROWS_32K, "max_abs_err": err,
+                                   "blocks": blocks}
+        entry["ms"] = sum(times["kernel"]) / 2
+        entry["library_ms"] = sum(times["sdpa enable_gqa"]) / 2
+        entry["sdpa_backend"] = sdpa_backend(qt, kt, vt, **mask)
+        entry["plain_rows_ms"] = cuda_ms(plain_rows, 1, warmup=0)
+        entry["bound_ms"], entry["bound_by"] = attention_bound(
+            *shape.values(), 2, True, 0, PEAK_BF16_FLOPS)
+        print(f"  K1 at {shape} bf16 causal: route {took}, max_abs_err {err:.3e} on query rows "
+              f"{ROWS_32K} of every batch row (tol {TOL['bfloat16']}); in turns: "
+              + ", ".join(f"{name} {a:.4f}/{b:.4f} ms" for name, (a, b) in times.items())
+              + f" (SDPA backend {entry['sdpa_backend']}); plain over the sampled rows "
+              f"{entry['plain_rows_ms']:.4f} ms, bound {entry['bound_ms']:.4f} ms "
+              f"({entry['bound_by']}) {'ok' if ok else 'MISMATCH'}")
+        if not ok:
+            raise AssertionError(f"K1 disagrees with attention_ref or SDPA at {shape}")
 
     def projection_views(x, B, C):
         """x, B and C as views of one (b, s, h p + 2 g n) row, as
@@ -752,36 +873,44 @@ def main() -> int:
     def check_ssd():
         gen = torch.Generator(dev).manual_seed(0)
         bad, errs, timed = [], {}, {}
-        for case in SSD_SWEEP + SSD_MODEL_CASES + HYMBA_SSD_CASES:
+        for case in (SSD_SWEEP + SSD_MODEL_CASES + HYMBA_SSD_CASES
+                     + [SSD_32K_CASE, SSD_32K_CUT_CASE]):
             b, s, h, p, g, n, chunk, dtype = case
             cdt = getattr(torch, dtype)
             x, dt, A, B, C = bench_ssd.inputs(gen, dev, b, s, h, p, g, n, cdt)
-            if case == HYMBA_SSD_CASES[0]:
-                x, B, C = projection_views(x, B, C)   # 3232 wide: x at 0, B at 3200, C at 3216
+            if case in (HYMBA_SSD_CASES[0], SSD_32K_CUT_CASE):
+                # 3232 wide for hymba (x at 0, B at 3200, C at 3216), 3328 for mamba2
+                x, B, C = projection_views(x, B, C)
             want = ssd_route_wanted(p, n, chunk, dtype)
             before = dict(ssd.ssd_cuda.routes)
             y, st = ssd.ssd_cuda(x, dt, A, B, C, chunk=chunk)
             took = [r for r, k in ssd.ssd_cuda.routes.items() if k != before[r]]
-            wy, wst = ref.ssd_ref(x, dt, A, B, C, chunk=chunk)
-            torch.cuda.synchronize()
-            dy, ds = (y.float() - wy.float()).abs(), (st - wst).abs()
-            errs[case] = max(float(dy.max()), float(ds.max()))
-            ok = (bool((dy <= SSD_TOL[dtype] * (1 + wy.float().abs())).all())
-                  and bool((ds <= SSD_TOL["float32"] * (1 + wst.abs())).all())
-                  and took == [want] and ssd.ssd_route(x, B, C, chunk) == want)
+            ok = took == [want] and ssd.ssd_route(x, B, C, chunk) == want
+            ey = es = 0.0
+            for r in range(b):   # ssd_ref's f32 copies of a whole b = 16 batch take ~45 GB
+                wy, wst = ref.ssd_ref(x[r:r + 1], dt[r:r + 1], A, B[r:r + 1], C[r:r + 1],
+                                      chunk=chunk)
+                dy, ds = (y[r:r + 1].float() - wy.float()).abs(), (st[r:r + 1] - wst).abs()
+                ey, es = max(ey, float(dy.max())), max(es, float(ds.max()))
+                ok &= (bool((dy <= SSD_TOL[dtype] * (1 + wy.float().abs())).all())
+                       and bool((ds <= SSD_TOL["float32"] * (1 + wst.abs())).all()))
+            errs[case] = max(ey, es)
             print(f"  K3 b={b} s={s} h={h} p={p} g={g} n={n} chunk={chunk} {dtype}: route "
-                  f"{took} (want {want}), max_abs_err y {float(dy.max()):.3e} state "
-                  f"{float(ds.max()):.3e} tol {SSD_TOL[dtype]}/{SSD_TOL['float32']} "
-                  f"{'ok' if ok else 'MISMATCH'}")
+                  f"{took} (want {want}), max_abs_err y {ey:.3e} state {es:.3e} tol "
+                  f"{SSD_TOL[dtype]}/{SSD_TOL['float32']} {'ok' if ok else 'MISMATCH'}")
             if not ok:
                 bad.append(case)
-            if case in (SSD_MODEL_CASES[0], HYMBA_SSD_CASES[0]):
+            if case in (SSD_MODEL_CASES[0], HYMBA_SSD_CASES[0], SSD_32K_CASE):
                 timed[case] = x, dt, A, B, C
+            del x, dt, A, B, C, y, st, wy, wst, dy, ds
         k3["max_abs_err"] = errs[SSD_MODEL_CASES[0]]   # at the serving prefill shape
         time_ssd(k3, SSD_SLICE, timed[SSD_MODEL_CASES[0]])
         k3["hymba"] = {"shape": HYMBA_SSD, "layout": "views of one 3232-wide row",
                        "max_abs_err": errs[HYMBA_SSD_CASES[0]]}
         time_ssd(k3["hymba"], HYMBA_SSD, timed[HYMBA_SSD_CASES[0]])
+        k3["mamba2_32k"] = {"shape": SSD_32K, "max_abs_err": errs[SSD_32K_CASE],
+                            "max_abs_err_b16_views": errs[SSD_32K_CUT_CASE]}
+        time_ssd(k3["mamba2_32k"], SSD_32K, timed.pop(SSD_32K_CASE))
         if bad:
             raise AssertionError(f"K3 disagrees with ssd_ref in {bad}")
 
@@ -848,9 +977,7 @@ def main() -> int:
             got = fa.flash_attention_bwd_cuda(q, k, v, o, lse, do, causal=causal,
                                               window=window)
             took = [r for r, n in fa.flash_attention_bwd_cuda.routes.items() if n != before[r]]
-            leaves = [t.clone().requires_grad_() for t in (q, k, v)]
-            want = torch.autograd.grad(
-                ref.attention_ref(*leaves, causal=causal, window=window or 0), leaves, do)
+            want = plain_grads(q, k, v, do, causal=causal, window=window or 0)
             torch.cuda.synchronize()
             err, ok = 0.0, took == [want_route]
             for g, w in zip(got, want):
@@ -865,7 +992,7 @@ def main() -> int:
                 bad.append(case)
             if case in (BWD_CASES[0], MLA_BWD_CASES[0], GRANITE_BWD_CASES[0]):
                 timed[case] = q, k, v, o, lse, do
-            del want, leaves, got
+            del want, got
         k1b["max_abs_err"] = errs[BWD_CASES[0]]    # at llama's training shape
         k1b["mla"] = {"shape": MLA, "max_abs_err": errs[MLA_BWD_CASES[0]]}
         k1b["hymba"] = {"shape": HYMBA, "window": HYMBA_WINDOW,
@@ -925,6 +1052,7 @@ def main() -> int:
             raise AssertionError(f"K2 differs from quantize_ref in {bad}")
 
     phase("kernels K1", check_kernels)
+    phase("kernels K1 at prefill_32k", check_k1_long)
     phase("kernels K1 backward", check_attention_bwd)
     phase("kernels K2", check_quantize)
     phase("kernels K3", check_ssd)
@@ -1302,6 +1430,109 @@ def main() -> int:
     # LayerNorms, self and cross GQA, the MLP)
     phase("train whisper-small SMOKE", lambda: train_smoke("whisper-small", 36))
     phase("train loop SMOKE", train_loop_smoke)
+
+    # --------------------------------------------------------------- shapes
+    def run_shape_cell(arch, shape_name, steps):
+        """One cell of the JAX package's assigned shapes on the card, through
+        configs/shapes.py and train/steps.py (``dryrun.card_record``): at the
+        shape's batch or, when that runs out of memory, the largest power of
+        two below it that runs; ``steps`` steps, exact launches a step, every
+        K1 and K3 launch on its wgmma route, finite outputs."""
+        cfg, full = get_config(arch), SHAPES[shape_name]
+        batch = full.batch
+        while True:
+            shape = scale_shape(full, batch=batch)
+            zero_counts()
+            try:
+                rec = dryrun.card_record(cfg, shape, reps=steps)
+                break
+            except torch.OutOfMemoryError:
+                pass
+            gc.collect()
+            torch.cuda.empty_cache()
+            if batch == 1:
+                raise AssertionError(f"{arch} {shape_name} does not run at batch 1")
+            print(f"  {arch} {shape_name}: batch {batch} runs out of the card's memory")
+            batch //= 2
+        counts = read_counts(f"{shape_name} {arch}")
+        routes = {"k1": dict(fa.flash_attention_cuda.routes),
+                  "k1b": dict(fa.flash_attention_bwd_cuda.routes),
+                  "k3": dict(ssd.ssd_cuda.routes)}
+        own = ARCHS[arch] if full.kind != "decode" else ()   # decode attends in plain torch
+        per_step = {"k1": (k1_train_calls if full.kind == "train" else k1_calls)(cfg)
+                    if "k1" in own else 0,
+                    "k1b": k1_calls(cfg) if full.kind == "train" else 0, "k2": 0,
+                    "k3": cfg.n_layers if "k3" in own else 0}
+        want = {key: steps * n for key, n in per_step.items()}
+        cells[(arch, shape_name)] = {"batch": batch, "full_batch": full.batch, "seq": full.seq,
+                                     **{k: rec[k] for k in ("step_ms", "peak_bytes", "launches",
+                                                            "resident_bytes", "cache_bytes",
+                                                            "outputs")}}
+        print(f"  shape cell {arch} {shape_name}: seq {full.seq}, batch {batch} of {full.batch}"
+              f"{' (cut)' if batch < full.batch else ''}, {rec['outputs']}, {steps} steps "
+              + ", ".join(f"{t:.2f}" for t in rec["step_ms"]) + " ms, peak "
+              f"{rec['peak_bytes'] / 2**30:.2f} GiB (state, inputs, cache and outputs "
+              f"{rec['resident_bytes'] / 2**30:.2f} GiB), launches {counts}, routes "
+              f"{ {k: v for k, v in routes.items() if any(v.values())} }")
+        assert counts == want, f"{arch} {shape_name}: launches {counts}, want {want}"
+        for key in ("k1", "k1b", "k3"):
+            if want[key]:
+                assert routes[key] == {**dict.fromkeys(routes[key], 0), "wgmma": want[key]}, (
+                    key, routes[key])
+        assert rec["finite"], f"{arch} {shape_name}: non-finite output"
+        assert full.kind == "train" or rec["output_shape"] == (batch, 1, cfg.vocab), rec["outputs"]
+        torch.cuda.empty_cache()
+
+    def train_e2e_100m():
+        """examples/torch_train_e2e.py --preset 100m on the card: K1 and its
+        backward on the wgmma route, checkpoints through NVCache."""
+        spec = importlib.util.spec_from_file_location(
+            "torch_train_e2e", Path(__file__).resolve().parent / "examples" / "torch_train_e2e.py")
+        e2e = importlib.util.module_from_spec(spec)
+        spec.loader.exec_module(e2e)
+        zero_counts()
+        out = e2e.main(["--preset", "100m", "--steps", str(E2E_STEPS),
+                        "--ckpt-every", str(E2E_CKPT_EVERY)])
+        counts = read_counts("torch_train_e2e 100m")
+        n = E2E_STEPS * e2e.PRESETS["100m"]["n_layers"]
+        want = {"k1": 2 * n, "k1b": n, "k2": 0, "k3": 0}
+        warm = [h["step_time"] for h in out["history"][1:]]
+        cells["e2e_100m"] = {"steps": out["steps"], "first_loss": out["first_loss"],
+                             "last_loss": out["last_loss"], "mean_step_s": out["step_s"],
+                             "warm_step_ms": sum(warm) / len(warm) * 1e3,
+                             "first_step_ms": out["history"][0]["step_time"] * 1e3}
+        print(f"  torch_train_e2e --preset 100m: {out['steps']} steps, loss "
+              f"{out['first_loss']:.4f} -> {out['last_loss']:.4f}, warm step "
+              f"{cells['e2e_100m']['warm_step_ms']:.2f} ms (first "
+              f"{cells['e2e_100m']['first_step_ms']:.2f}), launches {counts}, routes "
+              f"{fa.flash_attention_cuda.routes} / {fa.flash_attention_bwd_cuda.routes}")
+        assert counts == want, (counts, want)
+        assert fa.flash_attention_cuda.routes["wgmma"] == want["k1"]
+        assert fa.flash_attention_bwd_cuda.routes["wgmma"] == want["k1b"]
+        assert out["steps"] == E2E_STEPS and out["last_loss"] < out["first_loss"]
+
+    def checkpoint_bench():
+        """launch/ckpt_bench.py from a CUDA state: save latency by stack,
+        the restore copied back onto the card and held to the state."""
+        rows = ckpt_bench.run(CKPT_MIB, device="cuda")
+        cells["ckpt_bench"] = rows
+        for r in rows:
+            print(f"  ckpt_bench {r['stack']}: state {r['state_bytes'] / 2**20:.1f} MiB on the "
+                  f"card, save {r['save_s']:.4f} s ({r['save_mib_s']:.1f} MiB/s), drain "
+                  f"{r['drain_s']:.4f} s, {r['bytes'] / 2**20:.1f} MiB written, restore "
+                  f"{'exact' if r['restore_ok'] else 'MISMATCH'}")
+        assert [r["stack"] for r in rows] == ["blob-sync", "nvcache", "page-cache-unsafe",
+                                              "nvcache+int8"]
+        assert all(r["restore_ok"] for r in rows), rows
+
+    cells = {}
+    for arch, shape_name, steps in SHAPE_CELLS:
+        phase(f"shapes {arch} {shape_name}",
+              lambda: run_shape_cell(arch, shape_name, steps))
+    phase("shapes torch_train_e2e 100m", train_e2e_100m)
+    phase("shapes ckpt_bench", checkpoint_bench)
+    print(json.dumps({"shape_cells": {" ".join(k) if isinstance(k, tuple) else k: v
+                                      for k, v in cells.items()}}))
 
     print(json.dumps({"kernels": [k1, k1b, k2, k3]}))
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",

@@ -482,7 +482,7 @@ __global__ void __launch_bounds__(WG) ssd_chunk_state(Params p) {
       *reinterpret_cast<float2*>(U + (16 * warp + g + 8 * rr) * p.N + n) =
           make_float2(acc[4 * jb + 2 * rr], acc[4 * jb + 2 * rr + 1]);
   }
-  if (tid == 0) p.decay[bh * p.nc + c] = expf(static_cast<float>(total));
+  if (tid == 0) p.decay[static_cast<long long>(bh) * p.nc + c] = expf(static_cast<float>(total));
 }
 
 // Per (batch * head), 8 consecutive state elements a thread: walks the
@@ -496,7 +496,7 @@ __global__ void __launch_bounds__(WG) ssd_carry(Params p) {
   const int bh = blockIdx.x, PN = TILE * p.N;
   const int e = (blockIdx.y * WG + threadIdx.x) * 8;
   float* slot = p.states + static_cast<long long>(bh) * p.nc * PN + e;
-  const float* dec = p.decay + bh * p.nc;
+  const float* dec = p.decay + static_cast<long long>(bh) * p.nc;
   float s[8] = {};
   for (int c0 = 0; c0 < p.nc; c0 += AHEAD) {
     float4 u[AHEAD][2];

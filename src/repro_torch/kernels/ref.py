@@ -16,18 +16,20 @@ import torch
 # ------------------------------------------------------------ attention ref
 
 def attention_ref(q, k, v, *, causal: bool = True, window: int = 0,
-                  scale: Optional[float] = None):
+                  scale: Optional[float] = None, q_start: int = 0):
     """Materialized-scores attention. q: (B,Sq,H,D); k/v: (B,Skv,KV,Dk/Dv).
-    A query that sees no key gives 0, as the kernels do (``repro.kernels.ref``
-    gives NaN there).  Differentiable: autograd through it is the plain
-    version of the backward kernels (``csrc/flash_attention_bwd.cu``)."""
+    Query i sits at position ``q_start + i`` among the keys' 0..Skv-1 for
+    the masks (a block of rows of a longer sequence).  A query that sees no
+    key gives 0, as the kernels do (``repro.kernels.ref`` gives NaN there).
+    Differentiable: autograd through it is the plain version of the
+    backward kernels (``csrc/flash_attention_bwd.cu``)."""
     B, Sq, H, D = q.shape
     _, Skv, KV, _ = k.shape
     G = H // KV
     qg = q.reshape(B, Sq, KV, G, D).float()
     s = torch.einsum("bqkgd,bjkd->bkgqj", qg, k.float())
     s = s * (scale if scale is not None else 1.0 / (D ** 0.5))
-    iq = torch.arange(Sq, device=q.device)[:, None]
+    iq = q_start + torch.arange(Sq, device=q.device)[:, None]
     jk = torch.arange(Skv, device=q.device)[None, :]
     mask = torch.ones((Sq, Skv), dtype=torch.bool, device=q.device)
     if causal:

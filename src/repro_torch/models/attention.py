@@ -7,18 +7,19 @@ import torch
 
 from repro_torch.kernels import ops
 from repro_torch.models.common import ModelConfig
-from repro_torch.models.layers import apply_rope, decode_attention, dense_init, rmsnorm
+from repro_torch.models.layers import (apply_rope, decode_attention, dense_init,
+                                       rmsnorm)
 
 
 # =============================================================== GQA / MQA
 
-def gqa_init(cfg: ModelConfig, gen: torch.Generator):
+def gqa_init(cfg: ModelConfig, gen: torch.Generator, device):
     d, H, KV, hd = cfg.d_model, cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
     return {
-        "wq": dense_init(gen, (d, H * hd), d, cfg.pdt),
-        "wk": dense_init(gen, (d, KV * hd), d, cfg.pdt),
-        "wv": dense_init(gen, (d, KV * hd), d, cfg.pdt),
-        "wo": dense_init(gen, (H * hd, d), H * hd, cfg.pdt),
+        "wq": dense_init(gen, (d, H * hd), d, cfg.pdt, device),
+        "wk": dense_init(gen, (d, KV * hd), d, cfg.pdt, device),
+        "wv": dense_init(gen, (d, KV * hd), d, cfg.pdt, device),
+        "wo": dense_init(gen, (H * hd, d), H * hd, cfg.pdt, device),
     }
 
 
@@ -70,18 +71,18 @@ def gqa_decode(cfg: ModelConfig, p, x, kc, vc, pos, rope=None, *, window=None):
 
 # ===================================================================== MLA
 
-def mla_init(cfg: ModelConfig, gen: torch.Generator):
+def mla_init(cfg: ModelConfig, gen: torch.Generator, device):
     d, H = cfg.d_model, cfg.n_heads
     qr, kvr = cfg.q_lora_rank, cfg.kv_lora_rank
     nd, rd, vd = cfg.qk_nope_dim, cfg.qk_rope_dim, cfg.v_head_dim
     return {
-        "wq_a": dense_init(gen, (d, qr), d, cfg.pdt),
-        "q_norm": torch.ones((qr,), dtype=cfg.pdt, device=gen.device),
-        "wq_b": dense_init(gen, (qr, H * (nd + rd)), qr, cfg.pdt),
-        "wkv_a": dense_init(gen, (d, kvr + rd), d, cfg.pdt),
-        "kv_norm": torch.ones((kvr,), dtype=cfg.pdt, device=gen.device),
-        "wkv_b": dense_init(gen, (kvr, H * (nd + vd)), kvr, cfg.pdt),
-        "wo": dense_init(gen, (H * vd, d), H * vd, cfg.pdt),
+        "wq_a": dense_init(gen, (d, qr), d, cfg.pdt, device),
+        "q_norm": torch.ones((qr,), dtype=cfg.pdt, device=device),
+        "wq_b": dense_init(gen, (qr, H * (nd + rd)), qr, cfg.pdt, device),
+        "wkv_a": dense_init(gen, (d, kvr + rd), d, cfg.pdt, device),
+        "kv_norm": torch.ones((kvr,), dtype=cfg.pdt, device=device),
+        "wkv_b": dense_init(gen, (kvr, H * (nd + vd)), kvr, cfg.pdt, device),
+        "wo": dense_init(gen, (H * vd, d), H * vd, cfg.pdt, device),
     }
 
 

@@ -26,7 +26,7 @@ from torch.profiler import record_function
 from repro_torch.kernels import ops
 from repro_torch.models import attention as attn
 from repro_torch.models.common import ModelConfig
-from repro_torch.models.layers import decode_attention, dense_init, layernorm
+from repro_torch.models.layers import decode_attention, dense_init, init_device, layernorm
 from repro_torch.models.lm import check_ported, init_stacked, unstack
 
 CROSS_SPAN = "encdec.cross_attention"
@@ -49,36 +49,38 @@ def _ln_init(cfg, device):
             "b": torch.zeros((cfg.d_model,), dtype=cfg.pdt, device=device)}
 
 
-def _mlp_init(cfg, gen):
+def _mlp_init(cfg, gen, device):
     d, f = cfg.d_model, cfg.d_ff
-    return {"w1": dense_init(gen, (d, f), d, cfg.pdt),
-            "b1": torch.zeros((f,), dtype=cfg.pdt, device=gen.device),
-            "w2": dense_init(gen, (f, d), f, cfg.pdt),
-            "b2": torch.zeros((d,), dtype=cfg.pdt, device=gen.device)}
+    return {"w1": dense_init(gen, (d, f), d, cfg.pdt, device),
+            "b1": torch.zeros((f,), dtype=cfg.pdt, device=device),
+            "w2": dense_init(gen, (f, d), f, cfg.pdt, device),
+            "b2": torch.zeros((d,), dtype=cfg.pdt, device=device)}
 
 
-def _enc_layer_init(cfg, gen):
-    return {"ln1": _ln_init(cfg, gen.device), "attn": attn.gqa_init(cfg, gen),
-            "ln2": _ln_init(cfg, gen.device), "mlp": _mlp_init(cfg, gen)}
+def _enc_layer_init(cfg, gen, device):
+    return {"ln1": _ln_init(cfg, device), "attn": attn.gqa_init(cfg, gen, device),
+            "ln2": _ln_init(cfg, device), "mlp": _mlp_init(cfg, gen, device)}
 
 
-def _dec_layer_init(cfg, gen):
-    return {"ln1": _ln_init(cfg, gen.device), "self": attn.gqa_init(cfg, gen),
-            "ln2": _ln_init(cfg, gen.device), "cross": attn.gqa_init(cfg, gen),
-            "ln3": _ln_init(cfg, gen.device), "mlp": _mlp_init(cfg, gen)}
+def _dec_layer_init(cfg, gen, device):
+    return {"ln1": _ln_init(cfg, device), "self": attn.gqa_init(cfg, gen, device),
+            "ln2": _ln_init(cfg, device), "cross": attn.gqa_init(cfg, gen, device),
+            "ln3": _ln_init(cfg, device), "mlp": _mlp_init(cfg, gen, device)}
 
 
-def init_encdec(cfg: ModelConfig, gen: torch.Generator):
-    """Random parameters drawn from ``gen`` on ``gen.device``: the
+def init_encdec(cfg: ModelConfig, gen: torch.Generator, device=None):
+    """Random parameters drawn from ``gen`` on ``device`` (default
+    ``gen.device``; on ``meta`` only their shapes and dtypes): the
     embedding, the decoder's position table (0.02·N(0, 1), as the JAX model
     draws it), the encoder's layers, then the decoder's, in that order."""
     check_ported(cfg)
-    params = {"embed": dense_init(gen, (cfg.vocab, cfg.d_model), cfg.d_model, cfg.pdt)}
-    table = torch.randn((cfg.max_positions, cfg.d_model), generator=gen, device=gen.device)
+    device = init_device(gen, device)
+    params = {"embed": dense_init(gen, (cfg.vocab, cfg.d_model), cfg.d_model, cfg.pdt, device)}
+    table = torch.randn((cfg.max_positions, cfg.d_model), generator=gen, device=device)
     params["dec_pos"] = (0.02 * table).to(cfg.pdt)
-    params["enc_layers"] = init_stacked(cfg.enc_layers, lambda: _enc_layer_init(cfg, gen))
-    params["dec_layers"] = init_stacked(cfg.dec_layers, lambda: _dec_layer_init(cfg, gen))
-    params["enc_ln"], params["dec_ln"] = _ln_init(cfg, gen.device), _ln_init(cfg, gen.device)
+    params["enc_layers"] = init_stacked(cfg.enc_layers, lambda: _enc_layer_init(cfg, gen, device))
+    params["dec_layers"] = init_stacked(cfg.dec_layers, lambda: _dec_layer_init(cfg, gen, device))
+    params["enc_ln"], params["dec_ln"] = _ln_init(cfg, device), _ln_init(cfg, device)
     return params
 
 

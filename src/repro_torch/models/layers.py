@@ -15,9 +15,15 @@ import torch.nn.functional as F
 
 # --------------------------------------------------------------------- init
 
-def dense_init(gen: torch.Generator, shape, in_dim, dtype):
-    """Normal(0, 1/in_dim) weights drawn from ``gen`` on ``gen.device``."""
-    x = torch.randn(shape, generator=gen, device=gen.device, dtype=torch.float32)
+def init_device(gen: torch.Generator, device=None) -> torch.device:
+    """The device parameters are made on: ``device``, by default the
+    generator's.  On ``meta`` nothing is drawn or allocated."""
+    return gen.device if device is None else torch.device(device)
+
+
+def dense_init(gen: torch.Generator, shape, in_dim, dtype, device):
+    """Normal(0, 1/in_dim) weights drawn from ``gen`` on ``device``."""
+    x = torch.randn(shape, generator=gen, device=device, dtype=torch.float32)
     return (x / math.sqrt(in_dim)).to(dtype)
 
 

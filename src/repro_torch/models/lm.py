@@ -24,8 +24,8 @@ from repro_torch.models import attention as attn
 from repro_torch.models import moe as moe_mod
 from repro_torch.models import ssm as ssm_mod
 from repro_torch.models.common import ModelConfig
-from repro_torch.models.layers import (dense_init, mrope_cos_sin, rmsnorm, rope_cos_sin,
-                                       swiglu)
+from repro_torch.models.layers import (dense_init, init_device, mrope_cos_sin, rmsnorm,
+                                       rope_cos_sin, swiglu)
 
 NEG_WINDOW_OFF = 1 << 30   # "window" value that disables windowing
 FAMILIES = ("dense", "vlm", "moe", "ssm", "hybrid", "encdec")
@@ -69,29 +69,29 @@ def check_ported(cfg: ModelConfig):
 
 # ------------------------------------------------------------------- params
 
-def _layer_init(cfg: ModelConfig, gen):
-    norm1 = torch.ones((cfg.d_model,), dtype=cfg.pdt, device=gen.device)
+def _layer_init(cfg: ModelConfig, gen, device):
+    norm1 = torch.ones((cfg.d_model,), dtype=cfg.pdt, device=device)
     if cfg.family == "ssm":
-        return {"norm1": norm1, "ssm": ssm_mod.ssm_init(cfg, gen)}
+        return {"norm1": norm1, "ssm": ssm_mod.ssm_init(cfg, gen, device)}
     p = {"norm1": norm1,
-         "attn": (attn.mla_init if cfg.attn_kind == "mla" else attn.gqa_init)(cfg, gen),
-         "norm2": torch.ones((cfg.d_model,), dtype=cfg.pdt, device=gen.device)}
+         "attn": (attn.mla_init if cfg.attn_kind == "mla" else attn.gqa_init)(cfg, gen, device),
+         "norm2": torch.ones((cfg.d_model,), dtype=cfg.pdt, device=device)}
     if cfg.family == "moe":
-        p["moe"] = moe_mod.moe_init(cfg, gen)
+        p["moe"] = moe_mod.moe_init(cfg, gen, device)
     if cfg.family != "moe" or cfg.dense_residual:
-        p["mlp"] = _mlp_init(cfg, gen)
+        p["mlp"] = _mlp_init(cfg, gen, device)
     if cfg.family == "hybrid":
-        p["ssm"] = ssm_mod.ssm_init(cfg, gen)
-        p["fuse_a"] = torch.full((cfg.d_model,), 0.5, dtype=cfg.pdt, device=gen.device)
-        p["fuse_s"] = torch.full((cfg.d_model,), 0.5, dtype=cfg.pdt, device=gen.device)
+        p["ssm"] = ssm_mod.ssm_init(cfg, gen, device)
+        p["fuse_a"] = torch.full((cfg.d_model,), 0.5, dtype=cfg.pdt, device=device)
+        p["fuse_s"] = torch.full((cfg.d_model,), 0.5, dtype=cfg.pdt, device=device)
     return p
 
 
-def _mlp_init(cfg, gen):
+def _mlp_init(cfg, gen, device):
     d, f = cfg.d_model, cfg.d_ff
-    return {"wg": dense_init(gen, (d, f), d, cfg.pdt),
-            "wu": dense_init(gen, (d, f), d, cfg.pdt),
-            "wd": dense_init(gen, (f, d), f, cfg.pdt)}
+    return {"wg": dense_init(gen, (d, f), d, cfg.pdt, device),
+            "wu": dense_init(gen, (d, f), d, cfg.pdt, device),
+            "wd": dense_init(gen, (f, d), f, cfg.pdt, device)}
 
 
 def init_stacked(n: int, draw):
@@ -129,21 +129,23 @@ def unstack(tree, n: int):
     return [{k: v[i] for k, v in per_leaf.items()} for i in range(n)]
 
 
-def init_lm(cfg: ModelConfig, gen: torch.Generator):
-    """Random parameters drawn from ``gen`` on ``gen.device``: the
+def init_lm(cfg: ModelConfig, gen: torch.Generator, device=None):
+    """Random parameters drawn from ``gen`` on ``device`` (default
+    ``gen.device``; on ``meta`` only their shapes and dtypes): the
     embedding, the layers, the unembedding (untied) and the learned
     position table (0.02·N(0, 1), as the JAX model draws it), in that
     order."""
     check_ported(cfg)
+    device = init_device(gen, device)
     params = {
-        "embed": dense_init(gen, (cfg.vocab, cfg.d_model), cfg.d_model, cfg.pdt),
-        "final_norm": torch.ones((cfg.d_model,), dtype=cfg.pdt, device=gen.device),
-        "layers": init_stacked(cfg.n_layers, lambda: _layer_init(cfg, gen)),
+        "embed": dense_init(gen, (cfg.vocab, cfg.d_model), cfg.d_model, cfg.pdt, device),
+        "final_norm": torch.ones((cfg.d_model,), dtype=cfg.pdt, device=device),
+        "layers": init_stacked(cfg.n_layers, lambda: _layer_init(cfg, gen, device)),
     }
     if not cfg.tie_embeddings:
-        params["unembed"] = dense_init(gen, (cfg.d_model, cfg.vocab), cfg.d_model, cfg.pdt)
+        params["unembed"] = dense_init(gen, (cfg.d_model, cfg.vocab), cfg.d_model, cfg.pdt, device)
     if cfg.pos == "learned":
-        table = torch.randn((cfg.max_positions, cfg.d_model), generator=gen, device=gen.device)
+        table = torch.randn((cfg.max_positions, cfg.d_model), generator=gen, device=device)
         params["pos_table"] = (0.02 * table).to(cfg.pdt)
     return params
 

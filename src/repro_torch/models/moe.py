@@ -35,14 +35,14 @@ from repro_torch.models.layers import dense_init
 _drops = None   # while count_drops() is open: each call's dropped pairs, on the device
 
 
-def moe_init(cfg: ModelConfig, gen: torch.Generator):
+def moe_init(cfg: ModelConfig, gen: torch.Generator, device):
     """router (d, E) float32 whatever ``cfg.param_dtype`` is, as JAX draws it;
     the experts' wg, wu (E, d, f) and wd (E, f, d) in ``cfg.pdt``."""
     d, E, f = cfg.d_model, cfg.n_experts, cfg.d_expert
-    return {"router": dense_init(gen, (d, E), d, torch.float32),
-            "wg": dense_init(gen, (E, d, f), d, cfg.pdt),
-            "wu": dense_init(gen, (E, d, f), d, cfg.pdt),
-            "wd": dense_init(gen, (E, f, d), f, cfg.pdt)}
+    return {"router": dense_init(gen, (d, E), d, torch.float32, device),
+            "wg": dense_init(gen, (E, d, f), d, cfg.pdt, device),
+            "wu": dense_init(gen, (E, d, f), d, cfg.pdt, device),
+            "wd": dense_init(gen, (E, f, d), f, cfg.pdt, device)}
 
 
 def moe_capacity(cfg: ModelConfig, group_len: int) -> int:

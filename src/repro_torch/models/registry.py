@@ -10,7 +10,7 @@ from repro_torch.models.common import ModelConfig
 
 class Model(NamedTuple):
     cfg: ModelConfig
-    init: Callable              # generator -> params (on the generator's device)
+    init: Callable              # (generator[, device]) -> params (default: the generator's device)
     forward: Callable           # (params, batch) -> (logits, aux)
     loss: Callable              # (params, batch) -> (loss, metrics)
     prefill: Callable           # (params, batch, max_len) -> (logits, cache)
@@ -26,7 +26,7 @@ def build(cfg: ModelConfig) -> Model:
     if cfg.family == "encdec":
         return Model(
             cfg=cfg,
-            init=lambda gen: _encdec.init_encdec(cfg, gen),
+            init=lambda gen, device=None: _encdec.init_encdec(cfg, gen, device),
             forward=lambda p, b: _encdec.forward(cfg, p, b["frames"], b["dec_tokens"]),
             loss=lambda p, b: _encdec.loss_fn(cfg, p, b),
             prefill=lambda p, b, max_len: _encdec.prefill(
@@ -37,7 +37,7 @@ def build(cfg: ModelConfig) -> Model:
         )
     return Model(
         cfg=cfg,
-        init=lambda gen: _lm.init_lm(cfg, gen),
+        init=lambda gen, device=None: _lm.init_lm(cfg, gen, device),
         forward=lambda p, b: _lm.forward(cfg, p, b["tokens"], b.get("positions")),
         loss=lambda p, b: _lm.loss_fn(cfg, p, b),
         prefill=lambda p, b, max_len: _lm.prefill(

@@ -21,20 +21,20 @@ def _dims(cfg: ModelConfig):
     return di, g, n, h, conv_dim
 
 
-def ssm_init(cfg: ModelConfig, gen: torch.Generator):
+def ssm_init(cfg: ModelConfig, gen: torch.Generator, device):
     di, g, n, h, conv_dim = _dims(cfg)
-    d, dev = cfg.d_model, gen.device
-    in_proj = dense_init(gen, (d, 2 * di + 2 * g * n + h), d, cfg.pdt)
-    conv_w = dense_init(gen, (cfg.ssm_conv, conv_dim), cfg.ssm_conv, cfg.pdt)
-    out_proj = dense_init(gen, (di, d), di, cfg.pdt)
+    d = cfg.d_model
+    in_proj = dense_init(gen, (d, 2 * di + 2 * g * n + h), d, cfg.pdt, device)
+    conv_w = dense_init(gen, (cfg.ssm_conv, conv_dim), cfg.ssm_conv, cfg.pdt, device)
+    out_proj = dense_init(gen, (di, d), di, cfg.pdt, device)
     return {
         "in_proj": in_proj,
         "conv_w": conv_w,
-        "conv_b": torch.zeros((conv_dim,), dtype=cfg.pdt, device=dev),
-        "A_log": torch.log(torch.linspace(1.0, 16.0, h, device=dev)).to(cfg.pdt),
-        "D": torch.ones((h,), dtype=cfg.pdt, device=dev),
-        "dt_bias": torch.zeros((h,), dtype=cfg.pdt, device=dev),
-        "gnorm": torch.ones((di,), dtype=cfg.pdt, device=dev),
+        "conv_b": torch.zeros((conv_dim,), dtype=cfg.pdt, device=device),
+        "A_log": torch.log(torch.linspace(1.0, 16.0, h, device=device)).to(cfg.pdt),
+        "D": torch.ones((h,), dtype=cfg.pdt, device=device),
+        "dt_bias": torch.zeros((h,), dtype=cfg.pdt, device=device),
+        "gnorm": torch.ones((di,), dtype=cfg.pdt, device=device),
         "out_proj": out_proj,
     }
 

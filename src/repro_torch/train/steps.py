@@ -2,8 +2,11 @@
 
 The train step takes the loss's gradient with autograd (attention through
 the backward kernel on the card), optionally int8-compresses every gradient
-leaf (K2 on the card), and applies AdamW in place.  The sharding builders
-come with the distribution slice."""
+leaf (K2 on the card), and applies AdamW in place.  The prefill and serve
+steps are the model's own entry points; ``abstract_train_state`` is the
+train state on ``meta`` (the counterpart of ``jax.eval_shape``), which the
+dry run (``launch/dryrun.py``) steps through.  The sharding builders come
+with the distribution slice."""
 from __future__ import annotations
 
 import torch
@@ -13,10 +16,17 @@ from repro_torch.optim import grad_compress
 from repro_torch.optim.adamw import AdamW, tree_leaves
 
 
-def init_train_state(model: Model, optimizer: AdamW, gen: torch.Generator):
-    """{"params", "opt"} on ``gen.device``, parameters drawn from ``gen``."""
-    params = model.init(gen)
+def init_train_state(model: Model, optimizer: AdamW, gen: torch.Generator, device=None):
+    """{"params", "opt"} on ``device`` (default ``gen.device``), parameters
+    drawn from ``gen``."""
+    params = model.init(gen, device)
     return {"params": params, "opt": optimizer.init(params)}
+
+
+def abstract_train_state(model: Model, optimizer: AdamW):
+    """The train state's shapes and dtypes as ``meta`` tensors: no memory
+    is allocated and nothing is drawn."""
+    return init_train_state(model, optimizer, torch.Generator().manual_seed(0), "meta")
 
 
 def _unflatten_like(tree, it):
@@ -49,3 +59,19 @@ def make_train_step(model: Model, optimizer: AdamW, *, compress: bool = False):
 
     return step
 
+
+
+def make_prefill_step(model: Model, max_len: int):
+    """``step(params, batch) -> (last logits, cache)``, the cache sized to
+    ``max_len``."""
+    def step(params, batch):
+        return model.prefill(params, batch, max_len)
+    return step
+
+
+def make_serve_step(model: Model):
+    """``step(params, cache, tokens) -> (logits, cache)``: one decode step;
+    the cache's tensors are updated in place."""
+    def step(params, cache, tokens):
+        return model.decode_step(params, cache, tokens)
+    return step

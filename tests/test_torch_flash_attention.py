@@ -126,6 +126,34 @@ def test_cpu_path_matches_pallas_at_mla_head_dims(jx, D, Dv, causal, window):
     np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=1e-5, atol=1e-5)
 
 
+@pytest.mark.parametrize("causal,window", [(True, 0), (True, 7), (False, 0)])
+def test_plain_rows_from_q_start_equal_the_full_rows(causal, window):
+    """``attention_ref(q_start=lo)`` over the keys a block of rows sees
+    equals those rows of the whole attention: the row-sampled plain version
+    ``chip_smoke.py`` holds K1 to at S 32768."""
+    q, k, v = (torch.from_numpy(a) for a in _inputs(2, 40, 40, 4, 2, 16, seed=5))
+    full = tref.attention_ref(q, k, v, causal=causal, window=window)
+    for lo, hi in ((0, 8), (13, 29), (32, 40)):
+        keys = hi if causal else 40
+        rows = tref.attention_ref(q[:, lo:hi], k[:, :keys], v[:, :keys], causal=causal,
+                                  window=window, q_start=lo)
+        torch.testing.assert_close(rows, full[:, lo:hi], rtol=1e-6, atol=1e-6)
+
+
+def test_meta_tensors_take_the_plain_route():
+    """The dry run's route: meta q, k, v go to the plain version (shapes
+    only), as CPU tensors do; the CUDA wrapper is never reached."""
+    q, k, v = (torch.empty(s, device="meta") for s in ((2, 64, 8, 32), (2, 64, 2, 32),
+                                                        (2, 64, 2, 16)))
+    out = ops.flash_attention(q, k, v, causal=True)
+    assert out.device.type == "meta" and out.shape == (2, 64, 8, 16)
+    x = torch.empty((1, 32, 4, 8), device="meta")
+    y, st = ops.ssd(x, torch.empty((1, 32, 4), device="meta"), torch.empty(4, device="meta"),
+                    torch.empty((1, 32, 1, 16), device="meta"),
+                    torch.empty((1, 32, 1, 16), device="meta"), chunk=16)
+    assert y.shape == x.shape and st.shape == (1, 4, 8, 16) and st.device.type == "meta"
+
+
 def test_wrapper_refuses_head_dims_it_has_no_kernel_for():
     """Head dims above 128 (no config of the repo has one), and bfloat16
     head dims that are not multiples of 8 (rows of 16 bytes), raise before

@@ -165,7 +165,7 @@ def test_full_width_prefill_hands_k3_the_projection_views(monkeypatch):
     aligned, strides multiples of 8, so a bfloat16 prefill takes the wgmma
     route and reads them in place."""
     cfg = get_config(ARCH)
-    params = tssm.ssm_init(cfg, torch.Generator(CPU).manual_seed(0))
+    params = tssm.ssm_init(cfg, torch.Generator(CPU).manual_seed(0), CPU)
     seen = []
 
     def spy(x, dt, A, B, C, *, chunk):

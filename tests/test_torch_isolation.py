@@ -1,6 +1,7 @@
 """The port stands alone: nothing under ``src/repro_torch/`` (nor
-``chip_smoke.py``) imports JAX or the JAX package, and its copy of the
-NVCache engine cannot drift from the original."""
+``chip_smoke.py``, nor the port's examples ``examples/torch_*.py``)
+imports JAX or the JAX package, and its copy of the NVCache engine cannot
+drift from the original."""
 import ast
 import re
 import subprocess
@@ -25,8 +26,9 @@ VERBATIM = ENGINE + ["data/pipeline.py", "runtime/fault.py"]
 _IMPORT = re.compile(r"^(\s*(?:from|import)\s+)repro\.", re.M)
 
 
-def _port_files():
-    return sorted(PORT.rglob("*.py")) + [ROOT / "chip_smoke.py"]
+def _port_files(root=ROOT):
+    return (sorted((root / "src" / "repro_torch").rglob("*.py")) + [root / "chip_smoke.py"]
+            + sorted((root / "examples").glob("torch_*.py")))
 
 
 def _forbidden_imports(path: Path):
@@ -63,6 +65,22 @@ def test_scan_catches_a_planted_import(tmp_path):
                  "def f():\n    from msgpack import packb\n")
     assert sorted(b.split(": ")[1] for b in _forbidden_imports(f)) == [
         "jax.numpy", "msgpack", "msgpack", "repro.core", "repro.models.lm"]
+
+
+def test_scan_covers_the_port_s_examples_and_catches_an_import_planted_there(tmp_path):
+    """``examples/torch_*.py`` are scanned (the JAX package's own examples
+    beside them are not): an ``import repro`` planted in one fails."""
+    names = [p.name for p in _port_files() if p.parent.name == "examples"]
+    assert names == ["torch_quickstart.py", "torch_train_e2e.py"]
+    (tmp_path / "src" / "repro_torch").mkdir(parents=True)
+    (tmp_path / "src" / "repro_torch" / "ok.py").write_text("import torch\n")
+    (tmp_path / "chip_smoke.py").write_text("import json\n")
+    (tmp_path / "examples").mkdir()
+    (tmp_path / "examples" / "quickstart.py").write_text("import jax\nimport repro\n")
+    (tmp_path / "examples" / "torch_planted.py").write_text(
+        (ROOT / "examples" / "torch_quickstart.py").read_text() + "\nimport repro\n")
+    bad = [b for f in _port_files(tmp_path) for b in _forbidden_imports(f)]
+    assert len(bad) == 1 and bad[0].endswith(": repro") and "torch_planted.py" in bad[0], bad
 
 
 @pytest.mark.parametrize("rel", VERBATIM)

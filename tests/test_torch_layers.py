@@ -25,10 +25,10 @@ def _close(got, want, tol=TOL):
 
 def test_dense_init_scale_and_dtype():
     gen = torch.Generator("cpu").manual_seed(0)
-    w = tl.dense_init(gen, (256, 512), 256, torch.float32)
+    w = tl.dense_init(gen, (256, 512), 256, torch.float32, "cpu")
     assert w.shape == (256, 512) and w.dtype == torch.float32
     assert abs(float(w.std()) - 1 / math.sqrt(256)) < 2e-3
-    assert tl.dense_init(gen, (4, 8), 4, torch.bfloat16).dtype == torch.bfloat16
+    assert tl.dense_init(gen, (4, 8), 4, torch.bfloat16, "cpu").dtype == torch.bfloat16
 
 
 def test_rmsnorm():

@@ -180,7 +180,7 @@ def test_init_fills_the_stack_layer_by_layer(arch):
     cfg = get_smoke(arch)
     params = build(cfg).init(torch.Generator(CPU).manual_seed(3))
     gen = torch.Generator(CPU).manual_seed(3)
-    embed = tlm.dense_init(gen, (cfg.vocab, cfg.d_model), cfg.d_model, cfg.pdt)
+    embed = tlm.dense_init(gen, (cfg.vocab, cfg.d_model), cfg.d_model, cfg.pdt, CPU)
     assert torch.equal(params["embed"], embed)
     if cfg.family == "encdec":
         torch.randn((cfg.max_positions, cfg.d_model), generator=gen)   # the table
@@ -190,7 +190,7 @@ def test_init_fills_the_stack_layer_by_layer(arch):
         stacks = (("layers", tlm._layer_init, cfg.n_layers),)
     for key, draw, n in stacks:
         for layer in tlm.unstack(params[key], n):
-            want = params_to_numpy(draw(cfg, gen))
+            want = params_to_numpy(draw(cfg, gen, CPU))
             got = params_to_numpy(layer)
             for a, b in zip(jax.tree.leaves(got), jax.tree.leaves(want)):
                 np.testing.assert_array_equal(a, b)

@@ -358,7 +358,7 @@ def test_one_card_configs_of_the_moe_archs():
     assert 30.5e9 < cfg.param_count() < 30.6e9
     layer = tlm._layer_init(dataclasses.replace(get_smoke("qwen3-moe-30b-a3b"),
                                                 param_dtype="bfloat16"),
-                            torch.Generator(CPU).manual_seed(0))
+                            torch.Generator(CPU).manual_seed(0), CPU)
     assert layer["moe"]["router"].dtype == torch.float32 and "mlp" not in layer
     assert layer["moe"]["wg"].dtype == torch.bfloat16
     with pytest.raises(ValueError, match="arctic-480b"):

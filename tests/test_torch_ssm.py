@@ -45,7 +45,7 @@ def _close(got, want, tol=TOL):
 
 def test_init_layout_matches_jax(np_params):
     _, tc = _cfgs()
-    own = tssm.ssm_init(tc, torch.Generator("cpu").manual_seed(0))
+    own = tssm.ssm_init(tc, torch.Generator("cpu").manual_seed(0), "cpu")
     assert {k: tuple(v.shape) for k, v in own.items()} == \
         {k: v.shape for k, v in np_params.items()}
     assert all(v.dtype == torch.float32 for v in own.values())
@@ -87,7 +87,7 @@ def test_bf16_prefill_reaches_the_wgmma_route(monkeypatch, S):
     wgmma route, reading the projection's views in place when nothing is
     padded."""
     cfg = dataclasses.replace(get_config(ARCH), d_model=64, compute_dtype="bfloat16")
-    params = tssm.ssm_init(cfg, torch.Generator("cpu").manual_seed(0))
+    params = tssm.ssm_init(cfg, torch.Generator("cpu").manual_seed(0), "cpu")
     seen = []
 
     def spy(x, dt, A, B, C, *, chunk):
