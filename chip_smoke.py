@@ -89,7 +89,17 @@ Phases, each of which must pass:
              K1 and K3 launch on its wgmma route; then
              ``examples/torch_train_e2e.py --preset 100m`` (20 steps,
              checkpoints through NVCache) and ``launch/ckpt_bench.py`` at
-             64 MiB a leaf from a CUDA state, each restore held exactly.
+             64 MiB a leaf from a CUDA state, each restore held exactly;
+  7. mesh    the distribution layer (``launch/mesh_check.py``): on the 1x1
+             mesh (NCCL), phase 5's llama3.2-1b train step through
+             ``train_shardings`` against the unsharded step on the same
+             state and batch (loss, parameters, equal launches; the two
+             timed in turns: DTensor's host cost), a prefill of 4 x 2048
+             and 8 decode steps through ``serve_shardings``, and
+             mamba2-780m served the same way (K3 on the rank's heads);
+             then four gloo ranks on the one card: which collectives gloo
+             takes on CUDA tensors, ``compressed_psum`` and the GPipe
+             schedule, each held to one rank's result.
 Prints a ``{"kernels": [...]}`` line, the card's name and power limit, and,
 last, ``{"ok": true, "device": {...}}``.  Exits non-zero, printing no
 result, when there is no CUDA card or a phase fails.
@@ -512,7 +522,7 @@ def main() -> int:
     from repro_torch.kernels import quantize as quant
     from repro_torch.kernels import ssd_scan as ssd
     from repro_torch.configs.shapes import SHAPES, scale_shape
-    from repro_torch.launch import bench_ssd, ckpt_bench, dryrun, serve
+    from repro_torch.launch import bench_ssd, ckpt_bench, dryrun, mesh_check, serve
     from repro_torch.launch.profile_serve import PROMPT as SERVE_PROMPT
     from repro_torch.launch.profile_serve import one_card_config
     from repro_torch.launch import train as launch_train
@@ -1533,6 +1543,57 @@ def main() -> int:
     phase("shapes ckpt_bench", checkpoint_bench)
     print(json.dumps({"shape_cells": {" ".join(k) if isinstance(k, tuple) else k: v
                                       for k, v in cells.items()}}))
+
+    # ----------------------------------------------------------------- mesh
+    # this slice's main path: the port's distribution layer (launch/mesh.py,
+    # parallel/, train/steps.py's shardings), each kernel on its rank's shard
+    # through kernels/ops.py's local_map; the kernels line's launches are
+    # these runs'
+    def mesh_single():
+        torch.cuda.empty_cache()
+        zero_counts()
+        res = mesh_check.single_mesh()
+        counts = read_counts("mesh 1x1 llama3.2-1b train + serve")
+        print(json.dumps({"mesh_single": res}))
+        print(f"  1x1 mesh ({res['backend']}), llama3.2-1b 4 x 2048: loss {res['loss_sharded']:.6f} "
+              f"sharded, {res['loss_unsharded']:.6f} unsharded (|d| {res['loss_diff']:.3e}), "
+              f"parameters max |d| {res['param_max_diff']:.3e}; warm step "
+              f"{res['warm_mean_ms']['sharded']:.2f} ms sharded, "
+              f"{res['warm_mean_ms']['unsharded']:.2f} ms unsharded (DTensor's dispatch "
+              f"{res['dispatch_overhead_ms']:+.2f} ms); launches a step {res['launches_sharded']}; "
+              f"serve logits within {res['serve_worst_rel']:.3e}·(1+|ref|), "
+              f"launches {res['serve_launches']}")
+        assert not res["failed"], res["failed"]
+        for key in ("k1", "k1b", "k2"):   # a sharded step's
+            kernels[key][0]["launches"] = res["launches_sharded"][key]
+        torch.cuda.empty_cache()
+        zero_counts()
+        res = mesh_check.ssm_serve()
+        read_counts("mesh 1x1 mamba2-780m serve")
+        print(json.dumps({"mesh_ssm": res}))
+        assert not res["failed"], res["failed"]
+        kernels["k3"][0]["launches"] = res["serve_launches"]["k3"]
+
+    def mesh_gloo():
+        print(json.dumps({"gloo_cuda_probe": mesh_check.probe_gloo_cuda()}))
+        # four ranks on the one card run only what needs none of the ops the
+        # probe saw gloo refuse on CUDA tensors (PERF.md §6): DTensor's
+        # redistributes take the functional all-gather, so the sharded
+        # model steps run on the CPU's gloo only (tests/test_torch_mesh.py)
+        for name, part in (("compressed_psum", mesh_check.ranks_psum),
+                           ("pipeline", mesh_check.ranks_pipeline)):
+            res = part()
+            print(json.dumps({f"gloo 4 ranks {name}": res}))
+            assert not res["failed"], res["failed"]
+            if name == "compressed_psum":
+                kernels["k2"][0]["paths"]["mesh 4 gloo ranks compressed_psum"] = sum(
+                    n for rk in res["ranks"] for key, n in rk.items()
+                    if key.startswith("k2_launches"))
+
+    phase("mesh 1x1", mesh_single)
+    phase("mesh gloo on CUDA", mesh_gloo)
+    if torch.distributed.is_initialized():
+        torch.distributed.destroy_process_group()
 
     print(json.dumps({"kernels": [k1, k1b, k2, k3]}))
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",

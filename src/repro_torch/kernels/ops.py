@@ -5,10 +5,21 @@ CUDA tensor goes to the kernel, whose wrapper launches it or raises.
 There is no fallback from one to the other.  A tensor on ``meta`` (shapes
 and dtypes only, no data: the dry run's route, ``launch/dryrun.py``) goes
 to the plain version too, which is what the dry run counts.
+
+Each function also takes DTensors (``parallel/``) in the placements that
+``parallel.context.constrain`` pins them to: the batch dim sharded over the
+mesh's data axes, the heads over its ``model`` axis, or either replicated.
+Through ``local_map`` it runs the kernel (or, on the CPU, the plain
+version) on each rank's own shard and wraps the result with the matching
+placements.  Any other placement raises: nothing here redistributes.
 """
 from __future__ import annotations
 
+import functools
+
 import torch
+from torch.distributed.tensor import DTensor, Replicate, Shard
+from torch.distributed.tensor.experimental import local_map
 
 from repro_torch.kernels import ref as _ref
 from repro_torch.kernels.flash_attention import flash_attention as _flash_attention
@@ -16,6 +27,33 @@ from repro_torch.kernels.quantize import quantize_cuda
 from repro_torch.kernels.ssd_scan import ssd_cuda
 
 PLAIN_DEVICES = ("cpu", "meta")   # the devices whose tensors take the plain versions
+
+
+def _placed(t, batch_dim: int, head_dim):
+    """``t``'s placements, checked: on the ``model`` axis ``Shard(head_dim)``
+    or ``Replicate()``, on every other axis ``Shard(batch_dim)`` or
+    ``Replicate()``."""
+    for axis, p in zip(t.device_mesh.mesh_dim_names, t.placements):
+        want = head_dim if axis == "model" else batch_dim
+        if not (isinstance(p, Replicate) or (isinstance(p, Shard) and p.dim == want)):
+            raise ValueError(f"ops: {p} on mesh axis {axis!r} for a tensor of shape "
+                             f"{tuple(t.shape)}; ops takes Shard({want}) or Replicate() "
+                             f"there and does not redistribute")
+    return tuple(t.placements)
+
+
+def _matching(name, t, want):
+    if not isinstance(t, DTensor) or tuple(t.placements) != tuple(want):
+        got = tuple(t.placements) if isinstance(t, DTensor) else "a plain tensor"
+        raise ValueError(f"ops: {name} is {got}, wants {tuple(want)}: each rank's shard "
+                         f"must meet its own shards of the other operands")
+
+
+def _like(placements, dims):
+    """``placements`` with each ``Shard(d)`` moved to ``Shard(dims[d])``
+    (``Replicate()`` where ``dims[d]`` is None)."""
+    return tuple(Shard(dims[p.dim]) if isinstance(p, Shard) and dims[p.dim] is not None
+                 else Replicate() for p in placements)
 
 
 # ---------------------------------------------------------- flash attention
@@ -26,7 +64,16 @@ def flash_attention(q, k, v, *, causal=True, window=0, scale=None):
     ``window`` None or 0 is off; ``scale`` defaults to 1/sqrt(D).  A query
     that sees no key gives 0 on both routes.  Differentiable on both:
     autograd through the plain version on the CPU, the backward kernel on
-    the card.  The card's kernels take D and Dv up to 128 and raise above."""
+    the card.  The card's kernels take D and Dv up to 128 and raise above.
+    DTensors: q, k and v in the same placements (batch dim 0, heads dim 2),
+    so that each rank's query heads meet their own kv heads."""
+    if isinstance(q, DTensor):
+        pl = _placed(q, 0, 2)
+        _matching("k", k, pl)
+        _matching("v", v, pl)
+        fn = functools.partial(flash_attention, causal=causal, window=window, scale=scale)
+        return local_map(fn, out_placements=(pl,), in_placements=(pl, pl, pl),
+                         device_mesh=q.device_mesh)(q, k, v)
     if q.device.type in PLAIN_DEVICES:
         return _ref.attention_ref(q, k, v, causal=causal, window=window or 0,
                                   scale=scale)
@@ -38,7 +85,21 @@ def flash_attention(q, k, v, *, causal=True, window=0, scale=None):
 def ssd(x, dt, A, B, C, *, chunk=256):
     """x: (b,s,h,p); dt: (b,s,h); A: (h,); B, C: (b,s,g,n); ``s % chunk == 0``.
     Returns (y in x.dtype, final float32 state (b,h,p,n)).  Dtypes pass
-    through as they come: nothing is cast on the host."""
+    through as they come: nothing is cast on the host.  DTensors: x and dt
+    with batch dim 0 and heads dim 2 placed alike, A's heads as x's, B and
+    C as x's batch and replicated over ``model``; y is placed as x, the
+    state (b,h,p,n) on the same batch and heads."""
+    if isinstance(x, DTensor):
+        pl = _placed(x, 0, 2)
+        _matching("dt", dt, pl)
+        _matching("A", A, _like(pl, {0: None, 2: 0}))
+        bc = _like(pl, {0: 0, 2: None})
+        _matching("B", B, bc)
+        _matching("C", C, bc)
+        return local_map(functools.partial(ssd, chunk=chunk),
+                         out_placements=(pl, _like(pl, {0: 0, 2: 1})),
+                         in_placements=(pl, pl, _like(pl, {0: None, 2: 0}), bc, bc),
+                         device_mesh=x.device_mesh)(x, dt, A, B, C)
     if x.device.type in PLAIN_DEVICES:
         return _ref.ssd_ref(x, dt, A, B, C, chunk=chunk)
     return ssd_cuda(x, dt, A, B, C, chunk=chunk)
@@ -49,7 +110,16 @@ def ssd(x, dt, A, B, C, *, chunk=256):
 def quantize(x, *, group=256):
     """Symmetric int8 group quantization along the last axis.  Returns
     (q int8 of x's shape, float32 scales (..., last / group)), the same bits
-    on both routes."""
+    on both routes.  A DTensor may be sharded on any dim but the last; q and
+    the scales are placed as x."""
+    if isinstance(x, DTensor):
+        pl = tuple(x.placements)
+        if any(not isinstance(p, (Shard, Replicate)) or
+               (isinstance(p, Shard) and p.dim == x.ndim - 1) for p in pl):
+            raise ValueError(f"ops: quantize takes a DTensor sharded on its leading dims "
+                             f"or replicated, got {pl}; it does not redistribute")
+        return local_map(functools.partial(quantize, group=group), out_placements=(pl, pl),
+                         in_placements=(pl,), device_mesh=x.device_mesh)(x)
     if x.device.type in PLAIN_DEVICES:
         return _ref.quantize_ref(x, group=group)
     return quantize_cuda(x, group=group)

@@ -89,7 +89,7 @@ def _restored(got, state, int8: bool) -> bool:
     return all(torch.equal(got[key].to(leaf.device), leaf) for key, leaf in flatten(state))
 
 
-def run(mib: float = 16, *, device="cpu", state=None):
+def run(mib: float = 16, *, device="cuda", state=None):
     """Rows {stack, save_s, drain_s, bytes, restore_ok, state_bytes,
     save_mib_s} for the four stacks, printed as the JAX bench prints them.
     ``state`` in place of the synthetic state of ``mib`` MiB a leaf."""

@@ -25,8 +25,9 @@ With ``--device cuda`` the cell also runs on the card, once per ``--reps``
 ``--batch`` cut or, without one, at the full batch when it fits the card;
 the record then has ``peak_bytes`` (``torch.cuda.max_memory_allocated``),
 each step's ms and the hand-written kernels' launches, and with
-``--profile`` one more step's device time by kernel and busy share.  No mesh and no
-collectives: those come with the distribution slice.  One JSON record a
+``--profile`` one more step's device time by kernel and busy share.  The mesh
+mode (the JAX dry run's 16x16 and 2x16x16 meshes, over ``parallel/``'s
+placements) is not here yet.  One JSON record a
 cell goes to ``--out`` (default ``build/dryrun``); the function
 :func:`run_cell` returns it.
 """

@@ -7,8 +7,9 @@ import torch
 
 from repro_torch.kernels import ops
 from repro_torch.models.common import ModelConfig
-from repro_torch.models.layers import (apply_rope, decode_attention, dense_init,
-                                       rmsnorm)
+from repro_torch.models.layers import (apply_rope, decode_attention, dense_init, pad_zeros,
+                                       rmsnorm, write_rows)
+from repro_torch.parallel import context as pctx
 
 
 # =============================================================== GQA / MQA
@@ -40,15 +41,40 @@ def gqa_forward(cfg: ModelConfig, p, x, rope=None, *, causal=True, window=None,
         cos, sin = rope
         q = apply_rope(q, cos, sin)
         k = apply_rope(k, cos, sin)
-    # The JAX version's tp_repeat_kv, pad_heads_to and sharding constraints
-    # only steer how heads are split across a mesh; on one device they change
-    # nothing, so the kernel takes the compact KV heads (GQA) as they are.
-    o = ops.flash_attention(q, k, v, causal=causal, window=window,
-                            scale=1.0 / (cfg.head_dim ** 0.5))
+    H = cfg.n_heads
+    qa, ka, va = q, k, v
+    if pctx.model_size() > 1:
+        # The heads are split over the mesh's model axis: as in JAX, the kv
+        # heads are repeated to H (each rank's query heads then meet their own
+        # kv heads whatever KV is) and the heads padded to ``pad_heads_to``.
+        # On one device neither changes anything, so there the kernel takes
+        # the compact KV heads (GQA) as they are.
+        if cfg.tp_repeat_kv and H > cfg.n_kv_heads:
+            ka, va = _repeat_heads(k, H), _repeat_heads(v, H)
+        if cfg.pad_heads_to and ka.shape[2] == H and H % cfg.pad_heads_to:
+            qa, ka, va = (_pad_heads(t, cfg.pad_heads_to) for t in (qa, ka, va))
+    qa = pctx.constrain(qa, ("__dp__", None, "model", None))
+    ka = pctx.constrain(ka, ("__dp__", None, "model", None))
+    va = pctx.constrain(va, ("__dp__", None, "model", None))
+    o = ops.flash_attention(qa, ka, va, causal=causal, window=window,
+                            scale=1.0 / (cfg.head_dim ** 0.5))[:, :, :H]
     out = o.reshape(x.shape[0], x.shape[1], -1) @ p["wo"].to(x.dtype)
     if return_kv:
         return out, (k, v)
     return out
+
+
+def _repeat_heads(t, H: int):
+    """(B, S, KV, D) -> (B, S, H, D), each kv head repeated H / KV times in
+    place (``jnp.repeat`` along the heads)."""
+    B, S, KV, D = t.shape
+    return t[:, :, :, None, :].expand(B, S, KV, H // KV, D).reshape(B, S, H, D)
+
+
+def _pad_heads(t, multiple: int):
+    """Zero heads appended up to a multiple of ``multiple``: a zero query
+    head gives zeros, sliced off after attention."""
+    return pad_zeros(t, -t.shape[2] % multiple, 2)
 
 
 def gqa_decode(cfg: ModelConfig, p, x, kc, vc, pos, rope=None, *, window=None):
@@ -61,9 +87,8 @@ def gqa_decode(cfg: ModelConfig, p, x, kc, vc, pos, rope=None, *, window=None):
         cos, sin = rope
         q = apply_rope(q, cos, sin)
         k = apply_rope(k, cos, sin)
-    idx = torch.as_tensor(pos, device=kc.device).reshape(1).long()
-    kc.index_copy_(1, idx, k.to(kc.dtype))
-    vc.index_copy_(1, idx, v.to(vc.dtype))
+    write_rows(kc, pos, k)
+    write_rows(vc, pos, v)
     o = decode_attention(q, kc, vc, pos=pos, window=window)
     out = o.reshape(x.shape[0], 1, -1) @ p["wo"].to(x.dtype)
     return out, kc, vc
@@ -121,10 +146,16 @@ def mla_forward(cfg: ModelConfig, p, x, rope=None, *, causal=True, return_kv=Fal
     k_nope, v = kvb[..., :nd], kvb[..., nd:]
     q = torch.cat([q_nope, q_rope], -1)
     k = torch.cat([k_nope, k_rope[:, :, None, :].expand(B, S, H, rd)], -1)
-    # The JAX version pads the heads to ``pad_heads_to`` and pins them to the
-    # mesh's model axis; on one device that changes nothing, so the kernel
-    # takes the H heads as they are.
-    o = ops.flash_attention(q, k, v, causal=causal, scale=1.0 / ((nd + rd) ** 0.5))
+    # On a mesh the heads are padded to ``pad_heads_to`` so that they split
+    # over the model axis, as in JAX; on one device that changes nothing, so
+    # there the kernel takes the H heads as they are.
+    if pctx.model_size() > 1 and cfg.pad_heads_to and H % cfg.pad_heads_to:
+        q, k, v = (_pad_heads(t, cfg.pad_heads_to) for t in (q, k, v))
+    q = pctx.constrain(q, ("__dp__", None, "model", None))
+    k = pctx.constrain(k, ("__dp__", None, "model", None))
+    v = pctx.constrain(v, ("__dp__", None, "model", None))
+    o = ops.flash_attention(q, k, v, causal=causal,
+                            scale=1.0 / ((nd + rd) ** 0.5))[:, :, :H]
     out = o.reshape(B, S, -1) @ p["wo"].to(x.dtype)
     if return_kv:
         return out, (ckv, k_rope)
@@ -142,9 +173,8 @@ def mla_decode(cfg: ModelConfig, p, x, ckv_c, krope_c, pos, rope=None):
     kvr = cfg.kv_lora_rank
     q_nope, q_rope = _mla_q(cfg, p, x, rope)               # (B,1,H,nd/rd)
     ckv, k_rope = _mla_latent(cfg, p, x, rope)             # (B,1,kvr), (B,1,rd)
-    idx = torch.as_tensor(pos, device=ckv_c.device).reshape(1).long()
-    ckv_c.index_copy_(1, idx, ckv.to(ckv_c.dtype))
-    krope_c.index_copy_(1, idx, k_rope.to(krope_c.dtype))
+    write_rows(ckv_c, pos, ckv)
+    write_rows(krope_c, pos, k_rope)
     # absorb W^{kv_b}'s K half into the query
     wkvb = p["wkv_b"].to(x.dtype).reshape(kvr, H, nd + vd)
     wk = wkvb[..., :nd]                                    # (kvr, H, nd)

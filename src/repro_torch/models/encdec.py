@@ -21,13 +21,18 @@ from __future__ import annotations
 
 import torch
 import torch.nn.functional as F
+from torch.distributed.tensor import DTensor
 from torch.profiler import record_function
 
 from repro_torch.kernels import ops
 from repro_torch.models import attention as attn
 from repro_torch.models.common import ModelConfig
-from repro_torch.models.layers import decode_attention, dense_init, init_device, layernorm
-from repro_torch.models.lm import check_ported, init_stacked, unstack
+from repro_torch.models.layers import (decode_attention, dense_init, init_device, layernorm,
+                                       write_rows)
+from repro_torch.models.lm import (check_ported, embed_tokens, init_stacked, next_token_ce,
+                                   unstack)
+from repro_torch.parallel import context as pctx
+from repro_torch.parallel import sharding as shd
 
 CROSS_SPAN = "encdec.cross_attention"
 ENC_LEN = 1500              # the encoder frames of a serving cache (30 s of audio)
@@ -129,10 +134,17 @@ def _dec_block(cfg, pl, x, enc_kv, *, return_kv=False):
         a, kv = a
     x = x + a
     x = x + _cross(cfg, pl["cross"], _ln(pl["ln2"], x, cfg.norm_eps),
-                   lambda q: ops.flash_attention(q, *enc_kv, causal=False,
-                                                 scale=1.0 / (cfg.head_dim ** 0.5)))
+                   lambda q: _cross_attention(cfg, q, *enc_kv))
     x = x + _mlp(pl["mlp"], _ln(pl["ln3"], x, cfg.norm_eps))
     return x, kv
+
+
+def _cross_attention(cfg, q, k, v):
+    """K1 non-causal from the decoder's queries to the encoder's keys.  On a
+    mesh all three are pinned as self-attention pins them (JAX leaves them
+    to its partitioner; the kernel's shards must meet, ``kernels/ops.py``)."""
+    q, k, v = (pctx.constrain(t, ("__dp__", None, "model", None)) for t in (q, k, v))
+    return ops.flash_attention(q, k, v, causal=False, scale=1.0 / (cfg.head_dim ** 0.5))
 
 
 def cross_kv(cfg: ModelConfig, pl_cross, enc):
@@ -148,7 +160,7 @@ def cross_kv(cfg: ModelConfig, pl_cross, enc):
 def _embed(cfg, params, dec_tokens):
     """The decoder tokens' embeddings plus the first S rows of the position
     table, added in the compute dtype."""
-    x = params["embed"][dec_tokens.long()].to(cfg.cdt)
+    x = embed_tokens(params["embed"], dec_tokens).to(cfg.cdt)
     return x + params["dec_pos"][:dec_tokens.shape[1]][None].to(x.dtype)
 
 
@@ -172,11 +184,7 @@ def loss_fn(cfg: ModelConfig, params, batch, **_kw):
     """Next-token cross-entropy over the decoder tokens.  batch: {frames:
     (B, S_enc, d), dec_tokens: (B, S)}.  Returns (loss, {"ce", "aux"})."""
     logits, aux = forward(cfg, params, batch["frames"], batch["dec_tokens"])
-    tgt = batch["dec_tokens"][:, 1:].long()
-    lg = logits[:, :-1]
-    lse = torch.logsumexp(lg, dim=-1)
-    ll = torch.gather(lg, -1, tgt[..., None])[..., 0]
-    loss = torch.mean(lse - ll)
+    loss = next_token_ce(logits, batch["dec_tokens"])
     return loss, {"ce": loss, "aux": aux}
 
 
@@ -201,12 +209,17 @@ def prefill(cfg: ModelConfig, params, frames, dec_tokens, max_len: int):
     B, Sd = dec_tokens.shape
     x = _embed(cfg, params, dec_tokens)
     cache = init_cache(cfg, B, max_len, enc.shape[1], dec_tokens.device)
+    if isinstance(dec_tokens, DTensor):   # on a mesh: placed as serve_shardings places it
+        mesh = dec_tokens.device_mesh
+        cache = shd.distribute(cache, mesh, shd.cache_specs(cache, mesh), src_data_rank=None)
     cache["pos"].fill_(Sd)
     for i, pl in enumerate(unstack(params["dec_layers"], cfg.dec_layers)):
         ek, ev = cross_kv(cfg, pl["cross"], enc)
         x, (k, v) = _dec_block(cfg, pl, x, (ek, ev), return_kv=True)
-        cache["k"][i, :, :Sd], cache["v"][i, :, :Sd] = k, v
-        cache["ek"][i], cache["ev"][i] = ek, ev
+        write_rows(cache["k"][i], 0, k)
+        write_rows(cache["v"][i], 0, v)
+        write_rows(cache["ek"][i], 0, ek)
+        write_rows(cache["ev"][i], 0, ev)
     return _logits(cfg, params, x[:, -1:]), cache
 
 
@@ -217,7 +230,7 @@ def decode_step(cfg: ModelConfig, params, cache, tokens):
     to its last row as ``dynamic_slice`` clamps."""
     check_ported(cfg)
     pos = cache["pos"]
-    x = params["embed"][tokens.long()].to(cfg.cdt)
+    x = embed_tokens(params["embed"], tokens).to(cfg.cdt)
     row = pos.clamp(0, cfg.max_positions - 1).reshape(1).long()
     x = x + params["dec_pos"].index_select(0, row)[None].to(x.dtype)
     last = cache["ek"].shape[2] - 1          # every encoder frame is visible

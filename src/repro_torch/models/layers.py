@@ -1,5 +1,6 @@
 """Shared layer primitives: norms (RMSNorm, LayerNorm), RoPE / M-RoPE, SwiGLU MLP, blocked
-(flash-style) attention and single-step decode attention, in plain PyTorch.
+(flash-style) attention and single-step decode attention, and cache writes
+and zero padding that also take DTensors (``parallel/``), in plain PyTorch.
 
 Layouts follow ``repro.models.layers``: activations are ``(B, S, H, D)``
 and every reduction runs in float32.  ``blocked_attention`` is the portable
@@ -7,11 +8,16 @@ CPU path kept for the tests; on the card the model's attention goes to the
 hand-written kernel through ``repro_torch.kernels.ops.flash_attention``."""
 from __future__ import annotations
 
+import functools
 import math
 from typing import Optional
 
 import torch
 import torch.nn.functional as F
+from torch.distributed.tensor import DTensor, Replicate, Shard
+from torch.distributed.tensor.experimental import local_map
+
+from repro_torch.parallel import context as pctx
 
 # --------------------------------------------------------------------- init
 
@@ -25,6 +31,55 @@ def dense_init(gen: torch.Generator, shape, in_dim, dtype, device):
     """Normal(0, 1/in_dim) weights drawn from ``gen`` on ``device``."""
     x = torch.randn(shape, generator=gen, device=device, dtype=torch.float32)
     return (x / math.sqrt(in_dim)).to(dtype)
+
+
+# ------------------------------------------------- cache writes, zero rows
+
+def write_rows(cache, pos, new):
+    """``cache[:, pos:pos + n] = new`` in place: cache (B, Smax, ...), new (B,
+    n, ...); pos an int, or a 0-d tensor with n = 1 (read on the device: no
+    sync).  On a mesh (a DTensor cache) each rank writes its own shard,
+    ``new`` placed as the cache but for the sequence, and where the cache
+    shards its sequence (``parallel.sharding.cache_specs``' context-parallel
+    caches) each rank writes only the rows its block holds: DTensor has no
+    rule for ``index_copy_`` in torch 2.11, and a slice assignment into a
+    sharded sequence gives wrong rows."""
+    if not isinstance(cache, DTensor):
+        if isinstance(pos, int):
+            cache[:, pos:pos + new.shape[1]] = new
+        else:
+            idx = torch.as_tensor(pos, device=cache.device).reshape(1).long()
+            cache.index_copy_(1, idx, new.to(cache.dtype))
+        return
+    mesh, pl = cache.device_mesh, tuple(cache.placements)
+    local = cache.to_local()
+    n = new.to(cache.dtype).redistribute(
+        mesh, [Replicate() if isinstance(p, Shard) and p.dim == 1 else p for p in pl]).to_local()
+    shard = 0       # this rank's block of the sequence, mesh dims outer first
+    for i, p in enumerate(pl):
+        if isinstance(p, Shard) and p.dim == 1:
+            shard = shard * mesh.size(i) + mesh.get_local_rank(i)
+    off, rows = shard * local.shape[1], local.shape[1]
+    if isinstance(pos, int):
+        lo, hi = max(pos, off), min(pos + n.shape[1], off + rows)
+        if hi > lo:
+            local[:, lo - off:hi - off] = n[:, lo - pos:hi - pos]
+        return
+    idx = (pos.full_tensor() if isinstance(pos, DTensor)
+           else torch.as_tensor(pos, device=local.device)).reshape(1).long()
+    j = idx - off
+    inside = (j >= 0) & (j < rows)
+    j = j.clamp(0, rows - 1)
+    local.index_copy_(1, j, torch.where(inside, n, local.index_select(1, j)))
+
+
+def pad_zeros(t, n: int, dim: int):
+    """``t`` with ``|n|`` zero rows along ``dim``: after it, or before it
+    for a negative ``n``.  A concatenation where ``F.pad`` would do: on a
+    mesh DTensor's rule for ``constant_pad_nd`` drops a placement in torch
+    2.11."""
+    zeros = t.new_zeros((*t.shape[:dim], abs(n), *t.shape[dim + 1:]))
+    return torch.cat([t, zeros] if n > 0 else [zeros, t], dim=dim)
 
 
 # --------------------------------------------------------------------- norms
@@ -78,6 +133,23 @@ def apply_rope(x, cos, sin):
     c = cos[:, :, None, :].to(x.dtype)
     s = sin[:, :, None, :].to(x.dtype)
     return torch.cat([x1 * c - x2 * s, x2 * c + x1 * s], dim=-1)
+
+
+def _decode_attention_on_shards(q, k_cache, v_cache, *, pos, window, scale):
+    """:func:`decode_attention` on a mesh, each rank on its own batch rows
+    and, where the model axis divides both H and KV, its own heads; the
+    caches' sequence whole on every rank (a context-parallel cache is
+    gathered for the step, where JAX's partitioner would split the
+    softmax).  On local shards because DTensor's rule for the products'
+    reshapes refuses a sharded head dim in torch 2.11."""
+    heads = q.shape[2] % pctx.model_size() == 0 and k_cache.shape[2] % pctx.model_size() == 0
+    axes = ("__dp__", None, "model" if heads else None, None)
+    q, k_cache, v_cache = (pctx.constrain(t, axes) for t in (q, k_cache, v_cache))
+    pl = tuple(q.placements)
+    pos = pos.full_tensor() if isinstance(pos, DTensor) else pos
+    fn = functools.partial(decode_attention, pos=pos, window=window, scale=scale)
+    return local_map(fn, out_placements=(pl,), in_placements=(pl, pl, pl),
+                     device_mesh=q.device_mesh)(q, k_cache, v_cache)
 
 
 # ----------------------------------------------------------------------- MLP
@@ -146,6 +218,9 @@ def decode_attention(q, k_cache, v_cache, *, pos, window=None,
     int — index of the current token, whose k/v the caller has already
     written into the caches (entries ``0..pos`` are valid).
     """
+    if isinstance(q, DTensor):
+        return _decode_attention_on_shards(q, k_cache, v_cache, pos=pos, window=window,
+                                           scale=scale)
     B, _, H, D = q.shape
     _, Smax, KV, _ = k_cache.shape
     Dv = v_cache.shape[-1]

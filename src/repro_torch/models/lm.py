@@ -18,6 +18,8 @@ from __future__ import annotations
 import functools
 
 import torch
+import torch.nn.functional as F
+from torch.distributed.tensor import DTensor
 from torch.utils.checkpoint import CheckpointPolicy, checkpoint, create_selective_checkpoint_contexts
 
 from repro_torch.models import attention as attn
@@ -25,7 +27,9 @@ from repro_torch.models import moe as moe_mod
 from repro_torch.models import ssm as ssm_mod
 from repro_torch.models.common import ModelConfig
 from repro_torch.models.layers import (dense_init, init_device, mrope_cos_sin, rmsnorm,
-                                       rope_cos_sin, swiglu)
+                                       rope_cos_sin, swiglu, write_rows)
+from repro_torch.parallel import context as pctx
+from repro_torch.parallel import sharding as shd
 
 NEG_WINDOW_OFF = 1 << 30   # "window" value that disables windowing
 FAMILIES = ("dense", "vlm", "moe", "ssm", "hybrid", "encdec")
@@ -224,10 +228,20 @@ def _embed(cfg, params, tokens):
     """The tokens' embeddings in the compute dtype, plus the first S rows of
     the learned position table when the model has one: those rows whatever
     ``positions`` says, as in the JAX model."""
-    x = params["embed"][tokens.long()].to(cfg.cdt)
+    x = embed_tokens(params["embed"], tokens).to(cfg.cdt)
     if cfg.pos == "learned":
         x = x + params["pos_table"][:tokens.shape[1]][None].to(x.dtype)
     return x
+
+
+def embed_tokens(table, tokens):
+    """The rows of the embedding ``table`` (V, d) at ``tokens``.  On a mesh
+    the table is first gathered whole on every rank: DTensor's lookup into
+    rows sharded over the vocab fails (its masked partial sums, torch 2.11
+    and 2.13), where JAX's partitioner looks up in the shards.  Through
+    ``F.embedding``, whose backward DTensor partitions (the rule for
+    indexing's ``index_put`` fails in torch 2.11)."""
+    return F.embedding(tokens.long(), pctx.constrain(table, (None, None)))
 
 
 def _rope_dim(cfg: ModelConfig) -> int:
@@ -312,12 +326,21 @@ def loss_fn(cfg: ModelConfig, params, batch, *, aux_weight=0.01):
     (loss, {"ce", "aux"})."""
     tokens = batch["tokens"]
     logits, aux = forward(cfg, params, tokens, batch.get("positions"))
+    loss = next_token_ce(logits, tokens)
+    return loss + aux_weight * aux, {"ce": loss, "aux": aux}
+
+
+def next_token_ce(logits, tokens):
+    """The mean cross-entropy of each position's logits (B, S, V) against
+    the next token of ``tokens`` (B, S).  On a mesh the vocab dim is first
+    gathered whole on every rank: DTensor cannot take a target's logit out
+    of vocab-sharded logits (its gather fails), where JAX's partitioner
+    gathers from the shards."""
+    lg = pctx.constrain(logits[:, :-1], ("__dp__", None, None))
     tgt = tokens[:, 1:].long()
-    lg = logits[:, :-1]
     lse = torch.logsumexp(lg, dim=-1)
     ll = torch.gather(lg, -1, tgt[..., None])[..., 0]
-    loss = torch.mean(lse - ll)
-    return loss + aux_weight * aux, {"ce": loss, "aux": aux}
+    return torch.mean(lse - ll)
 
 
 # ------------------------------------------------------------------ serving
@@ -365,6 +388,9 @@ def prefill(cfg: ModelConfig, params, tokens, max_len: int, positions=None):
     x = _embed(cfg, params, tokens)
     rope = _rope_for(cfg, positions)
     cache = init_cache(cfg, B, max_len, tokens.device)
+    if isinstance(tokens, DTensor):   # on a mesh: placed as serve_shardings places it
+        mesh = tokens.device_mesh
+        cache = shd.distribute(cache, mesh, shd.cache_specs(cache, mesh), src_data_rank=None)
     cache["pos"].fill_(S)
     for i, (pl, win) in enumerate(zip(unstack(params["layers"], cfg.n_layers),
                                       layer_windows(cfg))):
@@ -373,7 +399,7 @@ def prefill(cfg: ModelConfig, params, tokens, max_len: int, positions=None):
             if key in _SSM_KEYS:
                 cache[key][i] = val
             else:
-                cache[key][i, :, :S] = val
+                write_rows(cache[key][i], 0, val)
     return _unembed(cfg, params, x[:, -1:]), cache
 
 
@@ -415,7 +441,7 @@ def decode_step(cfg: ModelConfig, params, cache, tokens):
     B = tokens.shape[0]
     pos = cache["pos"]
     positions = pos.to(torch.int32).broadcast_to((3, B, 1) if cfg.pos == "mrope" else (B, 1))
-    x = params["embed"][tokens.long()].to(cfg.cdt)
+    x = embed_tokens(params["embed"], tokens).to(cfg.cdt)
     if cfg.pos == "learned":
         row = pos.clamp(0, cfg.max_positions - 1).reshape(1).long()
         x = x + params["pos_table"].index_select(0, row)[None].to(x.dtype)

@@ -1,7 +1,8 @@
 """Mixture-of-Experts layer with capacity-factor gather/scatter dispatch:
-the port of ``repro.models.moe``'s gather path (``moe_forward`` without a
-mesh, ``_moe_gather``; the shard_map expert parallelism comes with the
-distribution slice).
+the port of ``repro.models.moe``.  Without a mesh, and on a mesh where JAX
+falls back to it, ``moe_forward`` runs the gather path (``_moe_gather``);
+on a mesh whose ``model`` axis can split the experts and the sequence, it
+runs expert parallelism with explicit all-to-alls (``_moe_shard_map``).
 
 Tokens are cut into groups of ``cfg.moe_group`` (the last one zero-padded),
 each token picks its top-k experts from a float32 router softmax, and each
@@ -24,13 +25,19 @@ JAX as in the port.
 from __future__ import annotations
 
 import contextlib
+import math
 
 import torch
+import torch.distributed._functional_collectives as funcol
 import torch.nn.functional as F
+from torch.distributed.tensor import DTensor, Partial, Replicate
+from torch.distributed.tensor.experimental import local_map
 from torch.profiler import record_function
 
 from repro_torch.models.common import ModelConfig
 from repro_torch.models.layers import dense_init
+from repro_torch.parallel import context as pctx
+from repro_torch.parallel.sharding import mesh_sizes, placements
 
 _drops = None   # while count_drops() is open: each call's dropped pairs, on the device
 
@@ -109,6 +116,89 @@ def count_drops():
 def moe_forward(cfg: ModelConfig, p, x):
     """x: (B, S, d) -> (out: (B, S, d) in x.dtype, aux: float32 scalar).
 
+    With a mesh in scope whose ``model`` axis M > 1 divides the experts and
+    the sequence, and (B·S)/M >= k, the expert-parallel ``_moe_shard_map``,
+    as JAX dispatches; otherwise the gather path, on a mesh over every
+    rank's whole copy of the tokens and experts (``_moe_gather_replicated``)."""
+    mesh = pctx.current_mesh()
+    if mesh is None or not isinstance(x, DTensor):
+        return _moe_gather(cfg, p, x)
+    M = pctx.model_size(mesh)
+    B, S, _ = x.shape
+    if M > 1 and cfg.n_experts % M == 0 and S % M == 0 and (B * S) // M >= cfg.top_k:
+        return _moe_shard_map(cfg, p, x, mesh, M)
+    return _moe_gather_replicated(cfg, p, x)
+
+
+def _replicated(t):
+    return t.redistribute(t.device_mesh, [Replicate()] * t.device_mesh.ndim)
+
+
+def _moe_gather_replicated(cfg: ModelConfig, p, x):
+    """The gather path under a mesh: the tokens and the experts gathered
+    whole on every rank (an all-gather each, where JAX's partitioner would
+    shard the gather itself), the same computation as without a mesh on
+    each rank, and the output cut back to x's placements."""
+    rep = tuple([Replicate()] * x.device_mesh.ndim)
+    y, aux = local_map(lambda pl, xl: _moe_gather(cfg, pl, xl), out_placements=(rep, rep),
+                       in_placements=(rep,) * 5, device_mesh=x.device_mesh)(
+        {k: _replicated(p[k]) for k in ("router", "wg", "wu", "wd")}, _replicated(x))
+    return y.redistribute(x.device_mesh, x.placements), aux
+
+
+def _moe_shard_map(cfg: ModelConfig, p, x, mesh, M: int):
+    """Expert parallelism with explicit all-to-alls, as JAX's shard_map.
+
+    Tokens are placed with the batch over the data axes and the sequence
+    over ``model``, each rank's E / M experts whole on it (the FSDP
+    dim gathered), the router on every rank: the in-specs JAX's
+    ``shard_map`` reshards to.  Each rank routes its own T tokens at C =
+    ``moe_capacity(cfg, T)``, builds its (E, C, d) dispatch buffer, and two
+    all-to-alls over the ``model`` group move tokens to their experts' rank
+    and back; both carry gradients (``all_to_all_single_autograd``).  aux
+    is the mean over all ranks of each rank's own (JAX's ``pmean``)."""
+    B, _, d = x.shape
+    E = cfg.n_experts
+    E_loc = E // M
+    sizes = mesh_sizes(mesh)
+    dp = tuple(a for a in mesh.mesh_dim_names if a != "model")
+    xpl = placements((dp if B % math.prod(sizes[a] for a in dp) == 0 else None,
+                      "model", None), mesh)
+    epl = placements(("model", None, None), mesh)
+    rep = tuple([Replicate()] * mesh.ndim)
+    group = mesh.get_group("model")
+    n_ranks = mesh.size()
+
+    def exchange(t):
+        """t (M, ...): row m to the model axis' rank m; row m of the result
+        from rank m."""
+        out = funcol.all_to_all_single_autograd(t.reshape(M, -1), None, None, group)
+        return out.reshape(t.shape)
+
+    def local(xl, router, wg, wu, wd):
+        Bl, Sl, _ = xl.shape
+        buf, plan, aux = _dispatch(cfg, router, xl.reshape(1, Bl * Sl, d))   # (E, 1, C, d)
+        C = buf.shape[2]
+        buf = exchange(buf.view(M, E_loc, C, d))                 # from every rank
+        o = _experts(buf.transpose(0, 1).reshape(E_loc, M * C, d), wg, wu, wd)
+        o = exchange(o.view(E_loc, M, C, d).transpose(0, 1).contiguous())   # back home
+        return _combine(o.view(E, C, d), plan).view(Bl, Sl, d), aux / n_ranks
+
+    # each rank's gradients of the router and of its experts are its own
+    # tokens' share: partial sums over the ranks that hold the same copy
+    summed = tuple([Partial()] * mesh.ndim)
+    esum = tuple(p if a == "model" else Partial() for a, p in zip(mesh.mesh_dim_names, epl))
+    y, aux = local_map(local, out_placements=(xpl, summed),
+                       in_placements=(xpl, rep, epl, epl, epl),
+                       in_grad_placements=(xpl, summed, esum, esum, esum), device_mesh=mesh)(
+        x.redistribute(mesh, xpl), _replicated(p["router"]),
+        *(p[k].redistribute(mesh, epl) for k in ("wg", "wu", "wd")))
+    return y, _replicated(aux)
+
+
+def _moe_gather(cfg: ModelConfig, p, x):
+    """The gather path: x (B, S, d) -> (out (B, S, d), aux).
+
     Groups of ``min(cfg.moe_group, B·S)`` tokens, C = ``moe_capacity``.
     JAX scatters every pair's token row into a zeroed buffer, adding an
     over-capacity one at slot C - 1 with weight 0 (an exact + 0); here each
@@ -120,7 +210,6 @@ def moe_forward(cfg: ModelConfig, p, x):
     (0 where dropped) in one batched product, where JAX multiplies in the
     activations' dtype, then sums."""
     B, S, d = x.shape
-    E, K = cfg.n_experts, cfg.top_k
     T = B * S
     Tg = min(cfg.moe_group, T)
     xt = x.reshape(T, d)
@@ -128,27 +217,49 @@ def moe_forward(cfg: ModelConfig, p, x):
     if pad:
         xt = F.pad(xt, (0, 0, 0, pad))
     G = xt.shape[0] // Tg
-    xg = xt.view(G, Tg, d)
-    C = moe_capacity(cfg, Tg)
+    buf, plan, aux = _dispatch(cfg, p["router"], xt.view(G, Tg, d))
+    E, _, C, _ = buf.shape
+    out = _experts(buf.view(E, G * C, d), p["wg"], p["wu"], p["wd"])
+    return _combine(out, plan)[:T].reshape(B, S, d), aux
 
-    w, idx, aux = _route(cfg, p["router"], xg)               # (G, Tg, K)
+
+def _dispatch(cfg: ModelConfig, router, xg):
+    """Route the groups ``xg`` (G, Tg, d), each at C = ``moe_capacity(cfg,
+    Tg)``: returns (the dispatch buffer (E, G, C, d), the plan
+    ``_combine`` reads, aux)."""
+    G, Tg, d = xg.shape
+    E, K = cfg.n_experts, cfg.top_k
+    C = moe_capacity(cfg, Tg)
+    w, idx, aux = _route(cfg, router, xg)                    # (G, Tg, K)
     idx_f = idx.reshape(G, Tg * K)                           # token-major
     slot, keep = _slots(idx_f, E, C)                         # (G, Tg K)
     if _drops is not None:
         _drops.append((~keep).sum())
-    group = torch.arange(G, device=x.device)[:, None].expand(G, Tg * K)
+    group = torch.arange(G, device=xg.device)[:, None].expand(G, Tg * K)
     with record_function("moe.dispatch"):   # spans launch.profile_serve reads
-        row = group * Tg + torch.arange(Tg * K, device=x.device) // K
-        src = torch.full((E + 1, G, C), G * Tg, dtype=torch.long, device=x.device)
+        row = group * Tg + torch.arange(Tg * K, device=xg.device) // K
+        src = torch.full((E + 1, G, C), G * Tg, dtype=torch.long, device=xg.device)
         src.index_put_((torch.where(keep, idx_f, E), group, torch.where(keep, slot, 0)), row)
         rows = torch.cat([xg.reshape(G * Tg, d), xg.new_zeros((1, d))])
         buf = rows[src[:E]]                                  # (E, G, C, d)
+    return buf, (w, idx_f, slot, keep, group), aux
+
+
+def _experts(h, wg, wu, wd):
+    """The experts' SwiGLU over their slots h (E, n, d), in h's dtype."""
     with record_function("moe.experts"):
-        h = buf.view(E, G * C, d)
-        a = F.silu(torch.bmm(h, p["wg"].to(x.dtype))) * torch.bmm(h, p["wu"].to(x.dtype))
-        out = torch.bmm(a, p["wd"].to(x.dtype))              # (E, G C, d)
+        a = F.silu(torch.bmm(h, wg.to(h.dtype))) * torch.bmm(h, wu.to(h.dtype))
+        return torch.bmm(a, wd.to(h.dtype))
+
+
+def _combine(out, plan):
+    """Each token's k outputs gathered from ``out`` (E, G·C, d) at their
+    slots and summed weighted by w (0 where dropped): (G·Tg, d)."""
+    w, idx_f, slot, keep, group = plan
+    G, Tg, K = w.shape
+    E, d = out.shape[0], out.shape[-1]
+    C = out.numel() // (E * G * d)
     with record_function("moe.combine"):   # one flat index: a vectorized gather
         at = (idx_f * G + group) * C + slot
-        wk = (w.to(x.dtype) * keep.view(G, Tg, K)).view(G * Tg, 1, K)
-        y = torch.bmm(wk, out.view(E * G * C, d)[at].view(G * Tg, K, d))
-    return y.reshape(G * Tg, d)[:T].reshape(B, S, d), aux
+        wk = (w.to(out.dtype) * keep.view(G, Tg, K)).view(G * Tg, 1, K)
+        return torch.bmm(wk, out.reshape(E * G * C, d)[at].view(G * Tg, K, d))

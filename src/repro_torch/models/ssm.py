@@ -10,7 +10,8 @@ import torch.nn.functional as F
 from repro_torch.kernels import ops
 from repro_torch.kernels.ref import ssd_decode_ref
 from repro_torch.models.common import ModelConfig
-from repro_torch.models.layers import dense_init, rmsnorm
+from repro_torch.models.layers import dense_init, pad_zeros, rmsnorm
+from repro_torch.parallel import context as pctx
 
 
 def _dims(cfg: ModelConfig):
@@ -52,7 +53,7 @@ def causal_conv(xBC, w, b):
     same sum of K shifted products as the JAX version: ``F.conv1d`` would
     go through cuDNN, in TF32 by default for float32."""
     K = w.shape[0]
-    pad = F.pad(xBC, (0, 0, K - 1, 0))
+    pad = pad_zeros(xBC, -(K - 1), 1)
     out = sum(pad[:, i:i + xBC.shape[1], :] * w[i][None, None, :] for i in range(K))
     return F.silu(out + b[None, None, :])
 
@@ -73,11 +74,22 @@ def ssm_forward(cfg: ModelConfig, p, x, *, return_state=False):
     dt = F.softplus(dt.float() + p["dt_bias"].float())
     A = -torch.exp(p["A_log"].float())
     xs_res = xs                          # un-padded, for the D skip term
-    # The JAX version's ssm_pad_heads_to and sharding constraints only steer
-    # how heads are split across a mesh.  It pads hymba-1.5b's 50 heads to
-    # 64 with x = 0, dt = 0 and A = -1: each head scans on its own, the
-    # padded ones give y = 0 and state 0, and it slices them off again.  On
-    # one device that changes nothing, so the port runs the 50 heads.
+    # On a mesh the heads split over the model axis, so, as in JAX, they are
+    # padded to ``ssm_pad_heads_to`` (hymba-1.5b's 50 to 64) with x = 0,
+    # dt = 0 and A = -1: each head scans on its own, the padded ones give
+    # y = 0 and state 0, and they are sliced off again.  On one device that
+    # changes nothing, so there the port runs the 50 heads.
+    if pctx.model_size() > 1 and cfg.ssm_pad_heads_to and h % cfg.ssm_pad_heads_to:
+        hp = -(-h // cfg.ssm_pad_heads_to) * cfg.ssm_pad_heads_to
+        xs, dt = pad_zeros(xs, hp - h, 2), pad_zeros(dt, hp - h, 2)
+        A = torch.cat([A, A.new_full((hp - h,), -1.0)])
+    # JAX pins x and dt to the model axis by heads; the kernels' shards also
+    # need A's heads and B and C's batch placed to match (kernels/ops.py)
+    xs = pctx.constrain(xs, ("__dp__", None, "model", None))
+    dt = pctx.constrain(dt, ("__dp__", None, "model"))
+    A = pctx.constrain(A, ("model",))
+    Bs = pctx.constrain(Bs, ("__dp__", None, None, None))
+    Cs = pctx.constrain(Cs, ("__dp__", None, None, None))
     # pad sequence to a chunk multiple: dt = 0 there leaves y and the state
     # as they are.  A prompt shorter than ssm_chunk gets one chunk rounded up
     # to a multiple of 64, the kernel's wgmma tile, so that every bf16
@@ -85,12 +97,10 @@ def ssm_forward(cfg: ModelConfig, p, x, *, return_state=False):
     chunk = min(cfg.ssm_chunk, -(-S // 64) * 64)
     pad = (-S) % chunk
     if pad:
-        xs = F.pad(xs, (0, 0, 0, 0, 0, pad))
-        Bs = F.pad(Bs, (0, 0, 0, 0, 0, pad))
-        Cs = F.pad(Cs, (0, 0, 0, 0, 0, pad))
-        dt = F.pad(dt, (0, 0, 0, pad))
+        xs, Bs, Cs, dt = (pad_zeros(t, pad, 1) for t in (xs, Bs, Cs, dt))
     y, state = ops.ssd(xs, dt, A, Bs, Cs, chunk=chunk)
-    y = y[:, :S]
+    y = y[:, :S, :h]
+    state = state[:, :h]
     y = y + xs_res * p["D"].to(y.dtype)[None, None, :, None]
     y = y.reshape(B_, S, di)
     y = rmsnorm(y * F.silu(z.float()).to(y.dtype), p["gnorm"], cfg.norm_eps)
@@ -100,7 +110,7 @@ def ssm_forward(cfg: ModelConfig, p, x, *, return_state=False):
         # zeros when the prompt is shorter; JAX recomputes them from the tail
         # of x, which is the same product row for row
         K = cfg.ssm_conv
-        tail = xBC_raw[:, -(K - 1):] if S >= K - 1 else F.pad(xBC_raw, (0, 0, K - 1 - S, 0))
+        tail = xBC_raw[:, -(K - 1):] if S >= K - 1 else pad_zeros(xBC_raw, -(K - 1 - S), 1)
         return out, (state, tail)
     return out
 

@@ -14,7 +14,7 @@ from repro_torch.launch import ckpt_bench
 
 
 def test_rows_match_the_jax_bench_at_1_mib():
-    got = ckpt_bench.run(mib=1)
+    got = ckpt_bench.run(mib=1, device="cpu")
     want = jbench.run(mib=1)
     assert [r["stack"] for r in got] == [r["stack"] for r in want] == [
         "blob-sync", "nvcache", "page-cache-unsafe", "nvcache+int8"]
