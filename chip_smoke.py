@@ -93,13 +93,15 @@ Phases, each of which must pass:
   7. mesh    the distribution layer (``launch/mesh_check.py``): on the 1x1
              mesh (NCCL), phase 5's llama3.2-1b train step through
              ``train_shardings`` against the unsharded step on the same
-             state and batch (loss, parameters, equal launches; the two
-             timed in turns: DTensor's host cost), a prefill of 4 x 2048
-             and 8 decode steps through ``serve_shardings``, and
-             mamba2-780m served the same way (K3 on the rank's heads);
-             then four gloo ranks on the one card: which collectives gloo
-             takes on CUDA tensors, ``compressed_psum`` and the GPipe
-             schedule, each held to one rank's result.
+             state and batch (loss, parameters, each leaf's gradient
+             beside the unsharded step's own run-to-run gap, equal
+             launches; the two timed in turns: DTensor's host cost), a
+             prefill of 4 x 2048 and 8 decode steps through
+             ``serve_shardings``, and mamba2-780m served the same way (K3
+             on the rank's heads); then four gloo ranks on the one card:
+             ``compressed_psum`` and the GPipe schedule, each held to one
+             rank's result.  The mesh path's launches are counted from 0
+             around each sharded run only.
 Prints a ``{"kernels": [...]}`` line, the card's name and power limit, and,
 last, ``{"ok": true, "device": {...}}``.  Exits non-zero, printing no
 result, when there is no CUDA card or a phase fails.
@@ -1550,35 +1552,44 @@ def main() -> int:
     # through kernels/ops.py's local_map; the kernels line's launches are
     # these runs'
     def mesh_single():
+        # mesh_check reads each sharded run from counts set to 0 just before
+        # it (the unsharded runs it is held against are not counted): those
+        # counts are this path's
         torch.cuda.empty_cache()
         zero_counts()
         res = mesh_check.single_mesh()
-        counts = read_counts("mesh 1x1 llama3.2-1b train + serve")
         print(json.dumps({"mesh_single": res}))
         print(f"  1x1 mesh ({res['backend']}), llama3.2-1b 4 x 2048: loss {res['loss_sharded']:.6f} "
               f"sharded, {res['loss_unsharded']:.6f} unsharded (|d| {res['loss_diff']:.3e}), "
-              f"parameters max |d| {res['param_max_diff']:.3e}; warm step "
+              f"parameters max |d| {res['param_max_diff']:.3e} (unsharded run to run "
+              f"{res['rerun_param_max_diff']:.3e}), gradients worst leaf |d|/max|m| "
+              f"{res['grad_worst_rel']:.3e} (run to run {res['rerun_grad_worst_rel']:.3e}, "
+              f"limit {mesh_check.GRAD_TOL:.3e}); warm step "
               f"{res['warm_mean_ms']['sharded']:.2f} ms sharded, "
               f"{res['warm_mean_ms']['unsharded']:.2f} ms unsharded (DTensor's dispatch "
               f"{res['dispatch_overhead_ms']:+.2f} ms); launches a step {res['launches_sharded']}; "
               f"serve logits within {res['serve_worst_rel']:.3e}·(1+|ref|), "
               f"launches {res['serve_launches']}")
         assert not res["failed"], res["failed"]
+        for key, (entry, _) in kernels.items():
+            for path, counts in (("mesh 1x1 llama3.2-1b train step", res["launches_sharded"]),
+                                 ("mesh 1x1 llama3.2-1b serve", res["serve_launches"])):
+                if counts[key]:
+                    entry["paths"][path] = counts[key]
         for key in ("k1", "k1b", "k2"):   # a sharded step's
             kernels[key][0]["launches"] = res["launches_sharded"][key]
         torch.cuda.empty_cache()
         zero_counts()
         res = mesh_check.ssm_serve()
-        read_counts("mesh 1x1 mamba2-780m serve")
         print(json.dumps({"mesh_ssm": res}))
         assert not res["failed"], res["failed"]
+        kernels["k3"][0]["paths"]["mesh 1x1 mamba2-780m serve"] = res["serve_launches"]["k3"]
         kernels["k3"][0]["launches"] = res["serve_launches"]["k3"]
 
     def mesh_gloo():
-        print(json.dumps({"gloo_cuda_probe": mesh_check.probe_gloo_cuda()}))
-        # four ranks on the one card run only what needs none of the ops the
-        # probe saw gloo refuse on CUDA tensors (PERF.md §6): DTensor's
-        # redistributes take the functional all-gather, so the sharded
+        # four ranks on the one card run only what needs none of the ops
+        # gloo refuses on CUDA tensors (send/recv, the functional all-gather
+        # under every DTensor redistribute: PERF.md §6), so the sharded
         # model steps run on the CPU's gloo only (tests/test_torch_mesh.py)
         for name, part in (("compressed_psum", mesh_check.ranks_psum),
                            ("pipeline", mesh_check.ranks_pipeline)):

@@ -6,12 +6,13 @@ There is no fallback from one to the other.  A tensor on ``meta`` (shapes
 and dtypes only, no data: the dry run's route, ``launch/dryrun.py``) goes
 to the plain version too, which is what the dry run counts.
 
-Each function also takes DTensors (``parallel/``) in the placements that
-``parallel.context.constrain`` pins them to: the batch dim sharded over the
-mesh's data axes, the heads over its ``model`` axis, or either replicated.
-Through ``local_map`` it runs the kernel (or, on the CPU, the plain
-version) on each rank's own shard and wraps the result with the matching
-placements.  Any other placement raises: nothing here redistributes.
+``flash_attention`` and ``ssd`` also take DTensors (``parallel/``) in the
+placements that ``parallel.context.constrain`` pins them to: the batch dim
+sharded over the mesh's data axes, the heads over its ``model`` axis, or
+either replicated.  Through ``local_map`` each runs the kernel (or, on the
+CPU, the plain version) on each rank's own shard and wraps the result with
+the matching placements.  Any other placement raises, and ``quantize``
+raises on any DTensor: nothing here redistributes.
 """
 from __future__ import annotations
 
@@ -110,16 +111,12 @@ def ssd(x, dt, A, B, C, *, chunk=256):
 def quantize(x, *, group=256):
     """Symmetric int8 group quantization along the last axis.  Returns
     (q int8 of x's shape, float32 scales (..., last / group)), the same bits
-    on both routes.  A DTensor may be sharded on any dim but the last; q and
-    the scales are placed as x."""
+    on both routes.  It takes a rank's local tensor, not a DTensor: its
+    callers choose the groups (``optim/grad_compress.py`` quantizes each
+    shard of a DTensor gradient flattened, under its own ``local_map``)."""
     if isinstance(x, DTensor):
-        pl = tuple(x.placements)
-        if any(not isinstance(p, (Shard, Replicate)) or
-               (isinstance(p, Shard) and p.dim == x.ndim - 1) for p in pl):
-            raise ValueError(f"ops: quantize takes a DTensor sharded on its leading dims "
-                             f"or replicated, got {pl}; it does not redistribute")
-        return local_map(functools.partial(quantize, group=group), out_placements=(pl, pl),
-                         in_placements=(pl,), device_mesh=x.device_mesh)(x)
+        raise ValueError(f"ops: quantize takes a rank's local tensor, got a DTensor placed "
+                         f"{tuple(x.placements)}; it does not redistribute")
     if x.device.type in PLAIN_DEVICES:
         return _ref.quantize_ref(x, group=group)
     return quantize_cuda(x, group=group)

@@ -20,16 +20,18 @@ from torch.distributed.device_mesh import init_device_mesh
 
 
 def init_distributed(backend=None, *, device_type="cuda", store_path=None, rank=0,
-                     world_size=1):
+                     world_size=1, timeout=None):
     """Join the job's default process group, once per process.
 
     With torchrun's ``RANK``/``WORLD_SIZE`` in the environment it reads the
     rendezvous from there (``rank`` and ``world_size`` are then ignored);
     else ``store_path`` names a ``FileStore`` that all ``world_size``
     processes share; else the world must be 1.  ``backend`` defaults to
-    ``nccl`` on ``cuda`` and ``gloo`` on ``cpu``.  On ``cuda`` the process
-    takes device ``LOCAL_RANK`` modulo the cards it sees.  Returns
-    (rank, world size)."""
+    ``nccl`` on ``cuda`` and ``gloo`` on ``cpu``; ``gloo`` on ``cuda`` puts
+    several ranks on one card, which NCCL refuses (``launch/mesh_check.py``).
+    ``timeout`` (a ``timedelta``) bounds each collective's wait on a peer.
+    On ``cuda`` the process takes device ``LOCAL_RANK`` (else ``rank``)
+    modulo the cards it sees.  Returns (rank, world size)."""
     if not dist.is_initialized():
         backend = backend or ("nccl" if device_type == "cuda" else "gloo")
         if "RANK" in os.environ and "WORLD_SIZE" in os.environ:
@@ -45,6 +47,8 @@ def init_distributed(backend=None, *, device_type="cuda", store_path=None, rank=
         if device_type == "cuda":
             local = int(os.environ.get("LOCAL_RANK", kw.get("rank", 0)))
             torch.cuda.set_device(local % torch.cuda.device_count())
+        if timeout is not None:
+            kw["timeout"] = timeout
         dist.init_process_group(backend, **kw)
     return dist.get_rank(), dist.get_world_size()
 

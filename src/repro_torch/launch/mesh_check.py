@@ -11,9 +11,12 @@ alone on a machine with a CUDA card:
     against the unsharded path.  On one rank each shard is the whole
     tensor, so the sharded state is a set of DTensor views of the unsharded
     one (``DTensor.from_local``): one copy of the 14.8 GB state in memory.
-(b) :func:`probe_gloo_cuda`: which collectives ``gloo`` takes on CUDA
-    tensors, with four processes on the one card (NCCL refuses two ranks on
-    one device), and whether DTensor redistributes on such a mesh.
+(b) Four processes on the one card over ``gloo`` (NCCL refuses two ranks
+    on one device): ``compressed_psum`` and the GPipe schedule, each against
+    the same computation on one rank.  Only these two: torch 2.11's gloo
+    takes neither send/recv nor the functional all-gather under DTensor's
+    redistributes on CUDA tensors (PERF.md), while these two need only
+    ``all_gather_into_tensor``, ``all_to_all_single`` and ``all_reduce``.
 
 Prints one JSON line a part.  Kernel launches are read off the wrappers'
 counters (``kernels/flash_attention.py``, ``kernels/quantize.py``,
@@ -43,11 +46,19 @@ TURNS = 3               # timed (unsharded, sharded) pairs, the order alternatin
 # by sums in another order); logits 2e-2·(1+|ref|) in bf16
 LOSS_TOL = 2e-2
 LOGIT_TOL = 2e-2
-PROBE_WORLD = 4
-# each four-rank part's processes are killed after PROBE_TIMEOUT (40 of them
-# start CUDA at once for the probe); a collective that waits on a peer gives
-# up after OP_TIMEOUT (gloo's own timeout), so a hung op ends the part early
-PROBE_TIMEOUT = 120
+# those bounds pass any gradient, so the gradient each step applied (its
+# first moment) is held leaf by leaf, as its largest gap over its largest
+# |m|: the step int8-compresses the gradient, so a gradient a hair off can
+# round to the next int8 step, 1/127 of its group's largest |g|, and the
+# rest is the raw gradients' own gap (the K1 backward's dq adds with
+# atomics).  On the H100 the unsharded step against itself read 8.9e-3 and
+# the sharded one against it 9.6e-3; a dropped or zero gradient reads 1
+GRAD_TOL = 1 / 127 + 1e-2
+WORLD = 4
+# each four-rank part's processes are killed after RANKS_TIMEOUT; a
+# collective that waits on a peer gives up after OP_TIMEOUT (gloo's own
+# timeout), so a hung op ends the part early
+RANKS_TIMEOUT = 120
 OP_TIMEOUT = datetime.timedelta(seconds=30)
 
 
@@ -63,8 +74,15 @@ def launches():
     return {k: fn.launches for k, fn in _kernels().items()}
 
 
-def _since(before):
-    return {k: n - before[k] for k, n in launches().items()}
+def zero_launches():
+    """Every counter to 0: each run of the mesh path is read from 0, so its
+    counts hold no launch of the unsharded runs it is compared with."""
+    for fn in _kernels().values():
+        fn.launches = 0
+
+
+def _add(total, counts):
+    return {k: total.get(k, 0) + n for k, n in counts.items()}
 
 
 def _views(tree, mesh, placed):
@@ -93,8 +111,12 @@ def _timed(dev, fn, *args):
 def single_mesh(cfg=None, *, device="cuda", batch=B, seq=S, lr=LR) -> dict:
     """Part (a): the train step and serving on the 1x1 mesh against the
     unsharded path, for ``cfg`` (default llama3.2-1b at full width) at
-    ``batch`` x ``seq``.  Returns the numbers and, under "failed", the
-    checks that missed (the launch checks on the card only)."""
+    ``batch`` x ``seq``.  The unsharded step runs twice from the same state
+    (its run-to-run gap: on the card the K1 backward's dq adds with atomics,
+    so no two backward passes are bit-equal) and the sharded step once;
+    the gradient each applied is read from its first moment.  Returns the
+    numbers and, under "failed", the checks that missed (the launch checks
+    on the card only)."""
     from repro_torch.checkpoint.manager import flatten
     from repro_torch.configs.registry import get_config
     from repro_torch.data.pipeline import SyntheticTokens
@@ -116,17 +138,33 @@ def single_mesh(cfg=None, *, device="cuda", batch=B, seq=S, lr=LR) -> dict:
     host = {k: t.to("cpu", copy=True) for k, t in flatten(state["params"])}
     step = tsteps.make_train_step(model, opt, compress=True)
 
-    fa.flash_attention_cuda.routes = dict.fromkeys(fa.ROUTES, 0)
-    before = launches()
+    def restore():
+        for k, t in flatten(state["params"]):
+            t.copy_(host[k])
+        for part in ("m", "v"):
+            for _, t in flatten(state["opt"][part]):
+                t.zero_()
+        state["opt"]["step"].zero_()
+
+    def gaps():
+        """(largest parameter gap, worst leaf's largest first-moment gap
+        over its largest |m|) of ``state`` against the first step's."""
+        params = max(float((t.float() - ref_params[k].float()).abs().max())
+                     for k, t in flatten(state["params"]))
+        moments = max(float((t.float() - ref_m[k].float()).abs().max()
+                            / ref_m[k].float().abs().max())
+                      for k, t in flatten(state["opt"]["m"]))
+        return params, moments
+
+    zero_launches()
     ref, out["unsharded_first_s"] = _timed(dev, step, state, tokens)
-    out["launches_unsharded"] = _since(before)
+    out["launches_unsharded"] = launches()
     ref_params = {k: t.clone() for k, t in flatten(state["params"])}
-    for k, t in flatten(state["params"]):
-        t.copy_(host[k])
-    for part in ("m", "v"):
-        for _, t in flatten(state["opt"][part]):
-            t.zero_()
-    state["opt"]["step"].zero_()
+    ref_m = {k: t.clone() for k, t in flatten(state["opt"]["m"])}
+    restore()
+    step(state, tokens)
+    out["rerun_param_max_diff"], out["rerun_grad_worst_rel"] = gaps()
+    restore()
     del host
 
     (placed, bplaced), _ = tsteps.train_shardings(model, opt, mesh, tokens)
@@ -135,20 +173,20 @@ def single_mesh(cfg=None, *, device="cuda", batch=B, seq=S, lr=LR) -> dict:
     sstep = tsteps.bind_mesh(step, mesh)
     if dev.type == "cuda":
         torch.cuda.reset_peak_memory_stats()
-    before = launches()
+    fa.flash_attention_cuda.routes = dict.fromkeys(fa.ROUTES, 0)
+    zero_launches()
     got, out["sharded_first_s"] = _timed(dev, sstep, sstate, sbatch)
-    out["launches_sharded"] = _since(before)
+    out["launches_sharded"] = launches()
     out["k1_routes"] = dict(fa.flash_attention_cuda.routes)
     if dev.type == "cuda":
         out["peak_gib_sharded"] = torch.cuda.max_memory_allocated() / 2**30
     out["loss_unsharded"], out["loss_sharded"] = float(ref["loss"]), float(got["loss"])
     out["loss_diff"] = abs(out["loss_unsharded"] - out["loss_sharded"])
-    out["param_max_diff"] = max(float((t.float() - ref_params[k].float()).abs().max())
-                                for k, t in flatten(state["params"]))
+    out["param_max_diff"], out["grad_worst_rel"] = gaps()
     out["placements_kept"] = all(
         tuple(t.placements) == tuple(pl) for (_, t), (_, pl) in
         zip(flatten(sstate), flatten(placed)))
-    del ref_params
+    del ref_params, ref_m
 
     times = {"unsharded": [], "sharded": []}
     for i in range(TURNS):
@@ -178,6 +216,8 @@ def single_mesh(cfg=None, *, device="cuda", batch=B, seq=S, lr=LR) -> dict:
         failed.append("loss")
     if not out["param_max_diff"] <= 2 * lr + 1e-4:
         failed.append("parameters")
+    if not out["grad_worst_rel"] <= GRAD_TOL:
+        failed.append("gradients")
     if not out["placements_kept"]:
         failed.append("placements")
     if not out["serve_ok"]:
@@ -240,15 +280,17 @@ def _serve(model, mesh, params, sparams, dev, batch, seq) -> dict:
     worst = 0.0
     with torch.no_grad():
         want, cache = prefill(params, prompt)
-        before = launches()
+        zero_launches()
         got, scache = sprefill(sparams, _views(prompt, mesh, placed["batch"]))
-        counts = _since(before)
+        counts = launches()
         pairs = [(want, got)]
         for i in range(seq, max_len):
             t = tokens[:, i:i + 1].contiguous()
             want, cache = decode(params, cache, t)
+            zero_launches()
             got, scache = sdecode(sparams, scache, _views({"t": t}, mesh,
                                                           {"t": placed["batch"]["tokens"]})["t"])
+            counts = _add(counts, launches())
             pairs.append((want, got))
         for w, g in pairs:
             g = g.full_tensor()
@@ -259,147 +301,17 @@ def _serve(model, mesh, params, sparams, dev, batch, seq) -> dict:
             "serve_cache_placements": {k: str(tuple(v.placements)) for k, v in scache.items()}}
 
 
-# ---------------------------------------------------------------- (b) probe
+# ------------------------------------------------------- (b) four ranks
 
 def _join(rank, store, device_type):
-    if device_type == "cuda":
-        torch.cuda.set_device(0)
-        torch.backends.cuda.matmul.allow_tf32 = False
-    dist.init_process_group("gloo", store=dist.FileStore(store, PROBE_WORLD), rank=rank,
-                            world_size=PROBE_WORLD, timeout=OP_TIMEOUT)
-    return torch.device(device_type, 0) if device_type == "cuda" else torch.device("cpu")
-
-
-# the collectives as torch.distributed calls them, then as the functional
-# collectives DTensor and the port's all-to-alls call them, then a DTensor
-# redistribute
-PROBE_OPS = ("all_reduce", "broadcast", "all_gather_into_tensor", "reduce_scatter_tensor",
-             "all_to_all_single", "send_recv", "functional_all_reduce",
-             "functional_all_gather", "functional_all_to_all", "dtensor_redistribute")
-
-
-def _probe_rank(rank, op, store, out_dir, device_type):
-    """One rank of the probe of ``op``, on tensors of ``device_type`` (every
-    rank on its device 0), its result checked; writes "ok" or the error to
-    ``out_dir/op.rank``.  A collective that gloo cannot run on CUDA memory
-    may abort the process (it hands device pointers to its TCP transport):
-    then nothing is written."""
-    try:
-        dev = _join(rank, store, device_type)
-        n = PROBE_WORLD
-
-        def all_reduce():
-            x = torch.full((8,), float(rank + 1), device=dev)
-            dist.all_reduce(x)
-            assert float(x[0]) == n * (n + 1) / 2
-
-        def broadcast():
-            x = torch.full((8,), float(rank), device=dev)
-            dist.broadcast(x, src=1)
-            assert float(x[0]) == 1.0
-
-        def all_gather_into_tensor():
-            x = torch.full((4,), rank, dtype=torch.int8, device=dev)
-            y = torch.empty(4 * n, dtype=torch.int8, device=dev)
-            dist.all_gather_into_tensor(y, x)
-            assert y.view(n, 4)[:, 0].tolist() == list(range(n))
-
-        def reduce_scatter_tensor():
-            x = torch.ones(4 * n, device=dev)
-            y = torch.empty(4, device=dev)
-            dist.reduce_scatter_tensor(y, x)
-            assert float(y[0]) == n
-
-        def all_to_all_single():
-            x = torch.arange(n, dtype=torch.float32, device=dev) + 10 * rank
-            y = torch.empty_like(x)
-            dist.all_to_all_single(y, x)
-            assert y.tolist() == [10 * r + rank for r in range(n)]
-
-        def send_recv():
-            x = torch.full((4,), float(rank), device=dev)
-            y = torch.empty_like(x)
-            ops = [dist.P2POp(dist.isend, x, (rank + 1) % n),
-                   dist.P2POp(dist.irecv, y, (rank - 1) % n)]
-            for w in dist.batch_isend_irecv(ops):
-                w.wait()
-            assert float(y[0]) == (rank - 1) % n
-
-        def functional_all_reduce():
-            import torch.distributed._functional_collectives as funcol
-            x = torch.full((8,), float(rank + 1), device=dev)
-            y = funcol.all_reduce(x, "sum", dist.group.WORLD)
-            assert float(y[0]) == n * (n + 1) / 2
-
-        def functional_all_gather():
-            import torch.distributed._functional_collectives as funcol
-            x = torch.full((4,), float(rank), device=dev)
-            y = funcol.all_gather_tensor(x, 0, dist.group.WORLD)
-            assert y.view(n, 4)[:, 0].tolist() == list(range(n))
-
-        def functional_all_to_all():
-            import torch.distributed._functional_collectives as funcol
-            x = (torch.arange(n, dtype=torch.float32, device=dev) + 10 * rank).requires_grad_()
-            y = funcol.all_to_all_single_autograd(x, None, None, dist.group.WORLD)
-            y = y.wait() if isinstance(y, funcol.AsyncCollectiveTensor) else y
-            assert y.tolist() == [10 * r + rank for r in range(n)]
-
-        def dtensor_redistribute():
-            from torch.distributed.device_mesh import init_device_mesh
-            from torch.distributed.tensor import Replicate, Shard, distribute_tensor
-            mesh = init_device_mesh(device_type, (2, 2), mesh_dim_names=("data", "model"))
-            t = torch.arange(16.0, device=dev).view(4, 4)
-            d = distribute_tensor(t, mesh, [Shard(0), Shard(1)], src_data_rank=None)
-            assert torch.equal(d.redistribute(mesh, [Replicate(), Replicate()]).to_local(), t)
-
-        {"all_reduce": all_reduce, "broadcast": broadcast,
-         "all_gather_into_tensor": all_gather_into_tensor,
-         "reduce_scatter_tensor": reduce_scatter_tensor, "all_to_all_single": all_to_all_single,
-         "send_recv": send_recv, "functional_all_reduce": functional_all_reduce,
-         "functional_all_gather": functional_all_gather,
-         "functional_all_to_all": functional_all_to_all,
-         "dtensor_redistribute": dtensor_redistribute}[op]()
-        _sync(dev)
-        res = "ok"
-    except Exception as exc:   # the probe records what the op says
-        res = f"{type(exc).__name__}: {str(exc).splitlines()[0][:200]}"
-    with open(os.path.join(out_dir, f"{op}.{rank}"), "w") as f:
-        f.write(res)
-    if dist.is_initialized():
-        dist.destroy_process_group()
-
-
-def probe_gloo_cuda(device_type="cuda") -> dict:
-    """Part (b)'s probe: {op: what its four ranks got}, every rank on the one
-    card over ``gloo``; each op in four processes of its own, all ops at
-    once, each bounded by PROBE_TIMEOUT ("aborted" where a rank's process
-    died without a word, "timed out" where one hung)."""
-    with tempfile.TemporaryDirectory() as tmp:
-        ctx = mp.get_context("spawn")
-        procs = {op: [ctx.Process(target=_probe_rank,
-                                  args=(r, op, os.path.join(tmp, f"{op}.store"), tmp,
-                                        device_type))
-                      for r in range(PROBE_WORLD)] for op in PROBE_OPS}
-        for group in procs.values():
-            for p in group:
-                p.start()
-        deadline = time.monotonic() + PROBE_TIMEOUT
-        out = {}
-        for op, group in procs.items():
-            for p in group:
-                p.join(max(0.0, deadline - time.monotonic()))
-            said = set()
-            for r, p in enumerate(group):
-                if p.is_alive():
-                    p.kill()
-                    p.join()
-                    said.add("timed out")
-                    continue
-                path = os.path.join(tmp, f"{op}.{r}")
-                said.add(open(path).read() if os.path.exists(path)
-                         else f"aborted (exit code {p.exitcode})")
-            out[op] = sorted(said)
-    return out
+    """Join the four-rank gloo group; returns the rank's device (on one
+    card, every rank's)."""
+    from repro_torch.launch.mesh import init_distributed
+    torch.backends.cuda.matmul.allow_tf32 = False
+    init_distributed("gloo", device_type=device_type, store_path=store, rank=rank,
+                     world_size=WORLD, timeout=OP_TIMEOUT)
+    return (torch.device("cuda", torch.cuda.current_device()) if device_type == "cuda"
+            else torch.device("cpu"))
 
 
 PSUM_SHAPE = (1024, 1024)   # a gradient leaf's worth: 1 M values a rank
@@ -418,12 +330,12 @@ def _psum_rank(rank, store, out_dir, device_type):
     try:
         dev = _join(rank, store, device_type)
         xs = [torch.randn(PSUM_SHAPE, generator=torch.Generator().manual_seed(r)).to(dev)
-              for r in range(PROBE_WORLD)]
+              for r in range(WORLD)]
         for dtype in (torch.float32, torch.bfloat16):
             before = launches()["k2"]
             got = compressed_psum(xs[rank].to(dtype), dist.group.WORLD)
             res[f"k2_launches_{dtype}"] = launches()["k2"] - before
-            alike = [torch.empty_like(got) for _ in range(PROBE_WORLD)]
+            alike = [torch.empty_like(got) for _ in range(WORLD)]
             dist.all_gather(alike, got)
             res[f"alike_{dtype}"] = all(torch.equal(a, got) for a in alike)
             if rank == 0:
@@ -443,16 +355,16 @@ def _psum_rank(rank, store, out_dir, device_type):
 
 
 def _run_ranks(target, device_type) -> list:
-    """``target(rank, store, out_dir, device_type)`` in PROBE_WORLD spawned
-    processes on the one card, bounded by PROBE_TIMEOUT; each rank's JSON
+    """``target(rank, store, out_dir, device_type)`` in WORLD spawned
+    processes on the one card, bounded by RANKS_TIMEOUT; each rank's JSON
     result, or {"error": ...} where it wrote none."""
     with tempfile.TemporaryDirectory() as tmp:
         ctx = mp.get_context("spawn")
         procs = [ctx.Process(target=target, args=(r, os.path.join(tmp, "store"), tmp, device_type))
-                 for r in range(PROBE_WORLD)]
+                 for r in range(WORLD)]
         for p in procs:
             p.start()
-        deadline = time.monotonic() + PROBE_TIMEOUT
+        deadline = time.monotonic() + RANKS_TIMEOUT
         for p in procs:
             p.join(max(0.0, deadline - time.monotonic()))
         ranks = []
@@ -511,16 +423,16 @@ def _pipe_rank(rank, store, out_dir, device_type):
                 h = torch.tanh(h @ w + c)
             return h
 
-        mesh = init_device_mesh(device_type, (PROBE_WORLD,), mesh_dim_names=("stage",))
+        mesh = init_device_mesh(device_type, (WORLD,), mesh_dim_names=("stage",))
         params = tuple(distribute_tensor(a, mesh, [Shard(0)], src_data_rank=None)
-                       .requires_grad_(True) for a in split_stages((Ws, bs), PROBE_WORLD))
+                       .requires_grad_(True) for a in split_stages((Ws, bs), WORLD))
         out = pipeline_apply(mesh, "stage", lambda p, h: layers(*p, h), params, x)
         (out ** 2).sum().backward()
 
         def whole(grad, like):
             # gloo's all-gather on CUDA tensors (DTensor's full_tensor takes
             # the functional all-gather, which gloo aborts on there)
-            parts = torch.empty(PROBE_WORLD * grad.to_local().numel(), device=dev)
+            parts = torch.empty(WORLD * grad.to_local().numel(), device=dev)
             dist.all_gather_into_tensor(parts, grad.to_local().contiguous().reshape(-1))
             return parts.reshape(like.shape)
 
@@ -564,9 +476,9 @@ def main() -> int:
                       "device": torch.cuda.get_device_name(0)}), flush=True)
     init_distributed(device_type="cuda")
     ok = True
-    for name, part in (("single_mesh", single_mesh), ("ssm_serve", ssm_serve),
-                       ("gloo_cuda_probe", probe_gloo_cuda), ("ranks_psum", ranks_psum),
-                       ("ranks_pipeline", ranks_pipeline)):
+    parts = (("single_mesh", single_mesh), ("ssm_serve", ssm_serve),
+             ("ranks_psum", ranks_psum), ("ranks_pipeline", ranks_pipeline))
+    for name, part in parts:
         t0 = time.perf_counter()
         try:
             res = part()

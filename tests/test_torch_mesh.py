@@ -10,7 +10,10 @@ process is bounded by a timeout.
 Tolerances: the sharded llama3.2-1b SMOKE train step under the bounds of
 ``tests/test_sharding.py::test_pjit_8dev_matches_single_device`` (bf16
 compute: loss 2e-2; parameters 2·lr + 1e-4, Adam's first step moves each by
-±lr with the sign set by sums in another order); float32 forwards 1e-4·(1 +
+±lr with the sign set by sums in another order, so these bounds pass any
+gradient); the same step at float32 compute, its gradient leaf by leaf
+within 1e-4·(max|ref| + |ref|) of the unsharded one's, and compressed also
+within one int8 step of the leaf, max|ref| / 127; float32 forwards 1e-4·(1 +
 |ref|) (sums in another order over shards); ``_moe_shard_map`` 1e-5 in
 float32 against JAX's and its gradients 1e-4·(1 + |ref|) against an
 unsharded emulation of the same per-rank groups; ``compressed_psum``
@@ -98,33 +101,48 @@ def _train_step_cases(mesh, res):
     from repro_torch.optim.adamw import AdamW, tree_leaves
     from repro_torch.parallel import sharding as shd
     from repro_torch.train import steps as tsteps
-    cfg = get_smoke("llama3.2-1b")
-    model, opt = build(cfg), AdamW(lr=LR)
-    tokens = np.random.default_rng(3).integers(0, cfg.vocab, (4, 32))
+    smoke = get_smoke("llama3.2-1b")
+    tokens = np.random.default_rng(3).integers(0, smoke.vocab, (4, 32))
     batch = {"tokens": _t(tokens)}
-    for compress in (False, True):
-        key = f"step_{'compressed' if compress else 'plain'}"
-        step = tsteps.make_train_step(model, opt, compress=compress)
-        ref = tsteps.init_train_state(model, opt, torch.Generator().manual_seed(0), "cpu")
-        state = tsteps.init_train_state(model, opt, torch.Generator().manual_seed(0), "cpu")
-        m1 = step(ref, batch)
-        (placed, bplaced), _ = tsteps.train_shardings(model, opt, mesh, batch)
-        sstate = shd.distribute(state, mesh, placed, src_data_rank=None)
-        before = [tuple(t.placements) for t in tree_leaves(sstate)]
-        m2 = tsteps.bind_mesh(step, mesh)(sstate, shd.distribute(batch, mesh, bplaced,
-                                                                  src_data_rank=None))
-        after = [tuple(t.placements) for t in tree_leaves(sstate)]
-        whole = shd.full(sstate)
-        res[f"{key}_loss"] = np.array([float(m1["loss"]), float(m2["loss"])])
-        res[f"{key}_param_delta"] = np.array(max(
-            float((a.float() - b.float()).abs().max())
-            for a, b in zip(tree_leaves(ref["params"]), tree_leaves(whole["params"]))))
-        res[f"{key}_moment_delta"] = np.array(max(
-            float((a.float() - b.float()).abs().max())
-            for a, b in zip(tree_leaves(ref["opt"]), tree_leaves(whole["opt"]))))
-        res[f"{key}_placements_kept"] = np.array(before == after)
-        res[f"{key}_sharded_leaves"] = np.array(sum(
-            any(not p.is_replicate() for p in pl) for pl in after))
+    # bf16 compute (the config's) under JAX's bounds; float32 compute for
+    # the gradients themselves
+    for compute in ("bfloat16", "float32"):
+        model = build(dataclasses.replace(smoke, compute_dtype=compute))
+        opt = AdamW(lr=LR)
+        for compress in (False, True):
+            kind = "compressed" if compress else "plain"
+            key = f"step_{kind}"
+            step = tsteps.make_train_step(model, opt, compress=compress)
+            ref = tsteps.init_train_state(model, opt, torch.Generator().manual_seed(0), "cpu")
+            state = tsteps.init_train_state(model, opt, torch.Generator().manual_seed(0), "cpu")
+            m1 = step(ref, batch)
+            (placed, bplaced), _ = tsteps.train_shardings(model, opt, mesh, batch)
+            sstate = shd.distribute(state, mesh, placed, src_data_rank=None)
+            before = [tuple(t.placements) for t in tree_leaves(sstate)]
+            m2 = tsteps.bind_mesh(step, mesh)(sstate, shd.distribute(batch, mesh, bplaced,
+                                                                      src_data_rank=None))
+            after = [tuple(t.placements) for t in tree_leaves(sstate)]
+            whole = shd.full(sstate)
+            if compute == "float32":
+                # the first moment after one step is (1 - b1)·(clipped)
+                # gradient: each leaf's, flattened, unsharded then sharded
+                ms = [(a.float().reshape(-1), b.float().reshape(-1))
+                      for a, b in zip(tree_leaves(ref["opt"]["m"]),
+                                      tree_leaves(whole["opt"]["m"]))]
+                res[f"grad_{kind}"] = np.stack(
+                    [np.concatenate([_np(p[i]) for p in ms]) / (1 - opt.b1) for i in (0, 1)])
+                res[f"grad_{kind}_sizes"] = np.array([a.numel() for a, _ in ms])
+                res[f"grad_{kind}_sharded"] = np.array(
+                    [any(not p.is_replicate() for p in t.placements)
+                     for t in tree_leaves(sstate["opt"]["m"])])
+                continue
+            res[f"{key}_loss"] = np.array([float(m1["loss"]), float(m2["loss"])])
+            res[f"{key}_param_delta"] = np.array(max(
+                float((a.float() - b.float()).abs().max())
+                for a, b in zip(tree_leaves(ref["params"]), tree_leaves(whole["params"]))))
+            res[f"{key}_placements_kept"] = np.array(before == after)
+            res[f"{key}_sharded_leaves"] = np.array(sum(
+                any(not p.is_replicate() for p in pl) for pl in after))
 
 
 def _forward_cases(mesh, res):
@@ -521,6 +539,25 @@ def test_sharded_train_step_within_jax_bounds(results, kind):
     assert int(got[f"step_{kind}_sharded_leaves"]) > 0
 
 
+@pytest.mark.parametrize("kind", ["plain", "compressed"])
+def test_sharded_train_step_gradients_match_unsharded(results, kind):
+    """The gradient each step applied, read from the first moment, sharded
+    against unsharded at float32 compute, leaf by leaf.  Compressed, each
+    side rounds to its own int8 groups (a shard's, against the whole
+    leaf's), so each element may also differ by up to a group's scale,
+    at most the leaf's largest |g| / 127."""
+    got = results[0]
+    want, have = got[f"grad_{kind}"]
+    sizes = got[f"grad_{kind}_sizes"]
+    assert got[f"grad_{kind}_sharded"].sum() > 0
+    for w, h in zip(np.split(want, np.cumsum(sizes)[:-1]), np.split(have, np.cumsum(sizes)[:-1])):
+        top = np.abs(w).max()
+        assert top > 0
+        rounding = top / 127 if kind == "compressed" else 0.0
+        assert np.all(np.abs(h - w) <= rounding + 1e-4 * (top + np.abs(w))), \
+            float(np.abs(h - w).max() / top)
+
+
 @pytest.mark.parametrize("arch", ARCHS_FWD)
 def test_sharded_forward_matches_unsharded(results, arch):
     want, got = results[0][f"fwd_{arch}"]
@@ -622,3 +659,4 @@ def test_mesh_check_passes_on_the_cpu(results, part):
     assert res["serve_worst_rel"] == 0.0
     if "train" in part:
         assert res["loss_diff"] == 0.0 and res["param_max_diff"] == 0.0
+        assert res["grad_worst_rel"] == 0.0 and res["rerun_grad_worst_rel"] == 0.0
