@@ -101,7 +101,16 @@ Phases, each of which must pass:
              on the rank's heads); then four gloo ranks on the one card:
              ``compressed_psum`` and the GPipe schedule, each held to one
              rank's result.  The mesh path's launches are counted from 0
-             around each sharded run only.
+             around each sharded run only;
+  8. tooling the dry run's mesh mode (``launch/dryrun.py --mesh``: fake
+             worlds of 256 and 512 ranks, meta tensors) for llama3.2-1b
+             train_4k on 16x16 and 2x16x16, qwen3-moe-30b-a3b train_4k,
+             mamba2-780m prefill_32k and whisper-small decode_32k on 16x16,
+             each with its per-device bytes, counts and collectives; the
+             roofline (``launch/roofline.py``) of phase 6's cells at their
+             full batch and their cut, each cut's bound at or below its
+             fastest measured step; and ``launch/perf_probe.py`` once.  It
+             launches no kernel.
 Prints a ``{"kernels": [...]}`` line, the card's name and power limit, and,
 last, ``{"ok": true, "device": {...}}``.  Exits non-zero, printing no
 result, when there is no CUDA card or a phase fails.
@@ -120,9 +129,6 @@ import traceback
 from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
 
-PEAK_BF16_FLOPS = 989e12      # H100 SXM dense bf16 tensor-core peak
-PEAK_F32_FLOPS = 67e12        # H100 SXM fp32 on the CUDA cores
-PEAK_BYTES = 3.35e12          # H100 SXM HBM3
 # the kernels each arch's prefill launches, once per layer each (K1:
 # ``k1_calls``, three a whisper-small encoder and decoder layer pair)
 ARCHS = {"llama3.2-1b": ("k1",), "mamba2-780m": ("k3",), "minicpm3-4b": ("k1",),
@@ -329,6 +335,16 @@ SHAPE_CELLS = [("llama3.2-1b", "prefill_32k", 2), ("llama3.2-1b", "decode_32k", 
                ("llama3.2-1b", "train_4k", 2), ("mamba2-780m", "prefill_32k", 2),
                ("mamba2-780m", "decode_32k", 4), ("mamba2-780m", "long_500k", 4),
                ("hymba-1.5b", "long_500k", 4)]
+# Phase 8: the dry run's mesh mode (launch/dryrun.py) on this host's torch:
+# a dense train step on both production meshes, expert parallelism's
+# all-to-alls, K3 as a unit on each rank's heads, and the encoder-decoder's
+# cache on a mesh
+TOOLING_MESH_CELLS = {"single": [("llama3.2-1b", "train_4k"), ("qwen3-moe-30b-a3b", "train_4k"),
+                                 ("mamba2-780m", "prefill_32k"), ("whisper-small", "decode_32k")],
+                      "multi": [("llama3.2-1b", "train_4k")]}
+TOOLING_KEYS = ("devices", "counted_s", "state_bytes", "input_bytes", "cache_bytes",
+                "output_bytes", "resident_bytes", "fits_one_card", "flops", "flops_by_dtype",
+                "work_flops", "work_hbm_bytes", "hbm_bytes", "collectives", "wire_bytes", "groups")
 E2E_STEPS, E2E_CKPT_EVERY = 20, 10   # examples/torch_train_e2e.py --preset 100m
 CKPT_MIB = 64                        # repro_torch.launch.ckpt_bench from a CUDA state
 
@@ -444,47 +460,6 @@ def image_grid_positions(text, side, extra):
     return torch.cat([i.expand(3, -1), img, after.expand(3, -1)], 1)[:, None].int()
 
 
-def attention_bound(B, Sq, Skv, H, KV, D, Dv, itemsize, causal, window, peak_flops):
-    """Least time (ms) for one attention call: the larger of the operations
-    the visible (query, key) pairs need (Q K^T over D, P V over Dv) over the
-    peak rate and the bytes of q, k (D), v and o (Dv) read once and written
-    once over the memory rate."""
-    from repro_torch.launch.dryrun import k1_call_flops
-    flops = k1_call_flops(B, Sq, Skv, H, D, Dv, causal, window)
-    nbytes = itemsize * (B * Sq * H * (D + Dv) + B * Skv * KV * (D + Dv))
-    t_ops, t_bytes = flops / peak_flops * 1e3, nbytes / PEAK_BYTES * 1e3
-    return (t_ops, "operations") if t_ops >= t_bytes else (t_bytes, "bytes")
-
-
-def ssd_bound(b, s, h, p, g, n, chunk, itemsize, peak_flops):
-    """Least time (ms) for one SSD scan: the larger of the operations over
-    the peak rate and the bytes of x, dt, A, B, C read once and of y and the
-    final state written once over the memory rate.  Operations: C B^T over
-    each chunk's causal triangle once per (batch, group, chunk), then per
-    (batch * head, chunk) (C B^T . L)(x dt) over the triangle, C S^T and
-    the state update."""
-    nc, tri = s // chunk, chunk * (chunk + 1) // 2
-    flops = b * g * nc * 2 * tri * n + b * h * nc * (2 * tri * p + 2 * 2 * chunk * p * n)
-    nbytes = (2 * b * s * h * p * itemsize + 4 * b * s * h + 4 * h
-              + 2 * b * s * g * n * itemsize + 4 * b * h * p * n)
-    t_ops, t_bytes = flops / peak_flops * 1e3, nbytes / PEAK_BYTES * 1e3
-    return (t_ops, "operations") if t_ops >= t_bytes else (t_bytes, "bytes")
-
-
-def attention_bwd_bound(B, Sq, Skv, H, KV, D, Dv, itemsize, causal, window, peak_flops):
-    """Least time (ms) for one attention backward: five products per visible
-    pair, S, dQ, dK over D and dP, dV over Dv, 2·(3D + 2Dv) flops, against
-    the bytes of q, k, v, o, dO and the float32 log-sum-exp read once and
-    dq, dk, dv written once."""
-    from repro_torch.launch.dryrun import k1_call_flops
-    flops = k1_call_flops(B, Sq, Skv, H, D, Dv, causal, window, backward=True)
-    # read q, dO, o and write dq: (B, Sq, H, D + 2 Dv + D); k, v, dk, dv likewise
-    nbytes = (itemsize * (2 * B * Sq * H * (D + Dv) + 2 * B * Skv * KV * (D + Dv))
-              + 4 * B * H * Sq)
-    t_ops, t_bytes = flops / peak_flops * 1e3, nbytes / PEAK_BYTES * 1e3
-    return (t_ops, "operations") if t_ops >= t_bytes else (t_bytes, "bytes")
-
-
 def train_leaf_shapes(cfg):
     """The parameter (and so gradient) leaves of a dense model, by their
     checkpoint keys: what ``compress_tree`` quantizes, one K2 launch each."""
@@ -495,13 +470,6 @@ def train_leaf_shapes(cfg):
             "layers/attn/wq": (L, d, q), "layers/attn/wv": (L, d, kv),
             "layers/mlp/wd": (L, f, d), "layers/mlp/wg": (L, d, f), "layers/mlp/wu": (L, d, f),
             "layers/norm1": (L, d), "layers/norm2": (L, d)}
-
-
-def quantize_bound(n, group, itemsize):
-    """Least time (ms) for one int8 group quantize of n values: each value
-    read once and written once as int8, one float32 scale per group; about
-    three operations per byte, so the bytes bound it."""
-    return (n * itemsize + n + 4 * (n // group)) / PEAK_BYTES * 1e3, "bytes"
 
 
 def main() -> int:
@@ -524,11 +492,15 @@ def main() -> int:
     from repro_torch.kernels import quantize as quant
     from repro_torch.kernels import ssd_scan as ssd
     from repro_torch.configs.shapes import SHAPES, scale_shape
-    from repro_torch.launch import bench_ssd, ckpt_bench, dryrun, mesh_check, serve
+    from repro_torch.launch import (bench_ssd, ckpt_bench, dryrun, mesh_check, perf_probe,
+                                    roofline, serve)
     from repro_torch.launch.profile_serve import PROMPT as SERVE_PROMPT
     from repro_torch.launch.profile_serve import one_card_config
     from repro_torch.launch import train as launch_train
     from repro_torch.launch.bench_attention import cuda_ms, in_turns
+    # the card's peaks and each kernel's own work, as the roofline counts them
+    from repro_torch.launch.roofline import (PEAK_BF16_FLOPS, PEAK_F32_FLOPS, attention_bound,
+                                             attention_bwd_bound, quantize_bound, ssd_bound)
     from repro_torch.models import moe
     from repro_torch.models.registry import build
     from repro_torch.optim.adamw import AdamW, tree_leaves
@@ -1605,6 +1577,62 @@ def main() -> int:
     phase("mesh gloo on CUDA", mesh_gloo)
     if torch.distributed.is_initialized():
         torch.distributed.destroy_process_group()
+
+    # -------------------------------------------------------------- tooling
+    # the mesh tooling on this host's torch: the dry run's mesh mode in fake
+    # worlds of 256 and 512 ranks (meta only), the roofline of phase 6's card
+    # runs, and the perf probe.  No kernel is launched here: the kernels' work
+    # in the roofline is what phase 6's runs launched (K1, its backward, K3)
+    def tooling_mesh():
+        for kind, cells_ in TOOLING_MESH_CELLS.items():
+            for rec in dryrun.run_cells(kind, cells_, device="cpu"):
+                tag = f"{rec['arch']} {rec['shape']} {kind}"
+                assert rec["status"] == "ok", (tag, rec.get("error"))
+                tooling["mesh"][tag] = {k: rec[k] for k in TOOLING_KEYS}
+                print(f"  mesh mode {tag}: {rec['devices']} devices, counted in "
+                      f"{rec['counted_s']:.2f} s; per device state {rec['state_bytes']}, inputs "
+                      f"{rec['input_bytes']}, cache {rec['cache_bytes']}, outputs "
+                      f"{rec['output_bytes']}, resident {rec['resident_bytes']} B "
+                      f"(fits one card: {rec['fits_one_card']}); flops {rec['flops']} "
+                      f"{rec['flops_by_dtype']}, work_flops {rec['work_flops']}, hbm "
+                      f"{rec['hbm_bytes']}, work_hbm {rec['work_hbm_bytes']} B; collectives "
+                      f"{rec['collectives']}, wire {rec['wire_bytes']} B")
+
+    def tooling_roofline():
+        """Each phase 6 cell's count at its full batch and at its cut: the
+        cut's bound (the larger of its compute and memory terms) must be at
+        or below its fastest measured step."""
+        for (arch, shape_name), cell in ((k, v) for k, v in cells.items()
+                                         if isinstance(k, tuple)):
+            full = SHAPES[shape_name]
+            for batch in dict.fromkeys((full.batch, cell["batch"])):
+                count = dryrun.counted_record(get_config(arch), scale_shape(full, batch=batch))
+                t = roofline.terms(count)
+                line = (f"  roofline {arch} {shape_name} batch {batch}: t_compute "
+                        f"{t['t_compute']:.6f} s, t_memory {t['t_memory']:.6f} s (work_flops "
+                        f"{count['work_flops']}, work_hbm {count['work_hbm_bytes']} B)")
+                if batch == cell["batch"]:
+                    bound, measured = roofline.bound_s(count), min(cell["step_ms"]) / 1e3
+                    tooling["roofline"][f"{arch} {shape_name}"] = {
+                        "batch": batch, **t, "bound_s": bound, "measured_s": measured,
+                        "roofline_fraction_measured": bound / measured}
+                    line += (f"; measured {measured:.6f} s, roofline_fraction_measured "
+                             f"{bound / measured:.4f}")
+                    assert bound <= measured, (arch, shape_name, bound, measured)
+                print(line)
+
+    def tooling_probe():
+        rec = perf_probe.probe("llama3.2-1b", "train_4k", remat="none")
+        tooling["perf_probe"] = {k: rec[k] for k in ("t_compute", "t_memory", "t_collective",
+                                                     "work_flops")}
+
+    tooling = {"mesh": {}, "roofline": {}}
+    t_tooling = time.perf_counter()
+    phase("tooling mesh mode", tooling_mesh)
+    phase("tooling roofline", tooling_roofline)
+    phase("tooling perf_probe", tooling_probe)
+    tooling["seconds"] = time.perf_counter() - t_tooling
+    print(json.dumps({"tooling": tooling}))
 
     print(json.dumps({"kernels": [k1, k1b, k2, k3]}))
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",

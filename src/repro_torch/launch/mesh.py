@@ -8,9 +8,16 @@ called when this module is imported.  :func:`init_distributed` sets up
 the job's process group first: from torchrun's environment
 (``torchrun --nproc-per-node 4 -m ...``), from a ``FileStore`` path that
 the tests pass, or, for a world of one, from an in-process store.
+
+:func:`fake_world` joins a world of N ranks in one process instead, as
+its rank 0, over PyTorch's ``fake`` backend: a collective there returns at
+once and moves no data, so it serves for counting only (the dry run's
+mesh mode, ``launch/dryrun.py``, on ``meta`` tensors), and the production
+meshes are built over it with ``device_type="cpu"``.
 """
 from __future__ import annotations
 
+import contextlib
 import math
 import os
 
@@ -76,3 +83,32 @@ def make_debug_mesh(n_data: int = 2, n_model: int = 2, *, device_type="cuda"):
 def make_single_mesh(*, device_type="cuda"):
     """The 1x1 ("data", "model") mesh of one process."""
     return _mesh((1, 1), ("data", "model"), device_type)
+
+
+def join_fake_world(world_size: int):
+    """Join a fake world of ``world_size`` ranks as rank 0 (the ``fake``
+    backend over a ``FakeStore``: no other process, no data moved).
+    Raises if this process already belongs to a process group, fake or
+    not: it never takes over a gloo or NCCL group."""
+    if dist.is_initialized():
+        raise RuntimeError(f"this process already belongs to a process group "
+                           f"({dist.get_backend()}, world {dist.get_world_size()}); a fake "
+                           f"world is joined only by a process in none")
+    from torch.testing._internal.distributed.fake_pg import FakeStore  # registers "fake"
+    dist.init_process_group("fake", store=FakeStore(), rank=0, world_size=world_size)
+
+
+def leave_world():
+    """Leave the process group this process joined (``destroy_process_group``)."""
+    if dist.is_initialized():
+        dist.destroy_process_group()
+
+
+@contextlib.contextmanager
+def fake_world(world_size: int):
+    """:func:`join_fake_world` for the block, :func:`leave_world` after."""
+    join_fake_world(world_size)
+    try:
+        yield
+    finally:
+        leave_world()

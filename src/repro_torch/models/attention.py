@@ -25,11 +25,10 @@ def gqa_init(cfg: ModelConfig, gen: torch.Generator, device):
 
 
 def _qkv(cfg, p, x):
-    B, S, _ = x.shape
     H, KV, hd = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
-    q = (x @ p["wq"].to(x.dtype)).reshape(B, S, H, hd)
-    k = (x @ p["wk"].to(x.dtype)).reshape(B, S, KV, hd)
-    v = (x @ p["wv"].to(x.dtype)).reshape(B, S, KV, hd)
+    q = pctx.split_last(x @ p["wq"].to(x.dtype), H, hd)
+    k = pctx.split_last(x @ p["wk"].to(x.dtype), KV, hd)
+    v = pctx.split_last(x @ p["wv"].to(x.dtype), KV, hd)
     return q, k, v
 
 
@@ -57,8 +56,8 @@ def gqa_forward(cfg: ModelConfig, p, x, rope=None, *, causal=True, window=None,
     ka = pctx.constrain(ka, ("__dp__", None, "model", None))
     va = pctx.constrain(va, ("__dp__", None, "model", None))
     o = ops.flash_attention(qa, ka, va, causal=causal, window=window,
-                            scale=1.0 / (cfg.head_dim ** 0.5))[:, :, :H]
-    out = o.reshape(x.shape[0], x.shape[1], -1) @ p["wo"].to(x.dtype)
+                            scale=1.0 / (cfg.head_dim ** 0.5))
+    out = _merge_heads(o, H) @ p["wo"].to(x.dtype)
     if return_kv:
         return out, (k, v)
     return out
@@ -69,6 +68,14 @@ def _repeat_heads(t, H: int):
     place (``jnp.repeat`` along the heads)."""
     B, S, KV, D = t.shape
     return t[:, :, :, None, :].expand(B, S, KV, H // KV, D).reshape(B, S, H, D)
+
+
+def _merge_heads(o, H: int):
+    """(B, S, Hp, D) -> (B, S, H·D): the first H heads (the rest are
+    ``_pad_heads``' zeros), flattened, then sliced.  Slicing first would
+    leave the backward to unflatten a gradient sharded over ``model`` into
+    H heads that the axis may not divide (arctic's 56 on 16)."""
+    return pctx.merge_last(o)[..., :H * o.shape[-1]]
 
 
 def _pad_heads(t, multiple: int):
@@ -112,10 +119,9 @@ def mla_init(cfg: ModelConfig, gen: torch.Generator, device):
 
 
 def _mla_q(cfg, p, x, rope):
-    B, S, _ = x.shape
     H, nd, rd = cfg.n_heads, cfg.qk_nope_dim, cfg.qk_rope_dim
     ql = rmsnorm(x @ p["wq_a"].to(x.dtype), p["q_norm"], cfg.norm_eps)
-    q = (ql @ p["wq_b"].to(x.dtype)).reshape(B, S, H, nd + rd)
+    q = pctx.split_last(ql @ p["wq_b"].to(x.dtype), H, nd + rd)
     q_nope, q_rope = q[..., :nd], q[..., nd:]
     if rope is not None:
         cos, sin = rope
@@ -142,7 +148,7 @@ def mla_forward(cfg: ModelConfig, p, x, rope=None, *, causal=True, return_kv=Fal
     H, nd, rd, vd = cfg.n_heads, cfg.qk_nope_dim, cfg.qk_rope_dim, cfg.v_head_dim
     q_nope, q_rope = _mla_q(cfg, p, x, rope)
     ckv, k_rope = _mla_latent(cfg, p, x, rope)
-    kvb = (ckv @ p["wkv_b"].to(x.dtype)).reshape(B, S, H, nd + vd)
+    kvb = pctx.split_last(ckv @ p["wkv_b"].to(x.dtype), H, nd + vd)
     k_nope, v = kvb[..., :nd], kvb[..., nd:]
     q = torch.cat([q_nope, q_rope], -1)
     k = torch.cat([k_nope, k_rope[:, :, None, :].expand(B, S, H, rd)], -1)
@@ -154,9 +160,8 @@ def mla_forward(cfg: ModelConfig, p, x, rope=None, *, causal=True, return_kv=Fal
     q = pctx.constrain(q, ("__dp__", None, "model", None))
     k = pctx.constrain(k, ("__dp__", None, "model", None))
     v = pctx.constrain(v, ("__dp__", None, "model", None))
-    o = ops.flash_attention(q, k, v, causal=causal,
-                            scale=1.0 / ((nd + rd) ** 0.5))[:, :, :H]
-    out = o.reshape(B, S, -1) @ p["wo"].to(x.dtype)
+    o = ops.flash_attention(q, k, v, causal=causal, scale=1.0 / ((nd + rd) ** 0.5))
+    out = _merge_heads(o, H) @ p["wo"].to(x.dtype)
     if return_kv:
         return out, (ckv, k_rope)
     return out
@@ -176,7 +181,7 @@ def mla_decode(cfg: ModelConfig, p, x, ckv_c, krope_c, pos, rope=None):
     write_rows(ckv_c, pos, ckv)
     write_rows(krope_c, pos, k_rope)
     # absorb W^{kv_b}'s K half into the query
-    wkvb = p["wkv_b"].to(x.dtype).reshape(kvr, H, nd + vd)
+    wkvb = pctx.split_last(p["wkv_b"].to(x.dtype), H, nd + vd)
     wk = wkvb[..., :nd]                                    # (kvr, H, nd)
     q_abs = torch.einsum("bqhn,rhn->bqhr", q_nope, wk)     # (B,1,H,kvr)
     q_eff = torch.cat([q_abs, q_rope], -1)                 # (B,1,H,kvr+rd)

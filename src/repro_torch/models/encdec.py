@@ -118,10 +118,9 @@ def encode(cfg: ModelConfig, params, frames):
 def _cross(cfg, pl_cross, h, attend):
     """Cross-attention's query projection, ``attend(q)`` -> (B, S, H, hd)
     and the output projection, under ``CROSS_SPAN``."""
-    B, S, _ = h.shape
     with record_function(CROSS_SPAN):
-        q = (h @ pl_cross["wq"].to(h.dtype)).reshape(B, S, cfg.n_heads, cfg.head_dim)
-        return attend(q).reshape(B, S, -1) @ pl_cross["wo"].to(h.dtype)
+        q = pctx.split_last(h @ pl_cross["wq"].to(h.dtype), cfg.n_heads, cfg.head_dim)
+        return pctx.merge_last(attend(q)) @ pl_cross["wo"].to(h.dtype)
 
 
 def _dec_block(cfg, pl, x, enc_kv, *, return_kv=False):
@@ -150,10 +149,9 @@ def _cross_attention(cfg, q, k, v):
 def cross_kv(cfg: ModelConfig, pl_cross, enc):
     """The cross-attention's keys and values over the encoder states, each
     (B, S_enc, KV, hd)."""
-    B, Se, _ = enc.shape
     KV, hd = cfg.n_kv_heads, cfg.head_dim
-    k = (enc @ pl_cross["wk"].to(enc.dtype)).reshape(B, Se, KV, hd)
-    v = (enc @ pl_cross["wv"].to(enc.dtype)).reshape(B, Se, KV, hd)
+    k = pctx.split_last(enc @ pl_cross["wk"].to(enc.dtype), KV, hd)
+    v = pctx.split_last(enc @ pl_cross["wv"].to(enc.dtype), KV, hd)
     return k, v
 
 

@@ -186,6 +186,10 @@ def _ffn(cfg: ModelConfig, pl, h2):
     if cfg.family != "moe":
         return _mlp(pl, h2), None
     m, aux = moe_mod.moe_forward(cfg, pl["moe"], h2)
+    # on a mesh, back to h2's shards from the expert-parallel path's (the
+    # sequence over ``model``): torch 2.11's DTensor cannot flatten (B, S)
+    # for the next layer's products with S sharded
+    m = pctx.placed_like(m, h2)
     return (m + _mlp(pl, h2) if cfg.dense_residual else m), aux
 
 

@@ -138,12 +138,13 @@ def _moe_gather_replicated(cfg: ModelConfig, p, x):
     """The gather path under a mesh: the tokens and the experts gathered
     whole on every rank (an all-gather each, where JAX's partitioner would
     shard the gather itself), the same computation as without a mesh on
-    each rank, and the output cut back to x's placements."""
+    each rank, and the output cut back to x's shards (replicated where x
+    is a partial sum: a partial placement is DTensor's own to make)."""
     rep = tuple([Replicate()] * x.device_mesh.ndim)
     y, aux = local_map(lambda pl, xl: _moe_gather(cfg, pl, xl), out_placements=(rep, rep),
                        in_placements=(rep,) * 5, device_mesh=x.device_mesh)(
         {k: _replicated(p[k]) for k in ("router", "wg", "wu", "wd")}, _replicated(x))
-    return y.redistribute(x.device_mesh, x.placements), aux
+    return pctx.placed_like(y, x), aux
 
 
 def _moe_shard_map(cfg: ModelConfig, p, x, mesh, M: int):

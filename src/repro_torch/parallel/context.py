@@ -14,7 +14,8 @@ import contextlib
 import threading
 from typing import Optional
 
-from torch.distributed.tensor import DTensor
+import torch
+from torch.distributed.tensor import DTensor, Replicate, Shard
 
 from repro_torch.parallel.sharding import mesh_sizes, placements, spec_entry
 
@@ -73,4 +74,55 @@ def constrain(x, axes):
     if mesh is None or not isinstance(x, DTensor):
         return x
     want = placements(constrain_spec(x.shape, axes, mesh), mesh)
+    return x if tuple(x.placements) == want else x.redistribute(x.device_mesh, want)
+
+
+def split_last(x, *sizes):
+    """``x`` with its last dim split into ``sizes`` (a reshape).  GSPMD
+    tiles a sharded dim over the pieces it splits into; DTensor shards
+    only the first piece, and refuses when the axis that shards the dim
+    does not divide it (8 kv heads on a 16-wide ``model`` axis).  There
+    that axis is gathered first, as replicated, and the later
+    :func:`constrain` at the kernel's site shards the heads again."""
+    if isinstance(x, DTensor):
+        last = x.ndim - 1
+        sizes_ = mesh_sizes(x.device_mesh)
+        pl = tuple(Replicate() if isinstance(p, Shard) and p.dim == last
+                   and sizes[0] % sizes_[name] else p
+                   for name, p in zip(x.device_mesh.mesh_dim_names, x.placements))
+        if pl != tuple(x.placements):
+            x = x.redistribute(x.device_mesh, pl)
+    return x.reshape(*x.shape[:-1], *sizes)
+
+
+class _MergeLast(torch.autograd.Function):
+    """The last two dims flattened; the backward splits the gradient with
+    :func:`split_last`, where a view's backward would refuse a gradient
+    that the product after it left sharded on the flat dim."""
+
+    @staticmethod
+    def forward(ctx, x):
+        ctx.sizes = tuple(x.shape[-2:])
+        return x.reshape(*x.shape[:-2], -1)
+
+    @staticmethod
+    def backward(ctx, grad):
+        return split_last(grad, *ctx.sizes)
+
+
+def merge_last(x):
+    """``x`` with its last two dims flattened into one (a reshape); on a
+    DTensor its gradient goes back through :func:`split_last`."""
+    if isinstance(x, DTensor):
+        return _MergeLast.apply(x)
+    return x.reshape(*x.shape[:-2], -1)
+
+
+def placed_like(x, ref):
+    """``x`` redistributed to ``ref``'s placements, a partial sum there
+    taken as replicated (a partial placement is DTensor's own to make);
+    the identity for plain tensors."""
+    if not isinstance(x, DTensor) or not isinstance(ref, DTensor):
+        return x
+    want = tuple(Replicate() if p.is_partial() else p for p in ref.placements)
     return x if tuple(x.placements) == want else x.redistribute(x.device_mesh, want)
