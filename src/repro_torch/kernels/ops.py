@@ -25,7 +25,7 @@ from torch.distributed.tensor.experimental import local_map
 from repro_torch.kernels import ref as _ref
 from repro_torch.kernels.flash_attention import flash_attention as _flash_attention
 from repro_torch.kernels.quantize import quantize_cuda
-from repro_torch.kernels.ssd_scan import ssd_cuda
+from repro_torch.kernels.ssd_scan import ssd as _ssd
 
 PLAIN_DEVICES = ("cpu", "meta")   # the devices whose tensors take the plain versions
 
@@ -86,7 +86,9 @@ def flash_attention(q, k, v, *, causal=True, window=0, scale=None):
 def ssd(x, dt, A, B, C, *, chunk=256):
     """x: (b,s,h,p); dt: (b,s,h); A: (h,); B, C: (b,s,g,n); ``s % chunk == 0``.
     Returns (y in x.dtype, final float32 state (b,h,p,n)).  Dtypes pass
-    through as they come: nothing is cast on the host.  DTensors: x and dt
+    through as they come: nothing is cast on the host.  Differentiable on
+    both routes: autograd through the plain version on the CPU, the
+    backward kernel (``csrc/ssd_scan_bwd.cu``) on the card.  DTensors: x and dt
     with batch dim 0 and heads dim 2 placed alike, A's heads as x's, B and
     C as x's batch and replicated over ``model``; y is placed as x, the
     state (b,h,p,n) on the same batch and heads."""
@@ -103,7 +105,7 @@ def ssd(x, dt, A, B, C, *, chunk=256):
                          device_mesh=x.device_mesh)(x, dt, A, B, C)
     if x.device.type in PLAIN_DEVICES:
         return _ref.ssd_ref(x, dt, A, B, C, chunk=chunk)
-    return ssd_cuda(x, dt, A, B, C, chunk=chunk)
+    return _ssd(x, dt, A, B, C, chunk=chunk)
 
 
 # ----------------------------------------------------------------- quantize

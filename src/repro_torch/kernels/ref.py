@@ -88,6 +88,27 @@ def ssd_ref(x, dt, A, B, C, *, chunk: int = 256, initial_state=None):
     return torch.cat(ys, 1).to(x.dtype), state
 
 
+def ssd_bwd_ref(x, dt, A, B, C, dy, dstate=None, *, chunk: int = 256):
+    """The plain version of ``csrc/ssd_scan_bwd.cu``: (dx, ddt, dA, dB, dC)
+    of ``ssd_ref`` at (x, dt, A, B, C), given the output's gradient ``dy``
+    and the final state's ``dstate`` (None when the state is unused), by
+    autograd through ``ssd_ref``.  ``ssd_ref`` promotes x, B and C to
+    float32 before any product, so the gradient flows in float32 here and is
+    cast to each input's dtype once, at the end, as the kernel does.
+    Autograd through bfloat16 leaves would instead round each head's dB and
+    dC to bfloat16 before the sum over its group, several percent off where
+    the heads' terms cancel."""
+    leaves = [t.detach().float().requires_grad_() for t in (x, dt, A, B, C)]
+    with torch.enable_grad():
+        y, state = ssd_ref(*leaves, chunk=chunk)
+        outs, grads = [y], [dy.float()]
+        if dstate is not None:
+            outs.append(state)
+            grads.append(dstate.float())
+        got = torch.autograd.grad(outs, leaves, grads)
+    return tuple(g.to(t.dtype) for g, t in zip(got, (x, dt, A, B, C)))
+
+
 def ssd_decode_ref(x, dt, A, B, C, state):
     """One-token SSD recurrence.  x: (b,h,p); dt: (b,h); B,C: (b,g,n);
     state: (b,h,p,n) float32.  Returns (y: (b,h,p) in x.dtype, state).

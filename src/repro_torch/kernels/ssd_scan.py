@@ -1,16 +1,20 @@
-"""Mamba-2 SSD chunked scan (forward) as a hand-written CUDA kernel for Hopper.
+"""Mamba-2 SSD chunked scan as hand-written CUDA kernels for Hopper: the
+forward and its backward.
 
-Port of ``repro.kernels.ssd_scan.ssd_pallas``; the kernels are in
-``repro_torch/csrc/ssd_scan.cu`` (design and bound in its header).
-``repro_torch.kernels._build`` compiles it with ``nvcc`` for ``sm_90a`` into
-a shared library with a plain C interface at first use, under ``build/`` at
-the root of the checkout; it is called through ``ctypes``.  ``ssd_route``
-picks one of its two routes before launch: the chunk-parallel ``wgmma``
-kernels for the main path's bf16 case, the ``fma`` kernel for the rest.
+Port of ``repro.kernels.ssd_scan.ssd_pallas``; the forward's kernels are in
+``repro_torch/csrc/ssd_scan.cu``, the backward's in
+``repro_torch/csrc/ssd_scan_bwd.cu`` (design and bound in their headers).
+``repro_torch.kernels._build`` compiles each with ``nvcc`` for ``sm_90a``
+into a shared library with a plain C interface at first use, under
+``build/`` at the root of the checkout; they are called through ``ctypes``.
+``ssd_route`` picks one of the forward's two routes before launch: the
+chunk-parallel ``wgmma`` kernels for the main path's bf16 case, the ``fma``
+kernel for the rest.  The backward has one route, fp32 FMAs.
 
-The plain version of the same function is
-``repro_torch.kernels.ref.ssd_ref``; ``repro_torch.kernels.ops`` sends CPU
-tensors there and CUDA tensors here.
+The plain version of the forward is ``repro_torch.kernels.ref.ssd_ref``,
+of the backward autograd through it; ``repro_torch.kernels.ops`` sends CPU
+tensors there and CUDA tensors to :func:`ssd`, which differentiates the
+forward kernel with the backward one.
 """
 from __future__ import annotations
 
@@ -23,6 +27,7 @@ import torch
 from repro_torch.kernels import _build
 
 SRC = _build.CSRC / "ssd_scan.cu"
+BWD_SRC = _build.CSRC / "ssd_scan_bwd.cu"
 MAX_P, MAX_N, MAX_CHUNK = 64, 128, 1024
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 ROUTES = ("fma", "wgmma")   # the C entry's route codes, in order
@@ -91,6 +96,33 @@ def launch(entry, x, dt, A, B, C, chunk, stream):
     return route, y, state
 
 
+def _check(x, dt, A, B, C, chunk, name):
+    """Validate the forward's inputs for the kernels, on any device."""
+    b, s, h, p = x.shape
+    g, n = B.shape[2], B.shape[3]
+    if x.dtype not in _DTYPE_CODE or B.dtype != x.dtype or C.dtype != x.dtype:
+        raise TypeError(f"{name} takes float32 or bfloat16 x/B/C of one dtype, "
+                        f"got {x.dtype}, {B.dtype}, {C.dtype}")
+    if dt.dtype != torch.float32 or A.dtype != torch.float32:
+        raise TypeError(f"{name} takes float32 dt and A, got {dt.dtype}, {A.dtype}")
+    if (tuple(dt.shape) != (b, s, h) or tuple(A.shape) != (h,)
+            or tuple(B.shape) != (b, s, g, n) or tuple(C.shape) != (b, s, g, n)
+            or g == 0 or h % g):
+        raise ValueError(f"unsupported shapes x {tuple(x.shape)}, dt {tuple(dt.shape)}, "
+                         f"A {tuple(A.shape)}, B {tuple(B.shape)}, C {tuple(C.shape)}")
+    if not (1 <= p <= MAX_P and 1 <= n <= MAX_N and 1 <= chunk <= MAX_CHUNK):
+        raise ValueError(f"{name} covers head dim p <= {MAX_P}, state n <= {MAX_N} and "
+                         f"1 <= chunk <= {MAX_CHUNK}, got p={p}, n={n}, chunk={chunk}")
+    if s % chunk:
+        raise ValueError(f"sequence {s} is not a multiple of chunk {chunk}: pad it upstream")
+
+
+def _check_device(ts, name):
+    if any(t is not None and (t.device.type != "cuda" or t.device != ts[0].device) for t in ts):
+        raise ValueError(f"{name} needs its tensors on one CUDA device, got "
+                         f"{[str(t.device) for t in ts if t is not None]}")
+
+
 def ssd_cuda(x, dt, A, B, C, *, chunk=256):
     """x: (b, s, h, p); dt: (b, s, h) float32, post-softplus; A: (h,) float32;
     B, C: (b, s, g, n) with h % g == 0; x, B, C float32 or bfloat16 of one
@@ -100,30 +132,10 @@ def ssd_cuda(x, dt, A, B, C, *, chunk=256):
 
     Adds one to ``ssd_cuda.launches`` per call, whatever number of CUDA
     kernels its route runs, and one to ``ssd_cuda.routes[ssd_route(...)]``.
-    Forward only: inputs that require grad are refused."""
-    b, s, h, p = x.shape
-    g, n = B.shape[2], B.shape[3]
-    if any(t.device != x.device for t in (dt, A, B, C)) or x.device.type != "cuda":
-        raise ValueError(f"ssd_cuda needs x, dt, A, B, C on one CUDA device, got "
-                         f"{[str(t.device) for t in (x, dt, A, B, C)]}")
-    if x.dtype not in _DTYPE_CODE or B.dtype != x.dtype or C.dtype != x.dtype:
-        raise TypeError(f"ssd_cuda takes float32 or bfloat16 x/B/C of one dtype, "
-                        f"got {x.dtype}, {B.dtype}, {C.dtype}")
-    if dt.dtype != torch.float32 or A.dtype != torch.float32:
-        raise TypeError(f"ssd_cuda takes float32 dt and A, got {dt.dtype}, {A.dtype}")
-    if (tuple(dt.shape) != (b, s, h) or tuple(A.shape) != (h,)
-            or tuple(B.shape) != (b, s, g, n) or tuple(C.shape) != (b, s, g, n)
-            or g == 0 or h % g):
-        raise ValueError(f"unsupported shapes x {tuple(x.shape)}, dt {tuple(dt.shape)}, "
-                         f"A {tuple(A.shape)}, B {tuple(B.shape)}, C {tuple(C.shape)}")
-    if not (1 <= p <= MAX_P and 1 <= n <= MAX_N and 1 <= chunk <= MAX_CHUNK):
-        raise ValueError(f"ssd_cuda covers head dim p <= {MAX_P}, state n <= {MAX_N} and "
-                         f"1 <= chunk <= {MAX_CHUNK}, got p={p}, n={n}, chunk={chunk}")
-    if s % chunk:
-        raise ValueError(f"sequence {s} is not a multiple of chunk {chunk}: pad it upstream")
-    if any(t.requires_grad for t in (x, dt, A, B, C)):
-        raise NotImplementedError("ssd_cuda is forward-only (the JAX package has no "
-                                  "SSD backward kernel either)")
+    Inputs that require grad are taken, but the outputs carry no graph:
+    :func:`ssd` differentiates it through :func:`ssd_bwd_cuda`."""
+    _check_device((x, dt, A, B, C), "ssd_cuda")
+    _check(x, dt, A, B, C, chunk, "ssd_cuda")
     with torch.cuda.device(x.device):
         route, y, state = launch(_entry(), x, dt, A, B, C, chunk,
                                  torch.cuda.current_stream(x.device).cuda_stream)
@@ -134,3 +146,110 @@ def ssd_cuda(x, dt, A, B, C, *, chunk=256):
 
 ssd_cuda.launches = 0
 ssd_cuda.routes = dict.fromkeys(ROUTES, 0)
+
+
+# ---------------------------------------------------------------- backward
+
+def build_bwd() -> Path:
+    """Compile the backward kernel into ``build/`` unless it is there already."""
+    return _build.build(BWD_SRC)
+
+
+@functools.lru_cache(maxsize=None)
+def _bwd_entry():
+    return load_bwd(build_bwd())
+
+
+def load_bwd(lib: Path):
+    """The C entry point of a library built from ``ssd_scan_bwd.cu``."""
+    fn = ctypes.CDLL(str(lib)).ssd_scan_bwd
+    fn.argtypes = ([ctypes.c_void_p] * 15 + [ctypes.c_int] * 8
+                   + [ctypes.c_longlong] * 20 + [ctypes.c_void_p])
+    fn.restype = ctypes.c_int
+    return fn
+
+
+def launch_bwd(entry, x, dt, A, B, C, dy, dstate, chunk, stream):
+    """Run a backward library's C entry point (from ``load_bwd``) wherever
+    the tensors lie, on the stream handle ``stream``: checks them (all but
+    the device), allocates the gradients, their fp32 accumulators and the
+    scratch beside x and returns (dx, ddt, dA, dB, dC).  ``dstate`` is the
+    final state's gradient or None (0).  Raises if the entry reports an
+    error.  Counts nothing."""
+    _check(x, dt, A, B, C, chunk, "ssd_bwd_cuda")
+    b, s, h, p = x.shape
+    g, n = B.shape[2], B.shape[3]
+    if tuple(dy.shape) != (b, s, h, p) or dy.dtype != x.dtype:
+        raise ValueError(f"dy must be shaped and typed as x {(b, s, h, p)} {x.dtype}, got "
+                         f"{tuple(dy.shape)} {dy.dtype}")
+    if dstate is not None:
+        if tuple(dstate.shape) != (b, h, p, n) or dstate.dtype != torch.float32:
+            raise ValueError(f"the final state's gradient must be float32 {(b, h, p, n)}, "
+                             f"got {tuple(dstate.shape)} {dstate.dtype}")
+        dstate = dstate.contiguous()
+    f32, dev = torch.float32, x.device
+    dx = torch.empty((b, s, h, p), dtype=x.dtype, device=dev)   # every row is written
+    ddt = torch.empty((b, s, h), dtype=f32, device=dev)
+    dA = torch.zeros((h,), dtype=f32, device=dev)
+    acc = torch.zeros((2, b, s, g, n), dtype=f32, device=dev)   # dB, dC summed over the group
+    out = acc if x.dtype == f32 else torch.empty((2, b, s, g, n), dtype=x.dtype, device=dev)
+    scratch = torch.empty((max(1, b * h * ((s // chunk) * (2 * p * n + 1))),),
+                          dtype=f32, device=dev)
+    err = entry(x.data_ptr(), dt.data_ptr(), A.data_ptr(), B.data_ptr(), C.data_ptr(),
+                dy.data_ptr(), None if dstate is None else dstate.data_ptr(),
+                dx.data_ptr(), ddt.data_ptr(), dA.data_ptr(), acc[0].data_ptr(),
+                acc[1].data_ptr(), out[0].data_ptr(), out[1].data_ptr(), scratch.data_ptr(),
+                _DTYPE_CODE[x.dtype], b, s, h, p, g, n, chunk, *x.stride(), *dt.stride(),
+                A.stride(0), *B.stride(), *C.stride(), *dy.stride(), stream)
+    if err != 0:
+        raise RuntimeError(f"ssd_scan_bwd launch failed (CUDA error {err})")
+    return dx, ddt, dA, out[0], out[1]
+
+
+def ssd_bwd_cuda(x, dt, A, B, C, dy, dstate=None, *, chunk=256):
+    """Gradients (dx, ddt, dA, dB, dC) of ``ssd_cuda`` at (x, dt, A, B, C),
+    given the output's gradient ``dy`` (shaped and typed as x, any strides)
+    and the final state's ``dstate`` ((b, h, p, n) float32) or None when the
+    state is unused.  dx, dB and dC come in x's dtype, ddt and dA in
+    float32; dB and dC sum over the heads of each group, dA over every
+    (batch, step), in fp32 atomics (their last bits vary from run to run).
+    The same inputs as ``ssd_cuda`` (any strides), on one CUDA device.
+
+    Adds one to ``ssd_bwd_cuda.launches`` per call (three CUDA kernels, and
+    for bfloat16 two casts)."""
+    _check_device((x, dt, A, B, C, dy, dstate), "ssd_bwd_cuda")
+    with torch.cuda.device(x.device):
+        grads = launch_bwd(_bwd_entry(), x, dt, A, B, C, dy, dstate, chunk,
+                           torch.cuda.current_stream(x.device).cuda_stream)
+    ssd_bwd_cuda.launches += 1
+    return grads
+
+
+ssd_bwd_cuda.launches = 0
+
+
+class _SSD(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, dt, A, B, C, chunk):
+        y, state = ssd_cuda(x, dt, A, B, C, chunk=chunk)
+        ctx.save_for_backward(x, dt, A, B, C)
+        ctx.chunk = chunk
+        ctx.set_materialize_grads(False)   # an unused final state has no gradient
+        return y, state
+
+    @staticmethod
+    def backward(ctx, dy, dstate):
+        x, dt, A, B, C = ctx.saved_tensors
+        if dy is None:                     # only the final state was used
+            dy = torch.zeros_like(x)
+        return (*ssd_bwd_cuda(x, dt, A, B, C, dy, dstate, chunk=ctx.chunk), None)
+
+
+def ssd(x, dt, A, B, C, *, chunk=256):
+    """``ssd_cuda`` with its gradient through ``ssd_bwd_cuda``: only when
+    autograd records (grad mode on and an input that requires grad) does
+    the call go through the autograd ``Function``; otherwise it is the
+    serving kernel as it is."""
+    if torch.is_grad_enabled() and any(t.requires_grad for t in (x, dt, A, B, C)):
+        return _SSD.apply(x, dt, A, B, C, chunk)
+    return ssd_cuda(x, dt, A, B, C, chunk=chunk)

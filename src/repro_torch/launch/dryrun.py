@@ -43,9 +43,8 @@ The counts (:class:`LocalCount`, on each op a device runs):
     ``ops.ssd`` or ``ops.quantize`` runs its plain version, its ops add
     nothing to them; each call adds its kernel's own work instead
     (``launch/roofline.py``: K1's and its backward's operations over the
-    visible pairs and the bytes of q, k, v, o, K3's and K2's), on the
-    shapes of the rank's shard.  K3 has no backward kernel: a train cell's
-    SSM backward counts its plain version's ops;
+    visible pairs and the bytes of q, k, v, o, K3's and its backward's, and
+    K2's), on the shapes of the rank's shard;
   * ``collectives``: by kind (``all_reduce``, ``all_gather``,
     ``reduce_scatter``, ``all_to_all``, and an all-to-all to one peer as
     ``collective_permute``), ``_count``, ``_operand`` and ``_wire`` bytes
@@ -100,7 +99,7 @@ MESHES = {"single": 256, "multi": 512}   # the production meshes' ranks
 FLOPS_NOTE = ("torch.utils.flop_counter's registry over the meta run: attention and the SSD "
               "scan are counted as their plain versions compute them, every (query, key) "
               "score (the causal half included) and every chunk's quadratic block")
-WORK_NOTE = ("the kernels as units: K1 (and its backward), K3 and K2 each add their own "
+WORK_NOTE = ("the kernels as units: K1 and K3 (and their backwards) and K2 each add their own "
              "operations and bytes (launch/roofline.py) in place of their plain versions' ops")
 
 
@@ -327,30 +326,42 @@ def mesh_groups(mesh) -> dict:
 
 class _PlainUnit(torch.autograd.Function):
     """A unit's plain version as one autograd node, so that its backward
-    (K1's) is a unit too: the forward runs ``fn`` inside the unit; the
-    backward adds ``bwd_work`` and differentiates ``fn`` again, its
-    recompute counted nowhere and its gradient ops in the plain tally
-    only, which then holds the same ops as autograd through ``fn``."""
+    (K1's, K3's) is a unit too: the forward runs ``fn`` inside the unit;
+    the backward adds ``bwd_work(douts)`` (the outputs' gradients, None for
+    an unused output) and differentiates ``fn`` again, its recompute
+    counted nowhere and its gradient ops in the plain tally only, which
+    then holds the same ops as autograd through ``fn``.  The backward runs
+    through ``plain(fn, *tensors)`` (``units``' memo on meta); the forward
+    always runs ``fn``, since a remat region replays its forward's ops in
+    the recompute and checks them."""
 
     @staticmethod
-    def forward(ctx, fn, count, bwd_work, *inputs):
-        ctx.fn, ctx.count, ctx.bwd_work = fn, count, bwd_work
+    def forward(ctx, fn, count, bwd_work, plain, *inputs):
+        ctx.fn, ctx.count, ctx.bwd_work, ctx.plain = fn, count, bwd_work, plain
         ctx.save_for_backward(*inputs)
+        ctx.set_materialize_grads(False)
         with count.inside():
             return fn(*inputs)
 
     @staticmethod
-    def backward(ctx, dout):
+    def backward(ctx, *douts):
         inputs = ctx.saved_tensors
-        ctx.count.unit(*ctx.bwd_work)
-        xs = [t.detach().requires_grad_(t.requires_grad) for t in inputs]
-        with torch.enable_grad():
-            with ctx.count.inside(muted=True):
-                out = ctx.fn(*xs)
-            wanted = [x for x in xs if x.requires_grad]
-            with ctx.count.inside():
-                grads = iter(torch.autograd.grad(out, wanted, dout, allow_unused=True))
-        return (None, None, None, *(next(grads) if x.requires_grad else None for x in xs))
+        ctx.count.unit(*ctx.bwd_work(douts))
+        wanted = [t.requires_grad for t in inputs]
+        used = tuple(d is not None for d in douts)
+
+        def grads(*tensors):
+            xs = [t.detach().requires_grad_(w) for t, w in zip(tensors, wanted)]
+            with torch.enable_grad():
+                with ctx.count.inside(muted=True):
+                    out = ctx.fn(*xs)
+                outs = [o for o, u in zip(out if isinstance(out, tuple) else (out,), used) if u]
+                return torch.autograd.grad(outs, [x for x in xs if x.requires_grad],
+                                           tensors[len(xs):], allow_unused=True)
+
+        got = ctx.plain(used, grads, *inputs, *(d for d in douts if d is not None))
+        got = iter(got if isinstance(got, tuple) else (got,))
+        return (None, None, None, None, *(next(got) if w else None for w in wanted))
 
 
 @contextlib.contextmanager
@@ -390,6 +401,11 @@ def units(count):
         outs = [torch.empty_strided(*spec[:2], dtype=spec[2], device="meta") for spec in specs]
         return outs[0] if len(outs) == 1 else tuple(outs)
 
+    def unit_part(key):
+        """``plain`` for the backward of a differentiated unit's call, keyed
+        by ``key`` and by which of its outputs have a gradient."""
+        return lambda used, fn, *inputs: plain((*key, "backward", used), fn, *inputs)
+
     def k1(q, k, v, *, causal=True, window=0, scale=None):
         kw = dict(causal=causal, window=window, scale=scale)
         if isinstance(q, DTensor):
@@ -404,21 +420,22 @@ def units(count):
                  causal, window or 0)
         count.unit(q.dtype, *roofline.attention_work(*shape))
         fn = lambda q_, k_, v_: inner["flash_attention"](q_, k_, v_, **kw)  # noqa: E731
+        key = ("k1", causal, window, scale)
         if grad:
             bwd = (q.dtype, *roofline.attention_bwd_work(*shape))
-            return _PlainUnit.apply(fn, count, bwd, q, k, v)
-        return plain(("k1", causal, window, scale), fn, q, k, v)
+            return _PlainUnit.apply(fn, count, lambda douts: bwd, unit_part(key), q, k, v)
+        return plain(key, fn, q, k, v)
 
     def k3(x, dt, A, B, C, *, chunk=256):
         if isinstance(x, DTensor):
             return inner["ssd"](x, dt, A, B, C, chunk=chunk)
-        b, s, h, p = x.shape
-        count.unit(x.dtype, *roofline.ssd_work(b, s, h, p, B.shape[2], B.shape[3], chunk,
-                                               x.element_size()))
+        shape = (*x.shape, B.shape[2], B.shape[3], chunk, x.element_size())
+        count.unit(x.dtype, *roofline.ssd_work(*shape))
         fn = lambda *a: inner["ssd"](*a, chunk=chunk)  # noqa: E731
         if torch.is_grad_enabled() and any(t.requires_grad for t in (x, dt, A, B, C)):
-            with count.inside():     # its backward is counted op by op (no K3 backward)
-                return fn(x, dt, A, B, C)
+            def bwd(douts):   # the final state's gradient is read only when it is used
+                return (x.dtype, *roofline.ssd_bwd_work(*shape, final_grad=douts[1] is not None))
+            return _PlainUnit.apply(fn, count, bwd, unit_part(("k3", chunk)), x, dt, A, B, C)
         return plain(("k3", chunk), fn, x, dt, A, B, C)
 
     def k2(x, *, group=256):
@@ -573,7 +590,8 @@ def _launches():
     from repro_torch.kernels import flash_attention as fa
     from repro_torch.kernels import quantize, ssd_scan
     return {"k1": fa.flash_attention_cuda.launches, "k1b": fa.flash_attention_bwd_cuda.launches,
-            "k2": quantize.quantize_cuda.launches, "k3": ssd_scan.ssd_cuda.launches}
+            "k2": quantize.quantize_cuda.launches, "k3": ssd_scan.ssd_cuda.launches,
+            "k3b": ssd_scan.ssd_bwd_cuda.launches}
 
 
 def card_record(cfg, shape, *, reps=1, profile=False) -> dict:

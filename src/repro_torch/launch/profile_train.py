@@ -1,9 +1,11 @@
 """Where the training step's time goes on the card, warm.
 
-    python -m repro_torch.launch.profile_train
+    python -m repro_torch.launch.profile_train [--arch llama3.2-1b | mamba2-780m | hymba-1.5b]
 
-Trains llama3.2-1b at full width (batch 4 x 2048 tokens, bf16 compute, f32
-parameters, remat "dots", AdamW, int8-compressed gradients) through
+Trains one model at full width (llama3.2-1b by default; mamba2-780m runs K3
+and its backward in every layer, hymba-1.5b K1, K3 and both backwards;
+batch 4 x 2048 tokens, bf16 compute, f32 parameters, remat "dots", AdamW,
+int8-compressed gradients) through
 ``repro_torch.train.steps``: two steps to warm up (allocator, cuBLAS, the
 kernels' builds), three timed on the host clock around synchronised work,
 and one under ``torch.profiler`` for the device time by kernel.  Prints the
@@ -15,6 +17,7 @@ power limit.  Needs a CUDA card.
 """
 from __future__ import annotations
 
+import argparse
 import json
 import subprocess
 import time
@@ -26,27 +29,35 @@ from repro_torch.configs.registry import get_config
 from repro_torch.data.pipeline import SyntheticTokens
 from repro_torch.kernels.flash_attention import flash_attention_bwd_cuda, flash_attention_cuda
 from repro_torch.kernels.quantize import quantize_cuda
+from repro_torch.kernels.ssd_scan import ssd_bwd_cuda, ssd_cuda
 from repro_torch.launch.profile_serve import TOP, _device_ms
 from repro_torch.models.registry import build
 from repro_torch.optim.adamw import AdamW
 from repro_torch.train import steps as tsteps
 
-ARCH, B, S, SEED = "llama3.2-1b", 4, 2048, 0   # the training slice's shape
+ARCHS = ("llama3.2-1b", "mamba2-780m", "hymba-1.5b")   # chip_smoke.py's TRAIN_ARCHS
+B, S, SEED = 4, 2048, 0                        # the training slice's shape
 LR = 1e-5                                      # chip_smoke.py's TRAIN_LR
-KERNELS = {"k1": flash_attention_cuda, "k1b": flash_attention_bwd_cuda, "k2": quantize_cuda}
+KERNELS = {"k1": flash_attention_cuda, "k1b": flash_attention_bwd_cuda, "k2": quantize_cuda,
+           "k3": ssd_cuda, "k3b": ssd_bwd_cuda}
 # device-kernel names of the hand-written kernels (substrings of the profiler's keys)
 OWN = {"k1": ("fa_fwd_",), "k1b": ("bwd_delta", "bwd_dq_", "bwd_dkdv_", "bwd_wgmma"),
-       "k2": ("quantize_kernel",)}
+       "k2": ("quantize_kernel",),
+       "k3": ("ssd_chunk_state", "ssd_carry", "ssd_chunk_out", "ssd_fwd"),
+       "k3b": ("ssd_bwd_states", "ssd_bwd_carry", "ssd_bwd_chunk", "cast_rows")}
 WARM, TIMED = 2, 3
 
 
-def main():
+def main(argv=None):
+    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("--arch", choices=ARCHS, default=ARCHS[0])
+    args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         raise SystemExit("profile_train measures the card: no CUDA device")
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                          capture_output=True, text=True, timeout=60)
     dev = torch.device("cuda")
-    cfg = get_config(ARCH)
+    cfg = get_config(args.arch)
     model, opt = build(cfg), AdamW(lr=LR)
     torch.cuda.reset_peak_memory_stats()
     state = tsteps.init_train_state(model, opt, torch.Generator(dev).manual_seed(SEED))

@@ -12,9 +12,10 @@ three terms, in seconds a step on one device:
   * ``t_collective``: each mesh group's wire bytes over its link (0 at
     1x1), the groups taken one after another.
 
-``work_*`` count the three kernels as units (their own operations and
-bytes, :func:`attention_work`, :func:`attention_bwd_work`,
-:func:`ssd_work`, :func:`quantize_work`) and every other op of the step as
+``work_*`` count the three kernels and the two backwards as units (their
+own operations and bytes, :func:`attention_work`,
+:func:`attention_bwd_work`, :func:`ssd_work`, :func:`ssd_bwd_work`,
+:func:`quantize_work`) and every other op of the step as
 it runs; so the terms read the same work whatever implements a kernel.
 ``chip_smoke.py``'s bound column calls the same functions.  Then the
 ``bottleneck`` (the largest term), ``model_flops`` (JAX's 6·N·D for a
@@ -115,6 +116,24 @@ def ssd_work(b, s, h, p, g, n, chunk, itemsize):
     return flops, nbytes
 
 
+def ssd_bwd_work(b, s, h, p, g, n, chunk, itemsize, final_grad=False):
+    """(operations, bytes) of one SSD backward.  Operations: C B^T over each
+    chunk's causal triangle once per (batch, group, chunk); then per
+    (batch * head, chunk), over the triangle, M = dy (x dt)^T, d(x dt) =
+    (G L)^T dy, dC = (L M) B and dB = (L M)^T C, and five (chunk, p, n)
+    products: the chunk's starting state recomputed (the forward's state
+    update), its gradient's share sum exp(c_i) dy_i C_i^T, and S0^T dy,
+    dS1 B and dS1^T (x dt) for dC, d(x dt) and dB.  Bytes: x, dt (f32), A,
+    B, C and dy (and the final state's f32 gradient when it is given) read
+    once; dx, ddt (f32), dA, dB and dC written once."""
+    nc, tri = s // chunk, chunk * (chunk + 1) // 2
+    flops = (b * g * nc * 2 * tri * n
+             + b * h * nc * (2 * tri * (2 * p + 2 * n) + 5 * 2 * chunk * p * n))
+    nbytes = (3 * b * s * h * p * itemsize + 2 * 4 * b * s * h + 2 * 4 * h
+              + 4 * b * s * g * n * itemsize + (4 * b * h * p * n if final_grad else 0))
+    return flops, nbytes
+
+
 def quantize_work(n, group, itemsize):
     """(operations, bytes) of one int8 group quantize of n values: each
     value read once and written once as int8, one float32 scale per group.
@@ -144,6 +163,11 @@ def attention_bwd_bound(B, Sq, Skv, H, KV, D, Dv, itemsize, causal, window, peak
 def ssd_bound(b, s, h, p, g, n, chunk, itemsize, peak_flops):
     """Least time (ms) for one SSD scan, and what bounds it."""
     return bound_ms(*ssd_work(b, s, h, p, g, n, chunk, itemsize), peak_flops)
+
+
+def ssd_bwd_bound(b, s, h, p, g, n, chunk, itemsize, peak_flops, final_grad=False):
+    """Least time (ms) for one SSD backward, and what bounds it."""
+    return bound_ms(*ssd_bwd_work(b, s, h, p, g, n, chunk, itemsize, final_grad), peak_flops)
 
 
 def quantize_bound(n, group, itemsize):

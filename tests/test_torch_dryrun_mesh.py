@@ -397,6 +397,48 @@ def test_k3_and_k2_units_count_their_own_work():
     assert count.hbm_bytes > 0
 
 
+@pytest.mark.parametrize("final", [False, True])
+def test_k3_backward_unit_counts_its_own_work(final):
+    """Under autograd K3 is one unit each way: its forward adds ``ssd_work``,
+    its backward ``ssd_bwd_work`` (with the final state's gradient read only
+    when the state is used), the plain backward in the plain tally only."""
+    b, s, h, p, g, n, chunk = 2, 128, 4, 16, 1, 8, 32
+    args = (_meta(b, s, h, p, grad=True), _meta(b, s, h, dtype=torch.float32, grad=True),
+            _meta(h, dtype=torch.float32, grad=True), _meta(b, s, g, n, grad=True),
+            _meta(b, s, g, n, grad=True))
+    count = dryrun.LocalCount()
+    with dryrun.units(count), count:
+        y, state = ops.ssd(*args, chunk=chunk)
+    plain_fwd = count.flops
+    outs, grads = (y, state), (_meta(b, s, h, p), _meta(b, h, p, n, dtype=torch.float32))
+    with dryrun.units(count), count:
+        torch.autograd.grad(outs[:1 + final], args, grads[:1 + final])
+    shape = (b, s, h, p, g, n, chunk, 2)
+    flops, nbytes = roofline.ssd_work(*shape)
+    bflops, bbytes = roofline.ssd_bwd_work(*shape, final_grad=final)
+    assert count.record()["work_flops"] == flops + bflops
+    assert count.work_hbm_bytes == nbytes + bbytes
+    assert count.flops > plain_fwd
+    assert roofline.ssd_bwd_work(*shape, final_grad=True)[1] == (
+        roofline.ssd_bwd_work(*shape)[1] + 4 * b * h * p * n)
+
+
+def test_k3_backward_unit_gives_the_plain_gradients():
+    """On the CPU the unit's backward differentiates the plain version, the
+    final state unused: the gradients are autograd's through ``ssd_ref``."""
+    g = torch.Generator().manual_seed(0)
+    args = [torch.randn(1, 32, 2, 8, generator=g), torch.rand(1, 32, 2, generator=g),
+            -torch.rand(2, generator=g), torch.randn(1, 32, 1, 8, generator=g),
+            torch.randn(1, 32, 1, 8, generator=g)]
+    args = [t.requires_grad_() for t in args]
+    want = torch.autograd.grad(ops.ssd(*args, chunk=16)[0].square().sum(), args)
+    count = dryrun.LocalCount()
+    with dryrun.units(count), count:
+        got = torch.autograd.grad(ops.ssd(*args, chunk=16)[0].square().sum(), args)
+    for a, b in zip(got, want):
+        torch.testing.assert_close(a, b, rtol=0, atol=0)
+
+
 def test_plain_flops_are_flop_counter_modes():
     """The record's ``flops`` keep their meaning: what ``FlopCounterMode``
     counts of the same step."""

@@ -78,7 +78,8 @@ def test_link_inside_a_node_and_across_nodes():
 
 def test_bound_column_reads_the_same_numbers():
     """PERF.md §6's bound column (``chip_smoke.py`` on the H100): K1 at
-    llama's prefill, the K1 backward, K3 at mamba2's and K2 on the
+    llama's prefill, the K1 backward, K3 at mamba2's, K3's backward at
+    mamba2's (bf16 and fp32 peaks) and hymba's train shapes, and K2 on the
     embedding's gradient."""
     bf16, f32 = roofline.PEAK_BF16_FLOPS, roofline.PEAK_F32_FLOPS
     assert (bf16, f32, roofline.PEAK_BYTES) == (989e12, 67e12, 3.35e12)
@@ -89,6 +90,9 @@ def test_bound_column_reads_the_same_numbers():
              (roofline.attention_bwd_bound(4, 2048, 2048, 32, 8, 64, 64, 2, True, 0, bf16),
               0.1738, "operations"),
              (roofline.ssd_bound(4, 2048, 48, 64, 1, 128, 256, 2, bf16), 0.0336, "bytes"),
+             (roofline.ssd_bwd_bound(4, 2048, 48, 64, 1, 128, 256, 2, bf16), 0.0721, "operations"),
+             (roofline.ssd_bwd_bound(4, 2048, 48, 64, 1, 128, 256, 2, f32), 1.064, "operations"),
+             (roofline.ssd_bwd_bound(4, 2048, 50, 64, 1, 16, 256, 2, bf16), 0.0482, "bytes"),
              (roofline.quantize_bound(128256 * 2048, 256, 4), 0.3933, "bytes")]
     for (ms, by), want, want_by in cases:
         assert (round(ms, 4), by) == (want, want_by)

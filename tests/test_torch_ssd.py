@@ -1,14 +1,19 @@
 """K3, the SSD scan: the port's CPU path of ``ops.ssd`` against the Pallas
 kernel (interpret mode) and the JAX oracle over the sweep of
 ``tests/test_kernels.py``, the port's ``ssd_ref``/``ssd_decode_ref``
-against JAX's, the kernel's route choice and its wgmma route's precision
-plan emulated in plain torch, and, on a CUDA card, the hand-written kernel
-against its plain version on the route each case names.
+against JAX's, the port's ``ssd_ref`` gradients against ``jax.grad`` of
+JAX's, the kernel's route choice and its wgmma route's precision plan
+emulated in plain torch, and, on a CUDA card, the hand-written kernel
+against its plain version on the route each case names, and its backward
+(``ssd_bwd_cuda``, ``ops.ssd`` under autograd) against ``ssd_bwd_ref``.
 
 Tolerances: 2e-3 for float32 y and state, as the JAX suite holds K3
 (``tests/test_kernels.py:49-50``); 2e-2 for y from bfloat16 x/B/C (one
 bfloat16 rounding of y, whose sums run in another order); 1e-5 for the
-one-step recurrence (a handful of float32 products).
+one-step recurrence (a handful of float32 products).  Gradients: the same
+2e-3 / 2e-2 of 1+|ref|, but dA, a sum over every (batch, step) whose terms
+cancel, by ||d|| / ||ref|| <= 1e-3 (float32) / 1e-2 (bfloat16) on the card
+(the CPU checks against JAX hold it per element too).
 
 JAX is imported inside the ``jx`` fixture, not at the top: the kernel
 tests need none, and on the card they run alone
@@ -21,7 +26,7 @@ import torch
 
 from repro_torch.kernels import ops
 from repro_torch.kernels import ref as tref
-from repro_torch.kernels.ssd_scan import ssd_cuda, ssd_route
+from repro_torch.kernels.ssd_scan import ssd_bwd_cuda, ssd_cuda, ssd_route
 
 SWEEP = [
     (1, 32, 2, 8, 1, 8, 8),
@@ -29,6 +34,7 @@ SWEEP = [
     (1, 128, 4, 32, 1, 32, 32),
 ]
 TOL = {"float32": 2e-3, "bfloat16": 2e-2}
+DA_REL = {"float32": 1e-3, "bfloat16": 1e-2}
 
 
 @pytest.fixture(scope="module")
@@ -114,6 +120,90 @@ def test_ssd_ref_initial_state_matches_jax_and_splits(jx):
     _close(_f32(st2), _f32(st_whole), 2e-4)
 
 
+GRAD_CASES = [  # (b, s, h, p, g, n, chunk, initial state)
+    (2, 32, 2, 8, 1, 8, 16, False),      # g 1, rep 2, two chunks of 16
+    (1, 64, 4, 16, 2, 16, 16, True),     # g 2, rep 2, from a given state
+    (2, 128, 6, 8, 2, 16, 64, False),    # g 2, rep 3, chunk 64
+    (1, 128, 4, 16, 1, 32, 64, True),    # rep 4, chunk 64, from a given state
+]
+
+
+@pytest.mark.parametrize("b,s,h,p,g,n,chunk,init", GRAD_CASES)
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_ssd_ref_gradients_match_jax_grad(jx, b, s, h, p, g, n, chunk, init, dtype):
+    """dx, ddt, dA, dB, dC (and d(initial state) where one is given) of the
+    port's ``ssd_ref`` by autograd against ``jax.grad`` of JAX's, the same
+    numpy inputs and output gradients (dy, and a d(final state)) on both
+    sides: the plain version of the backward kernel (``ssd_bwd_ref``).  In
+    bfloat16, x, B, C and dy are rounded to bfloat16 and both sides
+    differentiate in float32 (both ``ssd_ref``s promote x, B and C before
+    any product) and cast each gradient once, as the kernel does: through
+    bfloat16 leaves each framework rounds every head's dB and dC before the
+    sum over its group, at other places, and a flip at a cancelling sum
+    shows up to 0.11 apart at rep 3."""
+    import jax
+    rng = np.random.default_rng(10)
+    arrs = list(_inputs(b, s, h, p, g, n, seed=11))
+    dy = rng.normal(size=(b, s, h, p)).astype(np.float32)
+    dfin = rng.normal(size=(b, h, p, n)).astype(np.float32)
+    if init:
+        arrs.append(rng.normal(size=(b, h, p, n)).astype(np.float32))
+    for i in (0, 3, 4):   # the bfloat16 values, held in float32
+        arrs[i] = torch.from_numpy(arrs[i]).to(getattr(torch, dtype)).float().numpy()
+    dy = torch.from_numpy(dy).to(getattr(torch, dtype)).float().numpy()
+    leaves = [torch.from_numpy(a).requires_grad_() for a in arrs]
+    y, st = tref.ssd_ref(*leaves[:5], chunk=chunk, initial_state=leaves[5] if init else None)
+    got = torch.autograd.grad((y, st), leaves, (torch.from_numpy(dy), torch.from_numpy(dfin)))
+    jnp = jx.jnp
+
+    def loss(*args):
+        jy, jst = jx.ref.ssd_ref(*args[:5], chunk=chunk,
+                                 initial_state=args[5] if init else None)
+        return (jy * jnp.asarray(dy)).sum() + (jst * jnp.asarray(dfin)).sum()
+
+    want = jax.grad(loss, argnums=tuple(range(len(arrs))))(*(jnp.asarray(a) for a in arrs))
+    cast = {0: dtype, 3: dtype, 4: dtype}   # dx, dB, dC in the inputs' dtype
+    for i, (name, g_, w) in enumerate(zip(("dx", "ddt", "dA", "dB", "dC", "dinit"), got, want)):
+        g_ = g_.to(getattr(torch, cast.get(i, "float32")))
+        w = np.asarray(jnp.asarray(w).astype(cast.get(i, "float32")), np.float32)
+        _close(_f32(g_), w, TOL[dtype])
+    rel = float(np.linalg.norm(_f32(got[2]) - np.asarray(want[2], np.float32))
+                / np.linalg.norm(np.asarray(want[2], np.float32)))
+    assert rel <= DA_REL[dtype], rel
+
+
+def test_ssd_bwd_ref_is_autograd_in_float32():
+    """``ssd_bwd_ref``: autograd through ``ssd_ref`` with the gradient in
+    float32, cast to each input's dtype at the end; for float32 inputs,
+    exactly autograd through ``ssd_ref``."""
+    b, s, h, p, g, n, chunk = 1, 32, 4, 8, 2, 8, 16
+    rng = np.random.default_rng(12)
+    dy = torch.from_numpy(rng.normal(size=(b, s, h, p)).astype(np.float32))
+    dfin = torch.from_numpy(rng.normal(size=(b, h, p, n)).astype(np.float32))
+    args = [t.requires_grad_() for t in _torch(_inputs(b, s, h, p, g, n, seed=13))]
+    y, st = tref.ssd_ref(*args, chunk=chunk)
+    want = torch.autograd.grad((y, st), args, (dy, dfin))
+    got = tref.ssd_bwd_ref(*args, dy, dfin, chunk=chunk)
+    for g_, w in zip(got, want):
+        torch.testing.assert_close(g_, w, rtol=0, atol=0)
+    bf = _torch(_inputs(b, s, h, p, g, n, seed=13), "bfloat16")
+    got = tref.ssd_bwd_ref(*bf, dy.bfloat16(), chunk=chunk)
+    assert [t.dtype for t in got] == [t.dtype for t in bf]
+
+
+def test_cpu_path_differentiates_the_plain_version():
+    """``ops.ssd`` on CPU tensors under autograd is ``ssd_ref``'s graph: the
+    card's kernels are not reached."""
+    args = [t.requires_grad_() for t in _torch(_inputs(1, 32, 2, 8, 1, 8, seed=14))]
+    before = (ssd_cuda.launches, ssd_bwd_cuda.launches)
+    y, _ = ops.ssd(*args, chunk=16)
+    got = torch.autograd.grad(y.square().sum(), args)
+    want = torch.autograd.grad(tref.ssd_ref(*args, chunk=16)[0].square().sum(), args)
+    for g_, w in zip(got, want):
+        torch.testing.assert_close(g_, w, rtol=0, atol=0)
+    assert (ssd_cuda.launches, ssd_bwd_cuda.launches) == before
+
+
 def test_ssd_ref_refuses_a_ragged_sequence():
     with pytest.raises(ValueError, match="multiple of chunk"):
         tref.ssd_ref(*_torch(_inputs(1, 20, 2, 8, 1, 8)), chunk=16)
@@ -158,6 +248,9 @@ def test_ssd_chunked_equals_sequential_recurrence():
 def test_wrapper_refuses_cpu_tensors():
     with pytest.raises(ValueError, match="CUDA"):
         ssd_cuda(*_torch(_inputs(1, 32, 2, 8, 1, 8)), chunk=8)
+    args = _torch(_inputs(1, 32, 2, 8, 1, 8))
+    with pytest.raises(ValueError, match="CUDA"):
+        ssd_bwd_cuda(*args, torch.zeros((1, 32, 2, 8)), chunk=8)
 
 
 def _projection_views(b, s, h, p, g, n, dtype=torch.bfloat16, offset=0, device="cpu"):
@@ -208,6 +301,18 @@ def test_bench_ssd_refuses_to_run_without_a_card(monkeypatch):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(SystemExit, match="CUDA card"):
         bench_ssd.main([])
+
+
+@pytest.mark.parametrize("arch", ["mamba2-780m", "hymba-1.5b"])
+def test_profile_train_takes_the_ssm_archs_and_refuses_without_a_card(monkeypatch, arch):
+    """``profile_train --arch`` trains the SSM and hybrid families too (K3
+    and its backward among its kernels); it measures the card only."""
+    from repro_torch.launch import profile_train
+    assert arch in profile_train.ARCHS and {"k3", "k3b"} <= set(profile_train.KERNELS)
+    assert profile_train.KERNELS["k3b"] is ssd_bwd_cuda
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(SystemExit, match="CUDA device"):
+        profile_train.main(["--arch", arch])
 
 
 def _terms(v, split):
@@ -361,11 +466,47 @@ def test_kernel_reads_strided_views_on_card(cuda):
 
 
 def test_kernel_refuses_grad_and_unsupported_sizes_on_card(cuda):
+    """The sizes the kernels do not cover are refused, forward and
+    backward; inputs that require grad are taken, and ``ops.ssd``
+    differentiates through the backward kernel."""
     x, dt, A, B, C = _torch(_inputs(1, 32, 2, 8, 1, 8), "float32", cuda)
-    with pytest.raises(NotImplementedError, match="forward-only"):
-        ssd_cuda(x.requires_grad_(), dt, A, B, C, chunk=8)
+    args = [t.requires_grad_() for t in (x, dt, A, B, C)]
+    before = ssd_bwd_cuda.launches
+    y, _ = ops.ssd(*args, chunk=8)
+    dy = torch.randn_like(y)
+    got = torch.autograd.grad(y, args, dy)
+    assert ssd_bwd_cuda.launches == before + 1
+    for g_, w in zip(got, tref.ssd_bwd_ref(*args, dy, chunk=8)):
+        _close(_f32(g_), _f32(w), TOL["float32"])
     x, dt, A, B, C = _torch(_inputs(1, 32, 2, 128, 1, 8), "float32", cuda)
     with pytest.raises(ValueError, match="p <= 64"):
         ssd_cuda(x, dt, A, B, C, chunk=8)
+    with pytest.raises(ValueError, match="p <= 64"):
+        ssd_bwd_cuda(x, dt, A, B, C, torch.zeros_like(x), chunk=8)
     with pytest.raises(ValueError, match="multiple of chunk"):
         ssd_cuda(*_torch(_inputs(1, 20, 2, 8, 1, 8), "float32", cuda), chunk=8)
+
+
+BWD_CARD_CASES = [(*shape, dtype, final) for shape in SWEEP + [
+    (1, 3, 2, 16, 1, 16, 1),          # chunk 1
+    (2, 512, 8, 64, 2, 128, 256),     # two groups at the serving chunk
+    (1, 200, 4, 64, 1, 128, 100),     # chunk 100: ragged 64-row tiles
+    (2, 512, 50, 64, 1, 16, 256),     # hymba-1.5b's state 16 over its 50 heads
+    (1, 130, 3, 24, 3, 40, 65),       # odd p, n and group count
+] for dtype in ("float32", "bfloat16") for final in (False, True)]
+
+
+@pytest.mark.parametrize("b,s,h,p,g,n,chunk,dtype,final", BWD_CARD_CASES)
+def test_backward_matches_plain_on_card(cuda, b, s, h, p, g, n, chunk, dtype, final):
+    x, dt, A, B, C = _torch(_inputs(b, s, h, p, g, n), dtype, cuda)
+    gen = torch.Generator(cuda).manual_seed(1)
+    dy = torch.randn((b, s, h, p), generator=gen, device=cuda).to(x.dtype)
+    dfin = torch.randn((b, h, p, n), generator=gen, device=cuda) if final else None
+    got = ssd_bwd_cuda(x, dt, A, B, C, dy, dfin, chunk=chunk)
+    torch.cuda.synchronize()
+    want = tref.ssd_bwd_ref(x, dt, A, B, C, dy, dfin, chunk=chunk)
+    for i, (g_, w) in enumerate(zip(got, want)):
+        assert g_.dtype == w.dtype and bool(torch.isfinite(g_.float()).all())
+        if i != 2:   # dA, a sum over every (batch, step), by its error norm
+            _close(_f32(g_), _f32(w), TOL[dtype])
+    assert float((got[2] - want[2]).norm() / want[2].norm()) <= DA_REL[dtype]

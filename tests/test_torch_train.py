@@ -324,12 +324,18 @@ def test_crash_restart_resumes_exactly():
     nv3.shutdown()
 
 
-def test_train_step_with_compression_matches_jax(np_params):
+@pytest.mark.parametrize("arch", [ARCH, "mamba2-780m", "hymba-1.5b"])
+def test_train_step_with_compression_matches_jax(np_params, arch):
     """One whole train step from shared parameters, compressed gradients:
-    loss before the step and parameters after it agree with JAX's."""
+    loss before the step and parameters after it agree with JAX's (the SSM
+    and hybrid families through the SSD scan's backward: on the CPU its
+    plain version, autograd through ``ssd_ref``)."""
+    if arch != ARCH:
+        np_params = jax.tree.map(np.asarray, jax_build(jax_smoke(arch)).init(
+            jax.random.PRNGKey(0)))
     toks = _tokens(seed=4)
-    jc = dataclasses.replace(jax_smoke(ARCH), compute_dtype="float32")
-    tc = dataclasses.replace(get_smoke(ARCH), compute_dtype="float32")
+    jc = dataclasses.replace(jax_smoke(arch), compute_dtype="float32")
+    tc = dataclasses.replace(get_smoke(arch), compute_dtype="float32")
     from repro.models.registry import build as jbuild
     from repro.train import steps as jsteps
     jstep = jsteps.make_train_step(jbuild(jc), jadamw.AdamW(lr=1e-2), compress=True)
