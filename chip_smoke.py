@@ -46,9 +46,11 @@ Phases, each of which must pass:
              (b 16, x, B and C views of one 3328-wide row), every batch row
              against the plain version; K3's backward (dx, ddt, dA, dB, dC)
              against autograd of the plain version at mamba2-780m's and
-             hymba-1.5b's train shapes on the projection views (timed
-             beside the plain version), at phase 6's train_4k rows, and at
-             the SMOKE and sweep shapes in both dtypes;
+             hymba-1.5b's train shapes on the projection views, at phase
+             6's train_4k rows (all four on the wgmma route), and at the
+             SMOKE and sweep shapes in both dtypes (fma route), dx
+             bit-equal over two runs, and both routes timed in turns at
+             the two train shapes beside the plain version;
   3. serve   llama3.2-1b, mamba2-780m, minicpm3-4b, hymba-1.5b (K1 and K3
              in every layer), minitron-8b, granite-20b (learned positions,
              bfloat16 parameters: its float32 ones do not fit the card),
@@ -349,7 +351,9 @@ SSD_32K_CUT_CASE = (16, *SSD_32K_CASE[1:])
 # chunk 256), and the SMOKE steps' (batch 2, seq 32 and the launcher's 64:
 # mamba2 8 heads of 16 at state 16, hymba state 8, chunk 16) and the sweep's
 # shapes in both dtypes, one with d(final state).  dx, ddt, dB, dC by
-# SSD_TOL·(1+|ref|); dA, a sum over every (batch, step), by ||d||/||ref||
+# SSD_TOL·(1+|ref|); dA, a sum over every (batch, step), by ||d||/||ref||.
+# Each case takes the route ssd_route_wanted names (dy contiguous): wgmma
+# for the four bf16 rows at p 64, fma for the SMOKE (p 16) and f32 ones
 SSD_BWD_CASES = [(*SSD_SLICE.values(), "bfloat16", "views", False),
                  (*HYMBA_SSD.values(), "bfloat16", "views", False),
                  (1, 4096, 48, 64, 1, 128, 256, "bfloat16", "views", False),
@@ -597,6 +601,7 @@ def main() -> int:
         for _, fn in kernels.values():
             fn.launches = 0
         ssd.ssd_cuda.routes = dict.fromkeys(ssd.ROUTES, 0)
+        ssd.ssd_bwd_cuda.routes = dict.fromkeys(ssd.ROUTES, 0)
         fa.flash_attention_cuda.routes = dict.fromkeys(fa.ROUTES, 0)
         fa.flash_attention_bwd_cuda.routes = dict.fromkeys(fa.ROUTES, 0)
 
@@ -878,12 +883,8 @@ def main() -> int:
     def projection_views(x, B, C):
         """x, B and C as views of one (b, s, h p + 2 g n) row, as
         ``ssm_forward`` hands them over; their layout asserted."""
-        h, p = x.shape[2:]
-        g, n = B.shape[2:]
-        hp, gn = h * p, g * n
-        row = torch.cat([x.flatten(2), B.flatten(2), C.flatten(2)], -1)
-        views = (row[..., :hp].unflatten(2, (h, p)), row[..., hp:hp + gn].unflatten(2, (g, n)),
-                 row[..., hp + gn:].unflatten(2, (g, n)))
+        hp, gn = x.shape[2] * x.shape[3], B.shape[2] * B.shape[3]
+        views = bench_ssd.projection_views(x, B, C)
         assert [t.storage_offset() for t in views] == [0, hp, hp + gn]
         assert all(t.stride(1) == hp + 2 * gn for t in views)
         return views
@@ -956,10 +957,13 @@ def main() -> int:
 
     def check_ssd_bwd():
         """K3's backward against ``ssd_bwd_ref`` (autograd of the plain
-        version, the gradient in float32 and cast once) at SSD_BWD_CASES;
-        run twice at mamba2's train shape (dB, dC and dA add with atomics);
-        then timed beside the plain version at mamba2's and hymba's, with
-        the bound (bf16 tensor-core peak, and the fp32 one its FMAs run at)."""
+        version, the gradient in float32 and cast once) at SSD_BWD_CASES,
+        each on the route it must take (``ssd_bwd_cuda.routes``); run twice at
+        mamba2's train shape (dx bit-equal: it has no atomics; dB, dC, dA and
+        ddt add with them); then both routes (wgmma, and fma on the same
+        inputs) timed in turns beside the plain version at mamba2's and
+        hymba's, with the bound (bf16 tensor-core peak, and the fp32 one the
+        fma route's FMAs run at)."""
         gen = torch.Generator(dev).manual_seed(5)
         bad, errs, timed = [], {}, {}
         for case in SSD_BWD_CASES:
@@ -969,10 +973,14 @@ def main() -> int:
                 x, B, C = projection_views(x, B, C)
             dy = torch.randn((b, s, h, p), generator=gen, device=dev).to(x.dtype)
             dfin = torch.randn((b, h, p, n), generator=gen, device=dev) if final else None
+            want_route = ssd_route_wanted(p, n, chunk, dtype)
+            before = dict(ssd.ssd_bwd_cuda.routes)
             got = ssd.ssd_bwd_cuda(x, dt, A, B, C, dy, dfin, chunk=chunk)
+            took = [r for r, k in ssd.ssd_bwd_cuda.routes.items() if k != before[r]]
             want = ref.ssd_bwd_ref(x, dt, A, B, C, dy, dfin, chunk=chunk)
             torch.cuda.synchronize()
-            ok, err = True, {}
+            ok = took == [want_route] and ssd.ssd_bwd_route(x, B, C, dy, chunk) == want_route
+            err = {}
             for name, a, w in zip(("dx", "ddt", "dA", "dB", "dC"), got, want):
                 d = (a.float() - w.float()).abs()
                 err[name] = float((d / (1 + w.float().abs())).max())
@@ -983,7 +991,7 @@ def main() -> int:
             ok &= rel <= SSD_BWD_DA_REL[dtype]
             errs[case] = max(float((a.float() - w.float()).abs().max()) for a, w in zip(got, want))
             print(f"  K3 bwd b={b} s={s} h={h} p={p} g={g} n={n} chunk={chunk} {dtype} {layout}"
-                  f"{' d(final state)' if final else ''}: route fma (its one route), max "
+                  f"{' d(final state)' if final else ''}: route {took} (want {want_route}), max "
                   f"|d|/(1+|ref|) " + ", ".join(f"{k} {v:.3e}" for k, v in err.items())
                   + f" (tol {SSD_TOL[dtype]}; dA per element printed, held by ||d||/||ref|| "
                   f"{rel:.3e} <= {SSD_BWD_DA_REL[dtype]}) {'ok' if ok else 'MISMATCH'}")
@@ -997,29 +1005,37 @@ def main() -> int:
         torch.cuda.synchronize()
         gaps = {name: float((a.float() - b.float()).abs().max())
                 for name, a, b in zip(("dx", "ddt", "dA", "dB", "dC"), *runs)}
-        print(f"  K3 bwd run twice at {SSD_SLICE}: max |gap| {gaps} (dx has no atomics; "
-              f"ddt, dA, dB and dC sum with fp32 atomics)")
+        print(f"  K3 bwd run twice at {SSD_SLICE} (wgmma route): max |gap| {gaps} (dx has no "
+              f"atomics; ddt, dA, dB and dC sum with fp32 atomics)")
+        if not torch.equal(runs[0][0], runs[1][0]):
+            bad.append("dx not bit-equal over two runs")
         del runs
         k3b["max_abs_err"] = errs[SSD_BWD_CASES[0]]   # at mamba2's train shape
         k3b["hymba"] = {"shape": HYMBA_SSD, "layout": "views of one 3232-wide row",
                         "max_abs_err": errs[SSD_BWD_CASES[1]]}
+        bwd_entry = ssd._bwd_entry()
         for entry, shape, case in ((k3b, SSD_SLICE, SSD_BWD_CASES[0]),
                                    (k3b["hymba"], HYMBA_SSD, SSD_BWD_CASES[1])):
             x, dt, A, B, C, dy = timed.pop(case)
             chunk = shape["chunk"]
-            times = in_turns([("kernel", lambda: ssd.ssd_bwd_cuda(x, dt, A, B, C, dy, chunk=chunk)),
+            stream = torch.cuda.current_stream().cuda_stream
+            times = in_turns([("wgmma", lambda: ssd.ssd_bwd_cuda(x, dt, A, B, C, dy, chunk=chunk)),
+                              ("fma", lambda: ssd.launch_bwd(bwd_entry, x, dt, A, B, C, dy, None,
+                                                             chunk, stream, "fma")),
                               ("plain", lambda: ref.ssd_bwd_ref(x, dt, A, B, C, dy, chunk=chunk))],
                              5)
-            entry["ms"] = sum(times["kernel"]) / 2
+            entry["ms"] = sum(times["wgmma"]) / 2
+            entry["fma_ms"] = sum(times["fma"]) / 2
             entry["plain_ms"] = sum(times["plain"]) / 2
             entry["bound_ms"], entry["bound_by"] = ssd_bwd_bound(*shape.values(), 2,
                                                                  PEAK_BF16_FLOPS)
             bound_f32, by_f32 = ssd_bwd_bound(*shape.values(), 2, PEAK_F32_FLOPS)
             entry["bound_f32_ms"] = bound_f32
-            print(f"  K3 bwd at {shape} bf16 (fma route), in turns: "
+            print(f"  K3 bwd at {shape} bf16, in turns: "
                   + ", ".join(f"{name} {a:.4f}/{b:.4f} ms" for name, (a, b) in times.items())
-                  + f"; library none, bound {entry['bound_ms']:.4f} ms ({entry['bound_by']}, "
-                  f"bf16), {bound_f32:.4f} ms ({by_f32}, at the fp32 peak)")
+                  + f"; wgmma {entry['fma_ms'] / entry['ms']:.2f}x faster than fma; library "
+                  f"none, bound {entry['bound_ms']:.4f} ms ({entry['bound_by']}, bf16), "
+                  f"{bound_f32:.4f} ms ({by_f32}, at the fp32 peak)")
             del x, dt, A, B, C, dy
         if bad:
             raise AssertionError(f"K3 backward disagrees with ssd_bwd_ref in {bad}")
@@ -1352,6 +1368,10 @@ def main() -> int:
                   f"launches {per_step}")
             assert per_step == want, f"step {i + 1}: launches {per_step}, want {want}"
         counts = read_counts(f"train {arch}")
+        if want["k3b"]:   # every K3 backward of the full-width step on its wgmma route
+            routes = dict(ssd.ssd_bwd_cuda.routes)
+            print(f"  {arch}: K3 backward routes {routes}")
+            assert routes == {**dict.fromkeys(routes, 0), "wgmma": counts["k3b"]}, routes
         # K1's stands at whisper-small's serve, K3's at mamba2's mesh serve
         for key in ("k1b", "k2") if arch == "llama3.2-1b" else ("k3b",) if arch == "mamba2-780m" else ():
             kernels[key][0]["launches"] = counts[key]
@@ -1592,7 +1612,7 @@ def main() -> int:
         counts = read_counts(f"{shape_name} {arch}")
         routes = {"k1": dict(fa.flash_attention_cuda.routes),
                   "k1b": dict(fa.flash_attention_bwd_cuda.routes),
-                  "k3": dict(ssd.ssd_cuda.routes)}
+                  "k3": dict(ssd.ssd_cuda.routes), "k3b": dict(ssd.ssd_bwd_cuda.routes)}
         own = ARCHS[arch] if full.kind != "decode" else ()   # decode attends in plain torch
         if full.kind == "train":
             per_step = train_launches(cfg, own)
@@ -1611,7 +1631,7 @@ def main() -> int:
               f"{rec['resident_bytes'] / 2**30:.2f} GiB), launches {counts}, routes "
               f"{ {k: v for k, v in routes.items() if any(v.values())} }")
         assert counts == want, f"{arch} {shape_name}: launches {counts}, want {want}"
-        for key in ("k1", "k1b", "k3"):
+        for key in ("k1", "k1b", "k3", "k3b"):
             if want[key]:
                 assert routes[key] == {**dict.fromkeys(routes[key], 0), "wgmma": want[key]}, (
                     key, routes[key])

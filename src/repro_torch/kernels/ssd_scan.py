@@ -7,9 +7,11 @@ Port of ``repro.kernels.ssd_scan.ssd_pallas``; the forward's kernels are in
 ``repro_torch.kernels._build`` compiles each with ``nvcc`` for ``sm_90a``
 into a shared library with a plain C interface at first use, under
 ``build/`` at the root of the checkout; they are called through ``ctypes``.
-``ssd_route`` picks one of the forward's two routes before launch: the
-chunk-parallel ``wgmma`` kernels for the main path's bf16 case, the ``fma``
-kernel for the rest.  The backward has one route, fp32 FMAs.
+``ssd_route`` picks one of the forward's two routes before launch, and
+``ssd_bwd_route`` one of the backward's, from dtype, shape and layout
+alone: the chunk-parallel ``wgmma`` kernels (every product on the tensor
+cores, fp32 operands as hi + lo bf16 terms) for the main path's bf16 case,
+the ``fma`` kernels (scalar fp32 FMAs) for the rest.
 
 The plain version of the forward is ``repro_torch.kernels.ref.ssd_ref``,
 of the backward autograd through it; ``repro_torch.kernels.ops`` sends CPU
@@ -45,10 +47,22 @@ def ssd_route(x, B, C, chunk: int) -> str:
             and n % 16 == 0 and 16 <= n <= MAX_N and chunk % 64 == 0
             and 0 < chunk <= MAX_CHUNK and x.shape[1] > 0):
         return "fma"
-    for t in (x, B, C):
-        if t.stride(3) != 1 or t.data_ptr() % 16 or any(st % 8 for st in t.stride()[:3]):
-            return "fma"
-    return "wgmma"
+    return "wgmma" if all(_aligned(t) for t in (x, B, C)) else "fma"
+
+
+def _aligned(t) -> bool:
+    """A contiguous last dim, and a 16-byte aligned start and other strides."""
+    return t.stride(3) == 1 and t.data_ptr() % 16 == 0 and all(st % 8 == 0 for st in t.stride()[:3])
+
+
+def ssd_bwd_route(x, B, C, dy, chunk: int) -> str:
+    """The route a backward call takes, from dtype, shape and layout alone:
+    the forward's rule (``ssd_route``) with dy held to it as x is (bfloat16,
+    a contiguous last dim, 16-byte aligned start and other strides)."""
+    if (ssd_route(x, B, C, chunk) == "wgmma" and dy.dtype == torch.bfloat16
+            and dy.shape == x.shape and _aligned(dy)):
+        return "wgmma"
+    return "fma"
 
 
 def build() -> Path:
@@ -163,19 +177,21 @@ def _bwd_entry():
 def load_bwd(lib: Path):
     """The C entry point of a library built from ``ssd_scan_bwd.cu``."""
     fn = ctypes.CDLL(str(lib)).ssd_scan_bwd
-    fn.argtypes = ([ctypes.c_void_p] * 15 + [ctypes.c_int] * 8
+    fn.argtypes = ([ctypes.c_void_p] * 15 + [ctypes.c_int] * 9
                    + [ctypes.c_longlong] * 20 + [ctypes.c_void_p])
     fn.restype = ctypes.c_int
     return fn
 
 
-def launch_bwd(entry, x, dt, A, B, C, dy, dstate, chunk, stream):
+def launch_bwd(entry, x, dt, A, B, C, dy, dstate, chunk, stream, route=None):
     """Run a backward library's C entry point (from ``load_bwd``) wherever
     the tensors lie, on the stream handle ``stream``: checks them (all but
     the device), allocates the gradients, their fp32 accumulators and the
     scratch beside x and returns (dx, ddt, dA, dB, dC).  ``dstate`` is the
-    final state's gradient or None (0).  Raises if the entry reports an
-    error.  Counts nothing."""
+    final state's gradient or None (0).  ``route`` None takes
+    ``ssd_bwd_route``'s choice; "fma" or "wgmma" asks for that route (the
+    entry refuses a wgmma call it cannot take).  Raises if the entry reports
+    an error.  Counts nothing."""
     _check(x, dt, A, B, C, chunk, "ssd_bwd_cuda")
     b, s, h, p = x.shape
     g, n = B.shape[2], B.shape[3]
@@ -187,22 +203,26 @@ def launch_bwd(entry, x, dt, A, B, C, dy, dstate, chunk, stream):
             raise ValueError(f"the final state's gradient must be float32 {(b, h, p, n)}, "
                              f"got {tuple(dstate.shape)} {dstate.dtype}")
         dstate = dstate.contiguous()
+    route = ssd_bwd_route(x, B, C, dy, chunk) if route is None else route
     f32, dev = torch.float32, x.device
     dx = torch.empty((b, s, h, p), dtype=x.dtype, device=dev)   # every row is written
     ddt = torch.empty((b, s, h), dtype=f32, device=dev)
     dA = torch.zeros((h,), dtype=f32, device=dev)
     acc = torch.zeros((2, b, s, g, n), dtype=f32, device=dev)   # dB, dC summed over the group
     out = acc if x.dtype == f32 else torch.empty((2, b, s, g, n), dtype=x.dtype, device=dev)
-    scratch = torch.empty((max(1, b * h * ((s // chunk) * (2 * p * n + 1))),),
-                          dtype=f32, device=dev)
+    # per (batch, head): each chunk's S0 and dS1 and its decay; the wgmma
+    # route also gathers dc, one float a step
+    per = (s // chunk) * (2 * p * n + 1) + (s if route == "wgmma" else 0)
+    scratch = torch.empty((max(1, b * h * per),), dtype=f32, device=dev)
     err = entry(x.data_ptr(), dt.data_ptr(), A.data_ptr(), B.data_ptr(), C.data_ptr(),
                 dy.data_ptr(), None if dstate is None else dstate.data_ptr(),
                 dx.data_ptr(), ddt.data_ptr(), dA.data_ptr(), acc[0].data_ptr(),
                 acc[1].data_ptr(), out[0].data_ptr(), out[1].data_ptr(), scratch.data_ptr(),
-                _DTYPE_CODE[x.dtype], b, s, h, p, g, n, chunk, *x.stride(), *dt.stride(),
-                A.stride(0), *B.stride(), *C.stride(), *dy.stride(), stream)
+                ROUTES.index(route), _DTYPE_CODE[x.dtype], b, s, h, p, g, n, chunk,
+                *x.stride(), *dt.stride(), A.stride(0), *B.stride(), *C.stride(), *dy.stride(),
+                stream)
     if err != 0:
-        raise RuntimeError(f"ssd_scan_bwd launch failed (CUDA error {err})")
+        raise RuntimeError(f"ssd_scan_bwd ({route} route) launch failed (CUDA error {err})")
     return dx, ddt, dA, out[0], out[1]
 
 
@@ -212,20 +232,26 @@ def ssd_bwd_cuda(x, dt, A, B, C, dy, dstate=None, *, chunk=256):
     and the final state's ``dstate`` ((b, h, p, n) float32) or None when the
     state is unused.  dx, dB and dC come in x's dtype, ddt and dA in
     float32; dB and dC sum over the heads of each group, dA over every
-    (batch, step), in fp32 atomics (their last bits vary from run to run).
-    The same inputs as ``ssd_cuda`` (any strides), on one CUDA device.
+    (batch, step), in fp32 atomics, and ddt's dc on the wgmma route too
+    (their last bits vary from run to run; dx's do not).  The same inputs
+    as ``ssd_cuda`` (any strides), on one CUDA device; the route is
+    ``ssd_bwd_route``'s choice, never the caller's.
 
-    Adds one to ``ssd_bwd_cuda.launches`` per call (three CUDA kernels, and
-    for bfloat16 two casts)."""
+    Adds one to ``ssd_bwd_cuda.launches`` per call (four CUDA kernels on the
+    wgmma route, three on the fma route, and for bfloat16 two casts) and one
+    to ``ssd_bwd_cuda.routes[ssd_bwd_route(...)]``."""
     _check_device((x, dt, A, B, C, dy, dstate), "ssd_bwd_cuda")
+    route = ssd_bwd_route(x, B, C, dy, chunk)
     with torch.cuda.device(x.device):
         grads = launch_bwd(_bwd_entry(), x, dt, A, B, C, dy, dstate, chunk,
-                           torch.cuda.current_stream(x.device).cuda_stream)
+                           torch.cuda.current_stream(x.device).cuda_stream, route)
     ssd_bwd_cuda.launches += 1
+    ssd_bwd_cuda.routes[route] += 1
     return grads
 
 
 ssd_bwd_cuda.launches = 0
+ssd_bwd_cuda.routes = dict.fromkeys(ROUTES, 0)
 
 
 class _SSD(torch.autograd.Function):
@@ -242,6 +268,8 @@ class _SSD(torch.autograd.Function):
         x, dt, A, B, C = ctx.saved_tensors
         if dy is None:                     # only the final state was used
             dy = torch.zeros_like(x)
+        elif ssd_route(x, B, C, ctx.chunk) == "wgmma" and not _aligned(dy):
+            dy = dy.contiguous()           # the wgmma route reads dy's rows as x's
         return (*ssd_bwd_cuda(x, dt, A, B, C, dy, dstate, chunk=ctx.chunk), None)
 
 

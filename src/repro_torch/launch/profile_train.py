@@ -44,7 +44,10 @@ KERNELS = {"k1": flash_attention_cuda, "k1b": flash_attention_bwd_cuda, "k2": qu
 OWN = {"k1": ("fa_fwd_",), "k1b": ("bwd_delta", "bwd_dq_", "bwd_dkdv_", "bwd_wgmma"),
        "k2": ("quantize_kernel",),
        "k3": ("ssd_chunk_state", "ssd_carry", "ssd_chunk_out", "ssd_fwd"),
-       "k3b": ("ssd_bwd_states", "ssd_bwd_carry", "ssd_bwd_chunk", "cast_rows")}
+       # the backward's two routes: wgmma (state, split_carry, tiles, dc), fma
+       # (states, carry, chunk), and the bf16 casts of both
+       "k3b": ("ssd_bwd_state", "ssd_bwd_split_carry", "ssd_bwd_tiles", "ssd_bwd_dc",
+               "ssd_bwd_carry", "ssd_bwd_chunk", "cast_rows")}
 WARM, TIMED = 2, 3
 
 

@@ -52,15 +52,18 @@ def emulation_source(src: str) -> str:
     return src.replace("asm volatile(", "SHIM_ASM(")
 
 
-def build(src: Path, out: Path) -> Path:
+def build(src: Path, out: Path, edit=None) -> Path:
     """g++ build of the emulated ``src`` into the directory ``out``; returns
-    the library.  Fails the calling test if g++ is missing or refuses."""
+    the library.  ``edit``, when given, maps the emulated source's text to
+    the text that is built (a variant of the kernel).  Fails the calling
+    test if g++ is missing or refuses."""
     import pytest
     gxx = shutil.which("g++")
     if gxx is None:
         pytest.skip("needs g++ to build the emulated kernel")
     cpp = out / f"{src.stem}_shim.cpp"
-    cpp.write_text(emulation_source(src.read_text()))
+    text = emulation_source(src.read_text())
+    cpp.write_text(edit(text) if edit is not None else text)
     lib = out / f"lib{src.stem}_shim.so"
     res = subprocess.run([gxx, "-std=c++20", "-O1", "-pthread", "-fPIC", "-shared", "-w",
                           "-I", str(SHIM), "-I", str(CSRC), "-o", str(lib), str(cpp)],

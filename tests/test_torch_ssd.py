@@ -2,10 +2,11 @@
 kernel (interpret mode) and the JAX oracle over the sweep of
 ``tests/test_kernels.py``, the port's ``ssd_ref``/``ssd_decode_ref``
 against JAX's, the port's ``ssd_ref`` gradients against ``jax.grad`` of
-JAX's, the kernel's route choice and its wgmma route's precision plan
-emulated in plain torch, and, on a CUDA card, the hand-written kernel
-against its plain version on the route each case names, and its backward
-(``ssd_bwd_cuda``, ``ops.ssd`` under autograd) against ``ssd_bwd_ref``.
+JAX's, the kernel's and its backward's route choice and the forward's
+wgmma route's precision plan emulated in plain torch, and, on a CUDA card,
+the hand-written kernel against its plain version on the route each case
+names, and its backward (``ssd_bwd_cuda``, ``ops.ssd`` under autograd)
+against ``ssd_bwd_ref``, on the wgmma route at mamba2-780m's train shape.
 
 Tolerances: 2e-3 for float32 y and state, as the JAX suite holds K3
 (``tests/test_kernels.py:49-50``); 2e-2 for y from bfloat16 x/B/C (one
@@ -26,7 +27,7 @@ import torch
 
 from repro_torch.kernels import ops
 from repro_torch.kernels import ref as tref
-from repro_torch.kernels.ssd_scan import ssd_bwd_cuda, ssd_cuda, ssd_route
+from repro_torch.kernels.ssd_scan import ssd_bwd_cuda, ssd_bwd_route, ssd_cuda, ssd_route
 
 SWEEP = [
     (1, 32, 2, 8, 1, 8, 8),
@@ -296,6 +297,41 @@ def test_route_is_chosen_from_dtype_shape_and_layout(what, make, chunk, route):
     assert ssd_route(x, B, C, chunk) == route
 
 
+def _dy_view(x, offset=0, extra=0):
+    """dy shaped as x, a view of a (b, s, offset + h p + extra) buffer."""
+    b, s, h, p = x.shape
+    buf = torch.zeros((b, s, offset + h * p + extra), dtype=x.dtype)
+    return buf[..., offset:offset + h * p].unflatten(2, (h, p))
+
+
+def _mamba2_views():
+    return _projection_views(1, 64, 48, 64, 1, 128)
+
+
+# (what, x/B/C, dy from x, chunk, route): the forward's cases with dy
+# contiguous and typed as x, then dy's own layouts beside x, B, C the
+# wgmma route takes
+BWD_ROUTE_CASES = [(what, make, torch.zeros_like, chunk, route)
+                   for what, make, chunk, route in ROUTE_CASES] + [
+    ("dy a view of a wider row, 16-byte aligned", _mamba2_views, lambda x: _dy_view(x, 0, 64), 64, "wgmma"),
+    ("dy rows not 16-byte aligned", _mamba2_views, lambda x: _dy_view(x, 4), 64, "fma"),
+    ("dy last dim strided", _mamba2_views,
+     lambda x: torch.zeros_like(x).transpose(1, 3).contiguous().transpose(1, 3), 64, "fma"),
+    ("dy float32 beside bf16 x", _mamba2_views, lambda x: torch.zeros(x.shape), 64, "fma"),
+]
+
+
+@pytest.mark.parametrize("what,make,make_dy,chunk,route", BWD_ROUTE_CASES,
+                         ids=[c[0] for c in BWD_ROUTE_CASES])
+def test_bwd_route_is_chosen_from_dtype_shape_and_layout(what, make, make_dy, chunk, route):
+    """The backward takes the forward's route (wgmma for bf16, p 64, n a
+    multiple of 16 up to 128, chunk a multiple of 64 and aligned x, B, C;
+    fma otherwise) when dy is bf16 with a contiguous last dim and 16-byte
+    aligned rows, as x is; fma when it is not."""
+    x, B, C = make()
+    assert ssd_bwd_route(x, B, C, make_dy(x), chunk) == route
+
+
 def test_bench_ssd_refuses_to_run_without_a_card(monkeypatch):
     from repro_torch.launch import bench_ssd
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
@@ -510,3 +546,27 @@ def test_backward_matches_plain_on_card(cuda, b, s, h, p, g, n, chunk, dtype, fi
         if i != 2:   # dA, a sum over every (batch, step), by its error norm
             _close(_f32(g_), _f32(w), TOL[dtype])
     assert float((got[2] - want[2]).norm() / want[2].norm()) <= DA_REL[dtype]
+
+
+def test_wgmma_bwd_route_at_mamba2_train_shape_on_card(cuda):
+    """mamba2-780m's train shape (b 4, s 2048, 48 heads, n 128, chunk 256;
+    x, B and C the views of one 3328-wide row): the backward takes the wgmma
+    route, matches ``ssd_bwd_ref``, and gives bit-equal dx over two runs
+    (dx has no atomics; ddt, dA, dB and dC sum with them)."""
+    b, s, h, p, g, n, chunk = 4, 2048, 48, 64, 1, 128, 256
+    x, B, C = _projection_views(b, s, h, p, g, n, device=cuda)
+    _, dt, A, _, _ = _torch(_inputs(b, s, h, p, g, n, seed=10), "float32", cuda)
+    dy = torch.randn((b, s, h, p), generator=torch.Generator(cuda).manual_seed(2),
+                     device=cuda).to(torch.bfloat16)
+    assert ssd_bwd_route(x, B, C, dy, chunk) == "wgmma"
+    before = ssd_bwd_cuda.routes["wgmma"]
+    runs = [ssd_bwd_cuda(x, dt, A, B, C, dy, chunk=chunk) for _ in range(2)]
+    torch.cuda.synchronize()
+    assert ssd_bwd_cuda.routes["wgmma"] == before + 2
+    assert torch.equal(runs[0][0], runs[1][0])
+    want = tref.ssd_bwd_ref(x, dt, A, B, C, dy, chunk=chunk)
+    for i, (g_, w) in enumerate(zip(runs[0], want)):
+        assert g_.dtype == w.dtype and bool(torch.isfinite(g_.float()).all())
+        if i != 2:
+            _close(_f32(g_), _f32(w), TOL["bfloat16"])
+    assert float((runs[0][2] - want[2]).norm() / want[2].norm()) <= DA_REL["bfloat16"]

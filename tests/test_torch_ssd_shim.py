@@ -5,9 +5,11 @@ plain ``ssd_ref`` and autograd through it on CPU tensors: the indexing, the
 128-byte swizzle, the wgmma descriptors (K-major and MN-major A and B, A
 from registers), the chunk-parallel split and the hi/lo precision plan of
 the forward, and the backward's chunk states, reverse carry, tile pairs,
-atomics and suffix sums, run as the card runs them, only slowly.  What the
-emulation cannot show is whether the card reads descriptors this way, nor
-speed: the card tests in ``test_torch_ssd.py`` do that.
+atomics and suffix sums on both its routes (the wgmma route's key and
+query tile blocks over a slice of a group's heads, its hi + lo plan and
+its dc pass), run as the card runs them, only slowly.  What the emulation
+cannot show is whether the card reads descriptors this way, nor speed: the
+card tests in ``test_torch_ssd.py`` do that.
 
 Tolerances as there: y 2e-3 (f32) / 2e-2 (bf16), state 2e-3, all
 ·(1+|ref|); the backward's gradients the same, but dA, a sum over every
@@ -189,3 +191,67 @@ def test_function_wiring_with_emulated_kernels(entry, bwd_entry, monkeypatch):
     assert got[0].dtype == torch.bfloat16
     for g_, w in zip(got, want):
         _close(g_, w, TOL["bfloat16"])
+
+
+# the backward's wgmma route (bf16, p 64, n a multiple of 16, chunk a
+# multiple of 64): n 128, 48 and 16; g 1 and 2; chunks of 64, 128 and 256;
+# the projection views; d(final state); fast decay; more heads than a tile
+# block walks (6 in one group: slices of 4 and 2).  (b, s, h, p, g, n,
+# chunk, layout, d(final state), A scale)
+WGMMA_BWD_CASES = [
+    (1, 128, 2, 64, 1, 128, 64, "contiguous", True, 1.0),
+    (1, 256, 4, 64, 2, 48, 128, "contiguous", True, 1.0),
+    (1, 256, 6, 64, 1, 16, 256, "projection", False, 1.0),
+    (1, 256, 2, 64, 1, 128, 128, "projection", True, 8.0),
+]
+
+
+@pytest.mark.parametrize("b,s,h,p,g,n,chunk,layout,dfinal,scale", WGMMA_BWD_CASES)
+def test_emulated_wgmma_backward_matches_autograd(bwd_entry, b, s, h, p, g, n, chunk, layout,
+                                                  dfinal, scale):
+    x, dt, A, B, C, dy, dstate = _bwd_inputs(b, s, h, p, g, n, "bfloat16", layout, seed=4)
+    A = A * scale
+    dstate = dstate if dfinal else None
+    assert ssd.ssd_bwd_route(x, B, C, dy, chunk) == "wgmma"
+    got = ssd.launch_bwd(bwd_entry, x, dt, A, B, C, dy, dstate, chunk, None)
+    hold_grads(got, ref.ssd_bwd_ref(x, dt, A, B, C, dy, dstate, chunk=chunk), "bfloat16")
+
+
+def test_emulated_fma_backward_takes_the_wgmma_shapes(bwd_entry):
+    """The fma route, asked for by name, on the inputs the wgmma route takes
+    (the old kernel stays right there: ``bench_ssd --bwd`` times it so)."""
+    x, dt, A, B, C, dy, dstate = _bwd_inputs(1, 128, 2, 64, 1, 48, "bfloat16", "projection",
+                                             seed=5)
+    assert ssd.ssd_bwd_route(x, B, C, dy, 64) == "wgmma"
+    got = ssd.launch_bwd(bwd_entry, x, dt, A, B, C, dy, dstate, 64, None, "fma")
+    hold_grads(got, ref.ssd_bwd_ref(x, dt, A, B, C, dy, dstate, chunk=64), "bfloat16")
+
+
+def _one_term(text):
+    """The emulated source with every fp32 operand fed as its hi term alone
+    (lo = 0): the wgmma route without its precision plan."""
+    one = ("namespace hopper { inline void split1(float a, float b, uint32_t& hi, uint32_t& lo) "
+           "{ split2(a, b, hi, lo); lo = 0; } }\n")
+    text = text.replace("split2(", "split1(")
+    head = text.index("namespace {")
+    return text[:head] + one + text[head:]
+
+
+def test_wgmma_bwd_precision_plan_holds_the_tolerances(bwd_entry, tmp_path_factory):
+    """Two bf16 terms per fp32 operand (the chunk states' weighted rows, S0
+    and dS1 through the carry, G L and L M) keep the wgmma route within
+    ``hold_grads``' tolerances at the serving chunk; the same kernel with
+    one term each misses them several times over."""
+    one = ssd.load_bwd(emulate.build(ssd.BWD_SRC, tmp_path_factory.mktemp("shim_one"), _one_term))
+    b, s, h, p, g, n, chunk = 1, 256, 1, 64, 1, 128, 256
+    x, dt, A, B, C, dy, dstate = _bwd_inputs(b, s, h, p, g, n, "bfloat16", "contiguous", seed=3)
+    want = ref.ssd_bwd_ref(x, dt, A, B, C, dy, dstate, chunk=chunk)
+    errs = {}
+    for name, entry in (("two terms", bwd_entry), ("one term", one)):
+        got = ssd.launch_bwd(entry, x, dt, A, B, C, dy, dstate, chunk, None)
+        errs[name] = {k: float(((a.float() - w.float()).abs() / (1 + w.float().abs())).max())
+                      for k, a, w in zip(("dx", "ddt", "dA", "dB", "dC"), got, want) if k != "dA"}
+        if name == "two terms":
+            hold_grads(got, want, "bfloat16")
+    print(f"max |d|/(1+|ref|): {errs}")
+    assert max(errs["one term"].values()) > 2 * TOL["bfloat16"]

@@ -17,7 +17,7 @@ from repro.models import ssm as jssm
 from repro_torch.configs.registry import get_config, get_smoke
 from repro_torch.convert import params_from_numpy
 from repro_torch.kernels import ops, ref
-from repro_torch.kernels.ssd_scan import ssd_route
+from repro_torch.kernels.ssd_scan import ssd_bwd_route, ssd_route
 from repro_torch.models import ssm as tssm
 
 ARCH = "mamba2-780m"
@@ -98,6 +98,29 @@ def test_bf16_prefill_reaches_the_wgmma_route(monkeypatch, S):
     out = tssm.ssm_forward(cfg, params, torch.from_numpy(_x(1, S, cfg.d_model)).bfloat16())
     assert out.shape == (1, S, cfg.d_model) and bool(out.float().isfinite().all())
     assert seen == [("wgmma", 0, S % 256 != 0)]
+
+
+@pytest.mark.parametrize("S", [300, 2048])
+def test_bf16_backward_reaches_the_wgmma_route(monkeypatch, S):
+    """The gradient that reaches the scan's y in a bf16 train step (through
+    the slice back to S rows and heads, the D skip, the gated norm) is
+    shaped, typed and laid out as the backward's wgmma route reads it, so
+    ``ssd_scan``'s autograd ``Function`` hands it over without a copy."""
+    cfg = dataclasses.replace(get_config(ARCH), d_model=64, compute_dtype="bfloat16")
+    params = tssm.ssm_init(cfg, torch.Generator("cpu").manual_seed(0), "cpu")
+    for v in params.values():
+        v.requires_grad_()
+    seen = []
+
+    def spy(x, dt, A, B, C, *, chunk):
+        y, state = ref.ssd_ref(x, dt, A, B, C, chunk=chunk)
+        y.register_hook(lambda dy: seen.append(ssd_bwd_route(x, B, C, dy, chunk)))
+        return y, state
+
+    monkeypatch.setattr(ops, "ssd", spy)
+    out = tssm.ssm_forward(cfg, params, torch.from_numpy(_x(1, S, cfg.d_model)).bfloat16())
+    out.float().square().mean().backward()
+    assert seen == ["wgmma"]
 
 
 def test_ssm_decode_matches_jax(np_params):
