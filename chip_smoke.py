@@ -121,6 +121,18 @@ Phases, each of which must pass:
              full batch and their cut, each cut's bound at or below its
              fastest measured step; and ``launch/perf_probe.py`` once.  It
              launches no kernel.
+  9. engine  the NVCache engine's own paths on the card's host, each in a
+             process of its own: the paper's figure benchmarks
+             (``launch/engine_bench/run_all.py`` at its default scale, into
+             ``build/engine_bench.json``), then together the crash demo
+             (``examples/torch_crash_recovery_demo.py``) for seeds 0-2, the
+             flight dump's ``--selftest`` and the lint of the port's
+             ``core`` and ``obs``.  Every acknowledged key reads back, the
+             lint finds nothing, the selftest passes, no figure scans the
+             whole log and the figures' counts are finite and non-zero;
+             their ratios (legacy speedups over sync SSD, the rebalance,
+             the read-op reduction, the dual mode's byte reduction) are
+             printed, not held.  Host code: it launches no kernel.
 Prints a ``{"kernels": [...]}`` line, the card's name and power limit, and,
 last, ``{"ok": true, "device": {...}}``.  Exits non-zero, printing no
 result, when there is no CUDA card or a phase fails.
@@ -132,6 +144,7 @@ import gc
 import importlib.util
 import json
 import math
+import os
 import subprocess
 import sys
 import time
@@ -384,6 +397,20 @@ TOOLING_KEYS = ("devices", "counted_s", "state_bytes", "input_bytes", "cache_byt
                 "work_flops", "work_hbm_bytes", "hbm_bytes", "collectives", "wire_bytes", "groups")
 E2E_STEPS, E2E_CKPT_EVERY = 20, 10   # examples/torch_train_e2e.py --preset 100m
 CKPT_MIB = 64                        # repro_torch.launch.ckpt_bench from a CUDA state
+# Phase 9: the crash demo's seeds, and the figures' counts that must be
+# non-zero (a path into run_all's JSON)
+ENGINE_DEMO_SEEDS = (0, 1, 2)
+ENGINE_COUNTS = (("cold_read", "read_ops_per_byte"), ("cold_read", "read_ops_per_byte_readahead1"),
+                 ("trickle", "page_writes_per_committed_byte"),
+                 ("coalesce", "page_writes_per_committed_byte"),
+                 ("dualmode", "persisted_bytes_per_committed_byte_log"),
+                 ("dualmode", "persisted_bytes_per_committed_byte_paged"),
+                 ("dirty_miss", "dirty_misses"), ("dirty_miss", "pages"),
+                 ("fsync_epoch_hot_file", "fsyncs_issued"),
+                 ("legacy", "sqlite_rollback_journal", "meta_ops", "create"),
+                 ("legacy", "sqlite_wal", "meta_ops", "ftruncate"),
+                 ("legacy", "rocksdb_style", "meta_ops", "create"))
+ENGINE_TIMEOUT = 300                 # seconds a process of phase 9 may take
 
 
 def ssd_route_wanted(p, n, chunk, dtype):
@@ -521,6 +548,95 @@ def train_leaf_shapes(cfg):
             "layers/attn/wq": (L, d, q), "layers/attn/wv": (L, d, kv),
             "layers/mlp/wd": (L, f, d), "layers/mlp/wg": (L, d, f), "layers/mlp/wu": (L, d, f),
             "layers/norm1": (L, d), "layers/norm2": (L, d)}
+
+
+def run_engine(root: Path) -> dict:
+    """Phase 9 from the checkout at ``root``: ``run_all`` alone (its timed
+    ratios are printed), then the crash demos, the dump's selftest and the
+    lint at once, each a process of its own, killed if it outlives
+    ``ENGINE_TIMEOUT``; every verdict asserted.  Returns each process's
+    seconds, the demos' verdict lines, the figures' ratios and how many
+    numbers were checked finite."""
+    env = {**os.environ, "PYTHONPATH": str(root / "src")}
+    out = root / "build" / "engine_bench.json"
+    seconds = {}
+
+    def run(commands):
+        t0, procs, outs = time.perf_counter(), {}, {}
+        try:
+            for name, argv in commands.items():
+                procs[name] = subprocess.Popen([sys.executable, *argv], cwd=root, env=env,
+                                               stdout=subprocess.PIPE, stderr=subprocess.PIPE,
+                                               text=True)
+            for name, proc in procs.items():
+                outs[name], stderr = proc.communicate(timeout=ENGINE_TIMEOUT)
+                seconds[name] = time.perf_counter() - t0
+                assert proc.returncode == 0, (name, proc.returncode, stderr[-2000:])
+            return outs
+        finally:
+            for proc in procs.values():
+                proc.kill()
+                proc.wait()
+
+    ran = run({"run_all": ["-m", "repro_torch.launch.engine_bench.run_all", "--out", str(out)]})
+    print("  " + ran["run_all"].strip().splitlines()[-1])
+    commands = {f"crash demo seed {seed}": ["examples/torch_crash_recovery_demo.py", str(seed)]
+                for seed in ENGINE_DEMO_SEEDS}
+    commands["dump selftest"] = ["-m", "repro_torch.obs.dump", "--selftest"]
+    commands["lint"] = ["-m", "repro_torch.analysis.lint"]
+    ran.update(run(commands))
+    demo = {}
+    for seed in ENGINE_DEMO_SEEDS:
+        lines = ran[f"crash demo seed {seed}"].strip().splitlines()
+        print(f"  crash demo seed {seed}: " + "; ".join(lines))
+        verified = [line for line in lines if line.startswith("verified ")]
+        assert len(verified) == 1 and verified[0].endswith(" acknowledged keys: 0 missing"), lines
+        assert lines[-1] == "OK — every acknowledged write survived the crash", lines
+        demo[seed] = verified[0]
+    selftest = ran["dump selftest"].strip().splitlines()[-1]
+    print("  dump " + selftest)
+    assert selftest.startswith("selftest OK"), selftest
+    print("  " + ran["lint"].strip())
+    assert ran["lint"].startswith("lint: OK"), ran["lint"]
+
+    figures = json.loads(out.read_text())
+    numbers = []
+
+    def walk(tree, path=()):
+        if isinstance(tree, dict):
+            for key, sub in tree.items():
+                walk(sub, path + (key,))
+        elif isinstance(tree, list):
+            for i, sub in enumerate(tree):
+                walk(sub, path + (i,))
+        elif isinstance(tree, (int, float)) and not isinstance(tree, bool):
+            numbers.append((path, tree))
+
+    walk(figures)
+    bad = [path for path, x in numbers if not math.isfinite(x)]
+    assert not bad, bad
+    scans = [path for path, x in numbers if path[-1] == "log_full_scans" and x != 0]
+    assert not scans, scans
+    for path in ENGINE_COUNTS:
+        value = figures
+        for key in path:
+            value = value[key]
+        assert value > 0, (path, value)
+    assert all(row["txns"] > 0 for row in figures["legacy"]["detail"])
+    leg = figures["legacy"]
+    ratios = {
+        "sqlite_rollback_journal_x_vs_ssd": leg["sqlite_rollback_journal"]["speedup_x_vs_ssd"],
+        "sqlite_wal_x_vs_ssd": leg["sqlite_wal"]["speedup_x_vs_ssd"],
+        "rocksdb_style_x_vs_ssd": leg["rocksdb_style"]["speedup_x_vs_ssd"],
+        "skew_rebalance_x": figures["skew"]["rebalance_speedup_x"],
+        "cold_read_op_reduction_x": figures["cold_read"]["read_op_reduction_x"],
+        "dualmode_byte_reduction_x": figures["dualmode"]["byte_reduction_x"],
+        "coalesce_page_write_reduction_x": figures["coalesce"]["page_write_reduction_x"],
+        "trickle_page_write_reduction_x": figures["trickle"]["page_write_reduction_x"]}
+    print("  figures' ratios (printed, not held): "
+          + ", ".join(f"{k} {v}" for k, v in ratios.items()))
+    return {"seconds": seconds, "demo": demo, "ratios": ratios,
+            "numbers_checked": len(numbers)}
 
 
 def main() -> int:
@@ -1805,6 +1921,21 @@ def main() -> int:
     phase("tooling perf_probe", tooling_probe)
     tooling["seconds"] = time.perf_counter() - t_tooling
     print(json.dumps({"tooling": tooling}))
+
+    # --------------------------------------------------------------- engine
+    # this slice's path: the NVCache engine's remaining modules (kvlite, the
+    # legacy stores, the flight dump, the lint), driven as a user runs them.
+    # Host code in processes of its own: the counts, set to 0 before, stay 0
+    def engine_path():
+        zero_counts()
+        engine.update(run_engine(Path(__file__).resolve().parent))
+        assert not any(read_counts("engine").values())
+
+    engine = {}
+    t_engine = time.perf_counter()
+    phase("engine", engine_path)
+    engine["phase_seconds"] = time.perf_counter() - t_engine
+    print(json.dumps({"engine": engine}))
 
     print(json.dumps({"kernels": [k1, k1b, k2, k3, k3b]}))
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",

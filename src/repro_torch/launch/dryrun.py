@@ -3,7 +3,7 @@ shape) cell, at 1x1 (``make_single_mesh``) and on the JAX dry run's
 production meshes, 16x16 (``single``) and 2x16x16 (``multi``).
 
     python -m repro_torch.launch.dryrun --all --device cpu
-    python -m repro_torch.launch.dryrun --all --mesh both --device cpu
+    python -m repro_torch.launch.dryrun --all --mesh both --device cpu [--no-fsdp]
     python -m repro_torch.launch.dryrun --arch llama3.2-1b --shape decode_32k --batch 32
 
 Each cell's step (``train_step``, ``prefill_step`` or ``serve_step`` of
@@ -18,13 +18,13 @@ the inputs, the cache and the outputs, their sum ``resident_bytes``
 On a production mesh (``--mesh single|multi|both``) the process joins a
 fake world of 256 or 512 ranks (``launch/mesh.py``: the fake backend moves
 no data), places the abstract state, inputs and cache as DTensors of
-``meta`` shards by ``train_shardings``/``serve_shardings`` (each rank's
-own shard, no collective) and runs the step under ``bind_mesh``, as the
-1x1 mode runs it.  Everything is counted on rank 0's shards, which are
-the largest of an uneven split: the record is per device, as the JAX dry
-run's are, with the collectives DTensor and the model run.  The mesh
-mode runs on meta only (JAX forces a host platform for it); with
-``--device cuda`` it raises.
+``meta`` shards by ``train_shardings`` (FSDP on unless ``--no-fsdp``) or
+``serve_shardings`` (each rank's own shard, no collective) and runs the
+step under ``bind_mesh``, as the 1x1 mode runs it.  Everything is counted
+on rank 0's shards, which are the largest of an uneven split: the record
+is per device, as the JAX dry run's are, with the collectives DTensor and
+the model run.  The mesh mode runs on meta only (JAX forces a host
+platform for it); with ``--device cuda`` it raises.
 
 The counts (:class:`LocalCount`, on each op a device runs):
 
@@ -465,13 +465,14 @@ def k1_flops(calls) -> int:
     return total
 
 
-def cell_args(model, shape, device, mesh=None):
+def cell_args(model, shape, device, mesh=None, fsdp=True):
     """(step, args, {state, inputs, cache} of ``args``) for the cell on
     ``device``: on meta the specs and the abstract state, elsewhere
     parameters drawn from seed 0 and ``concrete_inputs``; on a ``mesh``
-    (meta only) those placed as DTensors (:func:`placed_cell_args`)."""
+    (meta only) those placed as DTensors (:func:`placed_cell_args`, with
+    ``fsdp``)."""
     if mesh is not None:
-        return placed_cell_args(model, shape, mesh)
+        return placed_cell_args(model, shape, mesh, fsdp=fsdp)
     cfg = model.cfg
     device = torch.device(device)
     meta = device.type == "meta"
@@ -492,14 +493,14 @@ def cell_args(model, shape, device, mesh=None):
         "state": params, "inputs": tokens, "cache": cache}
 
 
-def placed_cell_args(model, shape, mesh):
+def placed_cell_args(model, shape, mesh, fsdp=True):
     """:func:`cell_args` on ``mesh``, as the JAX dry run's ``lower_cell``
     places the cell: the abstract state, inputs and cache as DTensors of
     ``meta`` shards, each rank its own shard (``src_data_rank=None``: no
-    collective places anything), by ``train_shardings`` (FSDP on) or
-    ``serve_shardings``, and the step under ``bind_mesh``.  A prefill's
-    cache comes out placed by the cache's shardings, as JAX's
-    ``out_shardings`` place it."""
+    collective places anything), by ``train_shardings`` (FSDP on unless
+    ``fsdp`` is false) or ``serve_shardings``, and the step under
+    ``bind_mesh``.  A prefill's cache comes out placed by the cache's
+    shardings, as JAX's ``out_shardings`` place it."""
     cfg = model.cfg
 
     def put(tree, placements):
@@ -508,7 +509,8 @@ def placed_cell_args(model, shape, mesh):
     if shape.kind == "train":
         opt = optimizer_for(cfg)
         spec = input_specs(cfg, shape)
-        (state_pl, batch_pl), state = tsteps.train_shardings(model, opt, mesh, spec)
+        (state_pl, batch_pl), state = tsteps.train_shardings(model, opt, mesh, spec,
+                                                             fsdp=fsdp)
         state, batch = put(state, state_pl), put(spec, batch_pl)
         return tsteps.bind_mesh(tsteps.make_train_step(model, opt), mesh), (state, batch), {
             "state": state, "inputs": batch, "cache": None}
@@ -558,12 +560,13 @@ def _bytes_of(parts, out, kind):
             "output_bytes": outputs, "resident_bytes": state + inputs + cache + outputs}
 
 
-def counted_record(cfg, shape, device="meta", mesh=None) -> dict:
+def counted_record(cfg, shape, device="meta", mesh=None, fsdp=True) -> dict:
     """The cell's run under :class:`LocalCount`, on meta (or, at small
-    sizes, on the CPU), on one device or on ``mesh``'s rank 0: bytes, the
-    counts, K1's calls and operations."""
+    sizes, on the CPU), on one device or on ``mesh``'s rank 0 (a train
+    cell's state placed with ``fsdp``): bytes, the counts, K1's calls and
+    operations."""
     model = build(cfg)
-    step, args, parts = cell_args(model, shape, device, mesh)
+    step, args, parts = cell_args(model, shape, device, mesh, fsdp)
     count = LocalCount(mesh_groups(mesh))
     t0 = time.perf_counter()
     with units(count) as calls, count:
@@ -654,7 +657,7 @@ COUNT_KEYS = ("flops", "hbm_bytes", "work_flops", "work_flops_by_dtype", "work_h
 
 
 def run_cell(arch: str, shape_name: str, *, device="cuda", batch: int = 0, reps: int = 1,
-             profile: bool = False, mesh=None, cfg=None) -> dict:
+             profile: bool = False, mesh=None, cfg=None, fsdp: bool = True) -> dict:
     """The record of one cell: ``status`` ``ok``, ``skipped`` (with
     ``applicable``'s reason) or ``error``; ``params`` and ``active_params``;
     the full shape's meta run (:func:`counted_record`), per device on
@@ -662,8 +665,9 @@ def run_cell(arch: str, shape_name: str, *, device="cuda", batch: int = 0, reps:
     (:func:`card_record`) at the ``batch`` cut (0: the full batch, run only
     when it fits the card) under ``"card"``, with the cut's counts.
     ``cfg`` replaces the arch's registered config (``perf_probe``'s
-    overrides).  A mesh with ``device`` cuda raises: the mesh mode counts on
-    meta only."""
+    overrides).  ``fsdp`` false places a train cell's state on ``mesh``
+    without FSDP (JAX's ``--no-fsdp``); an ``ok`` record carries it.  A
+    mesh with ``device`` cuda raises: the mesh mode counts on meta only."""
     if mesh is not None and torch.device(device).type == "cuda":
         raise ValueError(f"the {mesh_name(mesh)} mesh is counted on meta only (no card runs "
                          f"{mesh.size()} ranks): pass device='cpu' / --device cpu")
@@ -677,8 +681,8 @@ def run_cell(arch: str, shape_name: str, *, device="cuda", batch: int = 0, reps:
     if not ok:
         return {**rec, "status": "skipped", "reason": reason}
     try:
-        rec.update(counted_record(cfg, full, mesh=mesh))
-        rec["status"] = "ok"
+        rec.update(counted_record(cfg, full, mesh=mesh, fsdp=fsdp))
+        rec.update(status="ok", fsdp=fsdp)
         if torch.device(device).type == "cuda" and (batch or rec["fits_one_card"]):
             cut = scale_shape(full, batch=batch)
             counted = counted_record(cfg, cut) if cut.batch != full.batch else rec
@@ -772,6 +776,8 @@ def main(argv=None):
     ap.add_argument("--profile", action="store_true",
                     help="one more card step under torch.profiler: device time by kernel")
     ap.add_argument("--out", default="build/dryrun")
+    ap.add_argument("--no-fsdp", action="store_true",
+                    help="place a train cell's state on the mesh without FSDP")
     ap.add_argument("--jobs", type=int, default=1,
                     help="worker processes for the meta runs (each its own fake world)")
     args = ap.parse_args(argv)
@@ -785,7 +791,7 @@ def main(argv=None):
     failures = 0
     for kind in ("single", "multi") if args.mesh == "both" else (args.mesh,):
         for rec in run_cells(kind, cells, args.jobs, device=args.device, batch=args.batch,
-                             reps=args.reps, profile=args.profile):
+                             reps=args.reps, profile=args.profile, fsdp=not args.no_fsdp):
             tag = f"{rec['arch']}__{rec['shape']}__{kind}"
             with open(os.path.join(args.out, tag + ".json"), "w") as f:
                 json.dump(rec, f, indent=1)

@@ -1,8 +1,12 @@
 """The port's examples (``examples/torch_quickstart.py``,
-``examples/torch_train_e2e.py``) run on the CPU: the I/O demo recovers
-every committed byte, training's loss falls, and the quickstart's second
-loop resumes at step 20 from its NVCache-backed checkpoint."""
+``examples/torch_train_e2e.py``, ``examples/torch_crash_recovery_demo.py``)
+run on the CPU: the I/O demo recovers every committed byte, training's
+loss falls, the quickstart's second loop resumes at step 20 from its
+NVCache-backed checkpoint, and the crash demo reads back every
+acknowledged key after a crash and recovery, as the original's code."""
+import ast
 import importlib.util
+import re
 from pathlib import Path
 
 import pytest
@@ -45,3 +49,22 @@ def test_train_e2e_tiny_loss_falls():
 def test_presets_match_the_jax_example():
     jax_presets = _load("train_e2e").PRESETS
     assert _load("torch_train_e2e").PRESETS == jax_presets
+
+
+@pytest.mark.parametrize("seed", [0, 1, 2])
+def test_crash_demo_reads_back_every_acknowledged_key(seed, capsys):
+    _load("torch_crash_recovery_demo").main(seed)
+    out = capsys.readouterr().out
+    assert re.search(r"^verified [1-9]\d* acknowledged keys: 0 missing$", out, re.M), out
+    assert out.rstrip().endswith("OK — every acknowledged write survived the crash")
+
+
+def test_crash_demo_is_the_original_s_code():
+    """Below its docstring, the twin is ``crash_recovery_demo.py`` with
+    ``repro.`` -> ``repro_torch.`` in its imports."""
+    def body(name, text=None):
+        tree = ast.parse(text or (EXAMPLES / f"{name}.py").read_text())
+        return ast.dump(ast.Module(tree.body[1:], []))
+    original = re.sub(r"^(from|import) repro\.", r"\1 repro_torch.",
+                      (EXAMPLES / "crash_recovery_demo.py").read_text(), flags=re.M)
+    assert body("torch_crash_recovery_demo") == body(None, original)
