@@ -108,10 +108,15 @@ Phases, each of which must pass:
              launches; the two timed in turns: DTensor's host cost), a
              prefill of 4 x 2048 and 8 decode steps through
              ``serve_shardings``, and mamba2-780m served the same way (K3
-             on the rank's heads); then four gloo ranks on the one card:
-             ``compressed_psum`` and the GPipe schedule, each held to one
-             rank's result.  The mesh path's launches are counted from 0
-             around each sharded run only;
+             on the rank's heads); then phase 5's mamba2-780m train step
+             the same way (K3 and its backward on the rank's heads through
+             ``ops.ssd``; loss, parameters and each leaf's gradient beside
+             the unsharded run-to-run gap, launches K3 96, K3 backward 48
+             on wgmma, K2 11, the peak memory and DTensor's host cost);
+             then four gloo ranks on the one card: ``compressed_psum`` and
+             the GPipe schedule, each held to one rank's result.  The mesh
+             path's launches are counted from 0 around each sharded run
+             only;
   8. tooling the dry run's mesh mode (``launch/dryrun.py --mesh``: fake
              worlds of 256 and 512 ranks, meta tensors) for llama3.2-1b
              train_4k on 16x16 and 2x16x16, qwen3-moe-30b-a3b train_4k,
@@ -1488,7 +1493,7 @@ def main() -> int:
             routes = dict(ssd.ssd_bwd_cuda.routes)
             print(f"  {arch}: K3 backward routes {routes}")
             assert routes == {**dict.fromkeys(routes, 0), "wgmma": counts["k3b"]}, routes
-        # K1's stands at whisper-small's serve, K3's at mamba2's mesh serve
+        # until phase 7's mesh train steps set the kernels line's counts
         for key in ("k1b", "k2") if arch == "llama3.2-1b" else ("k3b",) if arch == "mamba2-780m" else ():
             kernels[key][0]["launches"] = counts[key]
         warm = times[1:]
@@ -1836,7 +1841,7 @@ def main() -> int:
                                  ("mesh 1x1 llama3.2-1b serve", res["serve_launches"])):
                 if counts.get(key):   # mesh_check counts K1, its backward, K2 and K3
                     entry["paths"][path] = counts[key]
-        for key in ("k1", "k1b", "k2"):   # a sharded step's
+        for key in ("k1", "k1b"):   # a sharded step's; K2's and K3's: mamba2's below
             kernels[key][0]["launches"] = res["launches_sharded"][key]
         torch.cuda.empty_cache()
         zero_counts()
@@ -1844,7 +1849,37 @@ def main() -> int:
         print(json.dumps({"mesh_ssm": res}))
         assert not res["failed"], res["failed"]
         kernels["k3"][0]["paths"]["mesh 1x1 mamba2-780m serve"] = res["serve_launches"]["k3"]
-        kernels["k3"][0]["launches"] = res["serve_launches"]["k3"]
+
+    def mesh_ssm_train():
+        # phase 5's mamba2-780m step on the 1x1 mesh: K3 and its backward on
+        # the rank's heads through ops.ssd's local_map.  A size-1 axis's
+        # partial sum is already whole, so the summed dA, dB and dC show on
+        # the CPU's four gloo ranks (tests/test_torch_mesh_ssm.py), not here;
+        # nor can four ranks on this one card run the step: gloo aborts on
+        # DTensor's redistributes of CUDA tensors, and NCCL refuses two ranks
+        # on one device (launch/mesh_check.py)
+        torch.cuda.empty_cache()
+        zero_counts()
+        res = mesh_check.single_mesh(get_config("mamba2-780m"))
+        print(json.dumps({"mesh_ssm_train": res}))
+        print(f"  1x1 mesh ({res['backend']}), mamba2-780m 4 x 2048: loss "
+              f"{res['loss_sharded']:.6f} sharded, {res['loss_unsharded']:.6f} unsharded "
+              f"(|d| {res['loss_diff']:.3e}), parameters max |d| {res['param_max_diff']:.3e} "
+              f"(unsharded run to run {res['rerun_param_max_diff']:.3e}), gradients worst leaf "
+              f"|d|/max|m| {res['grad_worst_rel']:.3e} (run to run "
+              f"{res['rerun_grad_worst_rel']:.3e}, limit {res['grad_tol']:.3e}: twice that); "
+              f"by leaf {res['grad_rel']} (run to run {res['rerun_grad_rel']}); warm step "
+              f"{res['warm_mean_ms']['sharded']:.2f} ms sharded, "
+              f"{res['warm_mean_ms']['unsharded']:.2f} ms unsharded (DTensor's dispatch "
+              f"{res['dispatch_overhead_ms']:+.2f} ms); peak memory "
+              f"{res['peak_gib_sharded']:.2f} GiB; launches a step {res['launches_sharded']} "
+              f"(wanted {res['launches_wanted']}), K3 routes {res['k3_routes']}, K3 backward "
+              f"routes {res['k3b_routes']}")
+        assert not res["failed"], res["failed"]
+        for key in ("k2", "k3", "k3b"):
+            kernels[key][0]["paths"]["mesh 1x1 mamba2-780m train step"] = \
+                res["launches_sharded"][key]
+            kernels[key][0]["launches"] = res["launches_sharded"][key]
 
     def mesh_gloo():
         # four ranks on the one card run only what needs none of the ops
@@ -1862,6 +1897,7 @@ def main() -> int:
                     if key.startswith("k2_launches"))
 
     phase("mesh 1x1", mesh_single)
+    phase("mesh 1x1 mamba2-780m train", mesh_ssm_train)
     phase("mesh gloo on CUDA", mesh_gloo)
     if torch.distributed.is_initialized():
         torch.distributed.destroy_process_group()

@@ -11,15 +11,17 @@ placements that ``parallel.context.constrain`` pins them to: the batch dim
 sharded over the mesh's data axes, the heads over its ``model`` axis, or
 either replicated.  Through ``local_map`` each runs the kernel (or, on the
 CPU, the plain version) on each rank's own shard and wraps the result with
-the matching placements.  Any other placement raises, and ``quantize``
-raises on any DTensor: nothing here redistributes.
+the matching placements.  An operand replicated on an axis where x is
+sharded gets its gradient there as ``Partial()``: each rank's is only its
+own shard's share of the sum.  Any other placement raises, and
+``quantize`` raises on any DTensor: nothing here redistributes.
 """
 from __future__ import annotations
 
 import functools
 
 import torch
-from torch.distributed.tensor import DTensor, Replicate, Shard
+from torch.distributed.tensor import DTensor, Partial, Replicate, Shard
 from torch.distributed.tensor.experimental import local_map
 
 from repro_torch.kernels import ref as _ref
@@ -57,6 +59,17 @@ def _like(placements, dims):
                  else Replicate() for p in placements)
 
 
+def _summed(placements, operand):
+    """The placements of an operand's gradient under ``local_map``, given x's
+    ``placements`` and the operand's own: ``Partial()`` on each axis where x
+    is sharded and the operand replicated, since there each rank's gradient
+    covers its own shard of x only and the whole is the sum over the axis;
+    elsewhere as the operand is placed.  Without it DTensor takes one rank's
+    share for the whole (dA over the data axes, dB and dC over ``model``)."""
+    return tuple(Partial() if isinstance(o, Replicate) and isinstance(p, Shard) else o
+                 for p, o in zip(placements, operand))
+
+
 # ---------------------------------------------------------- flash attention
 
 def flash_attention(q, k, v, *, causal=True, window=0, scale=None):
@@ -90,18 +103,28 @@ def ssd(x, dt, A, B, C, *, chunk=256):
     both routes: autograd through the plain version on the CPU, the
     backward kernel (``csrc/ssd_scan_bwd.cu``) on the card.  DTensors: x and dt
     with batch dim 0 and heads dim 2 placed alike, A's heads as x's, B and
-    C as x's batch and replicated over ``model``; y is placed as x, the
-    state (b,h,p,n) on the same batch and heads."""
+    C as x's batch and replicated over ``model``, with one group (g = 1)
+    where the heads are split; y is placed as x, the state (b,h,p,n) on
+    the same batch and heads.  dA, dB and dC are partial sums where x is
+    split and they are not (``_summed``)."""
     if isinstance(x, DTensor):
         pl = _placed(x, 0, 2)
         _matching("dt", dt, pl)
-        _matching("A", A, _like(pl, {0: None, 2: 0}))
+        apl = _like(pl, {0: None, 2: 0})
+        _matching("A", A, apl)
         bc = _like(pl, {0: 0, 2: None})
         _matching("B", B, bc)
         _matching("C", C, bc)
+        if B.shape[2] > 1 and any(isinstance(p, Shard) and p.dim == 2 for p in pl):
+            # a rank's local heads would meet groups by their local index
+            # (head i -> group i // (h_local / g)), not their global one
+            raise ValueError(f"ops: ssd with heads split over 'model' takes one B/C group, "
+                             f"got g = {B.shape[2]}; it does not regroup a rank's heads")
         return local_map(functools.partial(ssd, chunk=chunk),
                          out_placements=(pl, _like(pl, {0: 0, 2: 1})),
-                         in_placements=(pl, pl, _like(pl, {0: None, 2: 0}), bc, bc),
+                         in_placements=(pl, pl, apl, bc, bc),
+                         in_grad_placements=(pl, pl, _summed(pl, apl), _summed(pl, bc),
+                                             _summed(pl, bc)),
                          device_mesh=x.device_mesh)(x, dt, A, B, C)
     if x.device.type in PLAIN_DEVICES:
         return _ref.ssd_ref(x, dt, A, B, C, chunk=chunk)

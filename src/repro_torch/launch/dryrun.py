@@ -50,7 +50,8 @@ The counts (:class:`LocalCount`, on each op a device runs):
     ``collective_permute``), ``_count``, ``_operand`` and ``_wire`` bytes
     (``hlo_analysis.py``'s ring factors), summed into ``wire_bytes``;
     ``groups`` gives each mesh axis' ranks (rank 0's group) and wire
-    bytes, which ``launch/roofline.py`` sets against its link;
+    bytes, which ``launch/roofline.py`` sets against its link, and
+    ``collectives_by_axis`` the counts and operand bytes by kind on each;
   * ``k1_flops``: K1's operations alone, forward and backward.
 
 With ``--device cuda`` (1x1) the cell also runs on the card, once per
@@ -187,6 +188,7 @@ class LocalCount(TorchDispatchMode):
         self.work_hbm_bytes = 0
         self.collectives = collections.Counter()
         self.group_wire = collections.Counter()
+        self.by_axis = collections.defaultdict(collections.Counter)
         self._inside = 0          # > 0: in a unit's plain version (plain tally only)
         self._muted = 0           # > 0: counted nowhere (a unit's recompute)
 
@@ -277,7 +279,10 @@ class LocalCount(TorchDispatchMode):
         self.collectives[kind + "_count"] += 1
         self.collectives[kind + "_operand"] += operand
         self.collectives[kind + "_wire"] += wire
-        self.group_wire[self.groups.get(name, {}).get("axis", name)] += wire
+        axis = self.groups.get(name, {}).get("axis", name)
+        self.group_wire[axis] += wire
+        self.by_axis[axis][kind + "_count"] += 1
+        self.by_axis[axis][kind + "_operand"] += operand
         return result
 
     def plain_tally(self):
@@ -309,7 +314,9 @@ class LocalCount(TorchDispatchMode):
                 "collectives": {k: int(v) for k, v in sorted(self.collectives.items())},
                 "wire_bytes": int(sum(v for k, v in self.collectives.items()
                                       if k.endswith("_wire"))),
-                "groups": groups}
+                "groups": groups,
+                "collectives_by_axis": {axis: {k: int(v) for k, v in sorted(c.items())}
+                                        for axis, c in sorted(self.by_axis.items())}}
 
 
 def mesh_groups(mesh) -> dict:

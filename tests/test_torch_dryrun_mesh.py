@@ -112,6 +112,17 @@ PORT = textwrap.dedent("""
             out["smoke"][arch + " 2x2"] = dryrun.counted_record(get_smoke(arch), shape, mesh=m22)
         out["smoke"]["llama3.2-1b 4x1"] = dryrun.counted_record(
             get_smoke("llama3.2-1b"), shape, mesh=m41)
+        # mamba2's step, and again with ops.ssd's gradients taken as placed
+        # (each rank's share of dA, dB and dC as the whole, as before they
+        # were declared partial): what the declared sums add
+        from repro_torch.kernels import ops
+        out["ssm"] = {"summed": dryrun.counted_record(get_smoke("mamba2-780m"), shape, mesh=m22)}
+        summed, ops._summed = ops._summed, lambda placements, operand: tuple(operand)
+        try:
+            out["ssm"]["unsummed"] = dryrun.counted_record(get_smoke("mamba2-780m"), shape,
+                                                           mesh=m22)
+        finally:
+            ops._summed = summed
         # a c10d collective (compressed_psum's all-gathers, K2 a unit) and
         # the GPipe schedule's one-peer all-to-alls, on a (4,) mesh
         from torch.distributed.device_mesh import init_device_mesh
@@ -282,6 +293,33 @@ def test_smoke_2x2_expert_all_to_alls_against_jax(runs):
     assert port["all_to_all_count"] == jx["collectives"]["all-to-all_count"] == 12
     assert jx["ep_dtypes"] == ["f32"]                 # bf16 on the port's side
     assert jx["collectives"]["all-to-all_operand"] == 2 * port["all_to_all_operand"]
+
+
+def test_smoke_2x2_ssm_step_sums_the_scans_partial_gradients(runs):
+    """mamba2's 2x2 SMOKE step counts the sums ``ops.ssd``'s partial dA,
+    dB and dC need, against the same count with them taken as placed: over
+    ``data`` one all-reduce a layer of dA (float32, h values), over
+    ``model`` at least one reduction a layer of dB and dC, at least their
+    bytes (bf16, (B/2, S, g, n) each; DTensor reduce-scatters them with the
+    rest of the conv output's gradient where that is sharded); nothing
+    else."""
+    cfg = get_smoke("mamba2-780m")
+    got, was = (runs[0]["ssm"][k]["collectives_by_axis"] for k in ("summed", "unsummed"))
+    assert set(got) == set(was) == {"data", "model"}
+    extra = {axis: {k: got[axis].get(k, 0) - was[axis].get(k, 0)
+                    for k in set(got[axis]) | set(was[axis])} for axis in got}
+    layers, h = cfg.n_layers, cfg.ssm_heads
+    assert {k: v for k, v in extra["data"].items() if v} == {
+        "all_reduce_count": layers, "all_reduce_operand": layers * h * 4}
+    model = {k: v for k, v in extra["model"].items() if v}
+    assert set(model) <= {f"{kind}_{what}" for kind in ("all_reduce", "reduce_scatter")
+                          for what in ("count", "operand")}, model
+    reductions = sum(v for k, v in model.items() if k.endswith("_count"))
+    reduced = sum(v for k, v in model.items() if k.endswith("_operand"))
+    assert reductions >= layers
+    assert reduced >= layers * 2 * (SMOKE[1] // 2) * SMOKE[0] * cfg.ssm_state * 2
+    rec = runs[0]["ssm"]["summed"]
+    assert rec["wire_bytes"] > runs[0]["ssm"]["unsummed"]["wire_bytes"]
 
 
 # -------------------------------------------------------------- invariants

@@ -95,13 +95,17 @@ def _np(t):
     return t.detach().float().numpy()
 
 
-def _train_step_cases(mesh, res):
+def _train_step_cases(mesh, res, arch="llama3.2-1b", prefix=""):
+    """``arch``'s SMOKE train step, sharded and unsharded from one state,
+    in bf16 and float32 compute, plain and compressed; results under keys
+    that start with ``prefix``."""
+    from repro_torch.checkpoint.manager import flatten
     from repro_torch.configs.registry import get_smoke
     from repro_torch.models.registry import build
     from repro_torch.optim.adamw import AdamW, tree_leaves
     from repro_torch.parallel import sharding as shd
     from repro_torch.train import steps as tsteps
-    smoke = get_smoke("llama3.2-1b")
+    smoke = get_smoke(arch)
     tokens = np.random.default_rng(3).integers(0, smoke.vocab, (4, 32))
     batch = {"tokens": _t(tokens)}
     # bf16 compute (the config's) under JAX's bounds; float32 compute for
@@ -111,7 +115,7 @@ def _train_step_cases(mesh, res):
         opt = AdamW(lr=LR)
         for compress in (False, True):
             kind = "compressed" if compress else "plain"
-            key = f"step_{kind}"
+            key, gkey = f"{prefix}step_{kind}", f"{prefix}grad_{kind}"
             step = tsteps.make_train_step(model, opt, compress=compress)
             ref = tsteps.init_train_state(model, opt, torch.Generator().manual_seed(0), "cpu")
             state = tsteps.init_train_state(model, opt, torch.Generator().manual_seed(0), "cpu")
@@ -129,10 +133,11 @@ def _train_step_cases(mesh, res):
                 ms = [(a.float().reshape(-1), b.float().reshape(-1))
                       for a, b in zip(tree_leaves(ref["opt"]["m"]),
                                       tree_leaves(whole["opt"]["m"]))]
-                res[f"grad_{kind}"] = np.stack(
+                res[gkey] = np.stack(
                     [np.concatenate([_np(p[i]) for p in ms]) / (1 - opt.b1) for i in (0, 1)])
-                res[f"grad_{kind}_sizes"] = np.array([a.numel() for a, _ in ms])
-                res[f"grad_{kind}_sharded"] = np.array(
+                res[f"{gkey}_sizes"] = np.array([a.numel() for a, _ in ms])
+                res[f"{gkey}_names"] = np.array([k for k, _ in flatten(ref["opt"]["m"])])
+                res[f"{gkey}_sharded"] = np.array(
                     [any(not p.is_replicate() for p in t.placements)
                      for t in tree_leaves(sstate["opt"]["m"])])
                 continue
@@ -333,7 +338,9 @@ def _pipeline_case(res):
     res["pipe_grad_b"] = _np(params[1].grad).reshape(bs.shape)
 
 
-def _resume_case(mesh, res):
+def _resume_case(mesh, res, arch="llama3.2-1b", prefix=""):
+    """``train_loop.train`` on the mesh for ``arch``'s SMOKE model: 5 steps
+    straight, and 3 then a resume to 5 from the checkpoint at 3."""
     import torch.distributed as dist
     from repro_torch.configs.registry import get_smoke
     from repro_torch.core import NVCache, Policy
@@ -343,7 +350,7 @@ def _resume_case(mesh, res):
     from repro_torch.storage.fsapi import NVCacheFS
     from repro_torch.storage.tiers import DRAM, Tier
     from repro_torch.train import loop as train_loop
-    cfg = get_smoke("llama3.2-1b")
+    cfg = get_smoke(arch)
     model, opt = build(cfg), AdamW(lr=LR)
     pol = Policy(entry_size=16384, log_entries=2048, read_cache_pages=64, batch_min=8,
                  batch_max=512, verify_crc=False)
@@ -362,8 +369,8 @@ def _resume_case(mesh, res):
     finally:
         nv_once.shutdown()
         nv.shutdown()
-    res["resume_losses"] = np.array([straight, first + resumed])
-    res["resume_counts"] = np.array([len(first), len(resumed), at, dist.get_rank()])
+    res[f"{prefix}resume_losses"] = np.array([straight, first + resumed])
+    res[f"{prefix}resume_counts"] = np.array([len(first), len(resumed), at, dist.get_rank()])
 
 
 def _job(rank, store, out):
