@@ -31,9 +31,12 @@ from pathlib import Path
 import torch
 
 from repro_torch.kernels import _build
+from repro_torch.runtime.ranges import span
 
 SRC = _build.CSRC / "flash_attention.cu"
 BWD_SRC = _build.CSRC / "flash_attention_bwd.cu"
+FWD_SPAN = "k1.fwd"         # the profiler range around a forward's launches
+BWD_SPAN = "k1.bwd"         # and around a backward's
 MAX_HEAD_DIM = 128           # of q/k and of v; no config of the repo has more
 ROUTES = ("fma", "mma", "wgmma")
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
@@ -147,10 +150,12 @@ def launch_fwd(entry, q, k, v, *, causal, window, scale, return_lse, stream):
     lse = (torch.empty((B, H, Sq), dtype=torch.float32, device=q.device)
            if return_lse else None)
     if o.numel():
-        err = entry(q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
-                    lse.data_ptr() if return_lse else None, _DTYPE_CODE[q.dtype],
-                    B, Sq, k.shape[1], H, k.shape[2], D, Dv, *q.stride()[:3], *k.stride()[:3],
-                    *v.stride()[:3], *o.stride()[:3], scale, int(bool(causal)), window, stream)
+        with span(FWD_SPAN):
+            err = entry(q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
+                        lse.data_ptr() if return_lse else None, _DTYPE_CODE[q.dtype],
+                        B, Sq, k.shape[1], H, k.shape[2], D, Dv, *q.stride()[:3],
+                        *k.stride()[:3], *v.stride()[:3], *o.stride()[:3], scale,
+                        int(bool(causal)), window, stream)
         if err != 0:
             raise RuntimeError(f"flash_attention_fwd launch failed (CUDA error {err})")
     return o, lse
@@ -219,11 +224,12 @@ def launch_bwd(entry, q, k, v, o, lse, do, *, causal, window, scale, stream):
     if dq.numel() == 0 or k.shape[1] == 0:
         return dq.zero_(), dk.zero_(), dv.zero_()
     delta = _bwd_scratch(q, Dv)
-    err = entry(q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(), do.data_ptr(),
-                lse.data_ptr(), delta.data_ptr(), dq.data_ptr(), dk.data_ptr(), dv.data_ptr(),
-                _DTYPE_CODE[q.dtype], B, Sq, k.shape[1], H, k.shape[2], D, Dv,
-                *q.stride()[:3], *k.stride()[:3], *v.stride()[:3], *o.stride()[:3],
-                *do.stride()[:3], scale, int(bool(causal)), window, stream)
+    with span(BWD_SPAN):
+        err = entry(q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(), do.data_ptr(),
+                    lse.data_ptr(), delta.data_ptr(), dq.data_ptr(), dk.data_ptr(),
+                    dv.data_ptr(), _DTYPE_CODE[q.dtype], B, Sq, k.shape[1], H, k.shape[2], D,
+                    Dv, *q.stride()[:3], *k.stride()[:3], *v.stride()[:3], *o.stride()[:3],
+                    *do.stride()[:3], scale, int(bool(causal)), window, stream)
     if err != 0:
         raise RuntimeError(f"flash_attention_bwd launch failed (CUDA error {err})")
     return dq, dk, dv

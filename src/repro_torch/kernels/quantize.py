@@ -19,8 +19,10 @@ from pathlib import Path
 import torch
 
 from repro_torch.kernels import _build
+from repro_torch.runtime.ranges import span
 
 SRC = _build.CSRC / "quantize.cu"
+SPAN = "k2.quantize"        # the profiler range around a call's launch
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 
 
@@ -58,7 +60,7 @@ def quantize_cuda(x, *, group=256):
     if x.numel() == 0:
         return q, scales
     vec = 4 if group % 4 == 0 and x.data_ptr() % (4 * x.element_size()) == 0 else 1
-    with torch.cuda.device(x.device):
+    with span(SPAN), torch.cuda.device(x.device):
         err = _entry()(x.data_ptr(), q.data_ptr(), scales.data_ptr(), _DTYPE_CODE[x.dtype],
                        x.numel() // group, group, vec,
                        torch.cuda.current_stream(x.device).cuda_stream)

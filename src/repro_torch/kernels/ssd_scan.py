@@ -27,9 +27,12 @@ from pathlib import Path
 import torch
 
 from repro_torch.kernels import _build
+from repro_torch.runtime.ranges import span
 
 SRC = _build.CSRC / "ssd_scan.cu"
 BWD_SRC = _build.CSRC / "ssd_scan_bwd.cu"
+FWD_SPAN = "k3.fwd"         # the profiler range around a forward's launches
+BWD_SPAN = "k3.bwd"         # and around a backward's
 MAX_P, MAX_N, MAX_CHUNK = 64, 128, 1024
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 ROUTES = ("fma", "wgmma")   # the C entry's route codes, in order
@@ -100,11 +103,12 @@ def launch(entry, x, dt, A, B, C, chunk, stream):
     if route == "wgmma":   # per (batch, head): each chunk's state and decay, cums and dt
         scratch = torch.empty((b * h * ((s // chunk) * (p * n + 1) + 3 * s),),
                               dtype=torch.float32, device=x.device)
-    err = entry(x.data_ptr(), dt.data_ptr(), A.data_ptr(), B.data_ptr(), C.data_ptr(),
-                y.data_ptr(), state.data_ptr(), None if scratch is None else scratch.data_ptr(),
-                ROUTES.index(route),
-                _DTYPE_CODE[x.dtype], b, s, h, p, g, n, chunk, *x.stride(), *dt.stride(),
-                A.stride(0), *B.stride(), *C.stride(), *y.stride()[:3], stream)
+    with span(FWD_SPAN):
+        err = entry(x.data_ptr(), dt.data_ptr(), A.data_ptr(), B.data_ptr(), C.data_ptr(),
+                    y.data_ptr(), state.data_ptr(),
+                    None if scratch is None else scratch.data_ptr(), ROUTES.index(route),
+                    _DTYPE_CODE[x.dtype], b, s, h, p, g, n, chunk, *x.stride(), *dt.stride(),
+                    A.stride(0), *B.stride(), *C.stride(), *y.stride()[:3], stream)
     if err != 0:
         raise RuntimeError(f"ssd_scan_fwd ({route} route) launch failed (CUDA error {err})")
     return route, y, state
@@ -214,13 +218,14 @@ def launch_bwd(entry, x, dt, A, B, C, dy, dstate, chunk, stream, route=None):
     # route also gathers dc, one float a step
     per = (s // chunk) * (2 * p * n + 1) + (s if route == "wgmma" else 0)
     scratch = torch.empty((max(1, b * h * per),), dtype=f32, device=dev)
-    err = entry(x.data_ptr(), dt.data_ptr(), A.data_ptr(), B.data_ptr(), C.data_ptr(),
-                dy.data_ptr(), None if dstate is None else dstate.data_ptr(),
-                dx.data_ptr(), ddt.data_ptr(), dA.data_ptr(), acc[0].data_ptr(),
-                acc[1].data_ptr(), out[0].data_ptr(), out[1].data_ptr(), scratch.data_ptr(),
-                ROUTES.index(route), _DTYPE_CODE[x.dtype], b, s, h, p, g, n, chunk,
-                *x.stride(), *dt.stride(), A.stride(0), *B.stride(), *C.stride(), *dy.stride(),
-                stream)
+    with span(BWD_SPAN):
+        err = entry(x.data_ptr(), dt.data_ptr(), A.data_ptr(), B.data_ptr(), C.data_ptr(),
+                    dy.data_ptr(), None if dstate is None else dstate.data_ptr(),
+                    dx.data_ptr(), ddt.data_ptr(), dA.data_ptr(), acc[0].data_ptr(),
+                    acc[1].data_ptr(), out[0].data_ptr(), out[1].data_ptr(), scratch.data_ptr(),
+                    ROUTES.index(route), _DTYPE_CODE[x.dtype], b, s, h, p, g, n, chunk,
+                    *x.stride(), *dt.stride(), A.stride(0), *B.stride(), *C.stride(),
+                    *dy.stride(), stream)
     if err != 0:
         raise RuntimeError(f"ssd_scan_bwd ({route} route) launch failed (CUDA error {err})")
     return dx, ddt, dA, out[0], out[1]

@@ -18,23 +18,22 @@ slowest: the host's clock varies between runs), and one under
 warm prefill time, the decode time per step, the device-busy share of each
 (device kernel time over the median timed run's wall time), the kernels
 that take the most device time, the hand-written kernels' launches per
-prefill and, summed over the CUDA kernels each of them runs (``OWN``),
-their device time per prefill and share of the prefill's device time;
-for an MoE model the device time per prefill and per decode step of its
-expert products, dispatch and combine (the ``moe.*`` spans of
-``models/moe.py``) and the (token, k) pairs a prefill drops over
-capacity; for the encoder-decoder K1's device time per prefill by kind of
-call (encoder, decoder self-attention, cross-attention: its launches in
-the order the prefill makes them) and the cross-attention's device time
-per prefill and per decode step with its share of each (the
-``encdec.cross_attention`` span of ``models/encdec.py``; a span's device
-time counts the kernels of torch ops only, not those launched through
-``ctypes``, so the prefill's cross-attention is the span's plus K1's
-cross calls); then one JSON line with those numbers and the card's name and
-power limit.  Needs a CUDA card.
+prefill and their device time per prefill and share of the prefill's
+device time (the device work launched inside their ranges ``k1.fwd`` and
+``k3.fwd``, ``runtime/ranges.py``); for an MoE model the device time per
+prefill and per decode step of its expert products, dispatch and combine
+(the ``moe.*`` ranges of ``models/moe.py``) and the (token, k) pairs a
+prefill drops over capacity; for the encoder-decoder K1's device time per
+prefill by kind of call (encoder, decoder self-attention,
+cross-attention: its launches in the order the prefill makes them) and
+the cross-attention's device time per prefill and per decode step with
+its share of each (the ``encdec.cross_attention`` range of
+``models/encdec.py``, its K1 calls included); then one JSON line with
+those numbers and the card's name and power limit.  Needs a CUDA card.
 """
 from __future__ import annotations
 
+import bisect
 import dataclasses
 import json
 import statistics
@@ -46,17 +45,18 @@ import torch
 from torch.profiler import ProfilerActivity, profile
 
 from repro_torch.configs.registry import all_archs, get_config
-from repro_torch.kernels.flash_attention import flash_attention_cuda
-from repro_torch.kernels.ssd_scan import ssd_cuda
+from repro_torch.kernels import flash_attention as fa
+from repro_torch.kernels import ssd_scan as ssd
 from repro_torch.launch.serve import decode, prefill
 from repro_torch.models import encdec, moe
 from repro_torch.models.registry import build
+from repro_torch.runtime.ranges import NAMES
 
 B, P, T, SEED = 4, 2048, 32, 0   # the slices' serving shape
 PROMPT = {"whisper-small": encdec.ENC_LEN}   # an arch's own prompt length (frames)
-KERNELS = {"k1": flash_attention_cuda, "k3": ssd_cuda}
-# device-kernel names of the hand-written kernels (substrings of the profiler's keys)
-OWN = {"k1": ("fa_fwd_",), "k3": ("ssd_fwd", "ssd_chunk_state", "ssd_carry", "ssd_chunk_out")}
+# each hand-written kernel's wrapper (it counts the launches) and range
+KERNELS = {"k1": (fa.flash_attention_cuda, fa.FWD_SPAN), "k3": (ssd.ssd_cuda, ssd.FWD_SPAN)}
+K1_NAME = "fa_fwd_"    # K1's CUDA kernels (a substring of their names), in launch order
 TOP = 12                         # kernels listed per phase
 REPS = 5                         # timed runs of each phase
 # what an arch's config must change to serve on one 80 GB card: granite-20b's
@@ -67,8 +67,7 @@ ONE_CARD = {"granite-20b": {"param_dtype": "bfloat16"},
 # archs no one-card config serves at full width
 WAITING = {"arctic-480b": "~477 B parameters, ~27 GB of bfloat16 a layer: two of its "
                           "35 layers fill an 80 GB card"}
-MOE_SPANS = ("moe.experts", "moe.dispatch", "moe.combine")   # models/moe.py's record_function
-SPANS = (*MOE_SPANS, encdec.CROSS_SPAN)
+MOE_SPANS = (moe.EXPERTS_SPAN, moe.DISPATCH_SPAN, moe.COMBINE_SPAN)
 
 
 def one_card_config(arch: str):
@@ -80,11 +79,27 @@ def one_card_config(arch: str):
 
 
 def _span_ms(prof, name):
-    """Device time (ms) of the kernels launched inside ``record_function(name)``:
-    the device time of its host-side row's children (its device-side row
-    spans the GPU timeline, idle gaps included)."""
-    return sum(e.device_time_total for e in prof.key_averages()
-               if e.key == name and e.device_type == torch.autograd.DeviceType.CPU) / 1e3
+    """Device time (ms) of the work launched inside the range ``name``:
+    every kernel, copy and set whose CUDA API call (a host event named
+    ``cu...``, of the same correlation id) starts inside one of the
+    range's host intervals.  Kernels launched through ``ctypes`` count as
+    those of torch ops do: they are no child of the range in the
+    profiler's tree, and the range's device-side row spans the GPU
+    timeline, idle gaps included."""
+    cpu = torch.autograd.DeviceType.CPU
+    events = prof.profiler.kineto_results.events()
+    ranges = sorted((e.start_ns(), e.end_ns()) for e in events
+                    if e.name() == name and e.device_type() == cpu)
+    starts = [s for s, _ in ranges]
+
+    def inside(t):
+        i = bisect.bisect_right(starts, t) - 1
+        return i >= 0 and t <= ranges[i][1]
+
+    launched = {e.correlation_id() for e in events if e.device_type() == cpu
+                and e.name().startswith("cu") and inside(e.start_ns())}
+    return sum(e.duration_ns() for e in events if e.device_type() != cpu
+               and not e.is_user_annotation() and e.correlation_id() in launched) / 1e6
 
 
 def _timed(fn):
@@ -99,10 +114,10 @@ def _device_ms(prof):
     """Device time (ms) by kernel name, largest first.  Operator rows (on
     the CPU) are left out: their device time is that of the kernels they
     launched, which are rows of their own; so are the device-side rows of
-    ``record_function`` spans, which time a stretch of the GPU's timeline."""
+    the ranges, which time a stretch of the GPU's timeline."""
     rows = [(e.key, e.self_device_time_total / 1e3) for e in prof.key_averages()
             if e.device_type != torch.autograd.DeviceType.CPU and e.self_device_time_total > 0
-            and not getattr(e, "is_user_annotation", False) and e.key not in SPANS]
+            and not getattr(e, "is_user_annotation", False) and e.key not in NAMES]
     return sorted(rows, key=lambda r: -r[1])
 
 
@@ -113,7 +128,7 @@ def _k1_by_kind(prof, cfg):
     profile holds another number of K1 kernels."""
     calls = sorted((e for e in prof.events()
                     if e.device_type != torch.autograd.DeviceType.CPU
-                    and any(n in e.name for n in OWN["k1"])),
+                    and K1_NAME in e.name),
                    key=lambda e: e.time_range.start)
     kinds = ["encoder"] * cfg.enc_layers + ["self", "cross"] * cfg.dec_layers
     if len(calls) != len(kinds):
@@ -147,14 +162,14 @@ def profile_arch(arch: str, card: str, cfg=None):
             runs["prefill"].append(wall_s)
             runs["decode"].append(_timed(lambda: decode(model, params, logits, cache, T))[1])
         prefill_s, decode_s = (statistics.median(runs[name]) for name in ("prefill", "decode"))
-        launches = {k: fn.launches for k, fn in KERNELS.items()}
+        launches = {k: fn.launches for k, (fn, _) in KERNELS.items()}
         with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof_p:
             logits, cache = prefill(model, params, prompts, T)
             torch.cuda.synchronize()
         with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof_d:
             decode(model, params, logits, cache, T)
             torch.cuda.synchronize()
-        for k, fn in KERNELS.items():
+        for k, (fn, _) in KERNELS.items():
             result[f"{k}_launches_per_prefill"] = fn.launches - launches[k]
         if cfg.family == "moe":
             with moe.count_drops() as drops:
@@ -188,19 +203,13 @@ def profile_arch(arch: str, card: str, cfg=None):
             by_kind = _k1_by_kind(prof, cfg)
             result["k1_ms_per_prefill_by_kind"] = by_kind
             print(f"  k1 by kind of call (ms per prefill): {by_kind}")
-            if by_kind:
-                ms = _span_ms(prof, encdec.CROSS_SPAN) + by_kind["cross"]
-                result["cross_attention_ms_per_prefill"] = ms
-                result["cross_attention_share_of_prefill"] = ms / dev_ms
-                print(f"  cross-attention with its K1 calls: {ms:.3f} ms per prefill, "
-                      f"{ms / dev_ms:.1%}")
         if name == "prefill":
-            for k, names in OWN.items():
-                ms = sum(v for key, v in rows if any(n in key for n in names))
+            for k, (_, rng) in KERNELS.items():
+                ms = _span_ms(prof, rng)
                 result[f"{k}_ms_per_prefill"] = ms
                 result[f"{k}_share_of_prefill"] = ms / dev_ms
                 if ms:
-                    print(f"  {k}: {ms:.3f} ms per prefill over its CUDA kernels, "
+                    print(f"  {k}: {ms:.3f} ms per prefill inside its range {rng}, "
                           f"{ms / dev_ms:.1%} of the prefill's device time")
     result["decode_tokens_per_s"] = B * T / decode_s
     result["peak_memory_gib"] = torch.cuda.max_memory_allocated() / 2**30

@@ -11,8 +11,12 @@ kernels' builds), three timed on the host clock around synchronised work,
 and one under ``torch.profiler`` for the device time by kernel.  Prints the
 warm step time, tokens/s, the device-busy share (device kernel time over
 the timed steps' mean wall time), the kernels that take the most device
-time, the hand-written kernels' launches and device time per step, and the
-peak memory, then one JSON line with those numbers and the card's name and
+time, the device time of each of the step's phases (the device work
+launched inside the ranges ``train.forward``, ``train.backward``,
+``train.compress`` and ``train.optimizer`` of ``train/steps.py``), the
+hand-written kernels' launches and device time per step (the device work
+launched inside each kernel's range, ``runtime/ranges.py``), and the peak
+memory, then one JSON line with those numbers and the card's name and
 power limit.  Needs a CUDA card.
 """
 from __future__ import annotations
@@ -27,10 +31,10 @@ from torch.profiler import ProfilerActivity, profile
 
 from repro_torch.configs.registry import get_config
 from repro_torch.data.pipeline import SyntheticTokens
-from repro_torch.kernels.flash_attention import flash_attention_bwd_cuda, flash_attention_cuda
-from repro_torch.kernels.quantize import quantize_cuda
-from repro_torch.kernels.ssd_scan import ssd_bwd_cuda, ssd_cuda
-from repro_torch.launch.profile_serve import TOP, _device_ms
+from repro_torch.kernels import flash_attention as fa
+from repro_torch.kernels import quantize as qz
+from repro_torch.kernels import ssd_scan as ssd
+from repro_torch.launch.profile_serve import TOP, _device_ms, _span_ms
 from repro_torch.models.registry import build
 from repro_torch.optim.adamw import AdamW
 from repro_torch.train import steps as tsteps
@@ -38,16 +42,11 @@ from repro_torch.train import steps as tsteps
 ARCHS = ("llama3.2-1b", "mamba2-780m", "hymba-1.5b")   # chip_smoke.py's TRAIN_ARCHS
 B, S, SEED = 4, 2048, 0                        # the training slice's shape
 LR = 1e-5                                      # chip_smoke.py's TRAIN_LR
-KERNELS = {"k1": flash_attention_cuda, "k1b": flash_attention_bwd_cuda, "k2": quantize_cuda,
-           "k3": ssd_cuda, "k3b": ssd_bwd_cuda}
-# device-kernel names of the hand-written kernels (substrings of the profiler's keys)
-OWN = {"k1": ("fa_fwd_",), "k1b": ("bwd_delta", "bwd_dq_", "bwd_dkdv_", "bwd_wgmma"),
-       "k2": ("quantize_kernel",),
-       "k3": ("ssd_chunk_state", "ssd_carry", "ssd_chunk_out", "ssd_fwd"),
-       # the backward's two routes: wgmma (state, split_carry, tiles, dc), fma
-       # (states, carry, chunk), and the bf16 casts of both
-       "k3b": ("ssd_bwd_state", "ssd_bwd_split_carry", "ssd_bwd_tiles", "ssd_bwd_dc",
-               "ssd_bwd_carry", "ssd_bwd_chunk", "cast_rows")}
+# each hand-written kernel's wrapper (it counts the launches) and range
+KERNELS = {"k1": (fa.flash_attention_cuda, fa.FWD_SPAN),
+           "k1b": (fa.flash_attention_bwd_cuda, fa.BWD_SPAN),
+           "k2": (qz.quantize_cuda, qz.SPAN),
+           "k3": (ssd.ssd_cuda, ssd.FWD_SPAN), "k3b": (ssd.ssd_bwd_cuda, ssd.BWD_SPAN)}
 WARM, TIMED = 2, 3
 
 
@@ -78,19 +77,20 @@ def main(argv=None):
     losses = [run() for _ in range(TIMED)]
     torch.cuda.synchronize()
     step_s = (time.perf_counter() - t0) / TIMED
-    launches = {k: fn.launches for k, fn in KERNELS.items()}
+    launches = {k: fn.launches for k, (fn, _) in KERNELS.items()}
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         run()
         torch.cuda.synchronize()
-    launches = {k: fn.launches - launches[k] for k, fn in KERNELS.items()}
+    launches = {k: fn.launches - launches[k] for k, (fn, _) in KERNELS.items()}
 
     rows = _device_ms(prof)
     dev_ms = sum(ms for _, ms in rows)
-    own = {k: sum(ms for key, ms in rows if any(n in key for n in names))
-           for k, names in OWN.items()}
+    own = {k: _span_ms(prof, rng) for k, (_, rng) in KERNELS.items()}
+    phases = {rng: _span_ms(prof, rng) for rng in tsteps.PHASES}
     result = {"arch": cfg.arch, "batch": B, "seq": S, "remat": cfg.remat,
               "step_ms": step_s * 1e3, "tokens_per_s": B * S / step_s,
               "device_ms": dev_ms, "device_busy": dev_ms / (step_s * 1e3),
+              "phase_ms_per_step": phases,
               "launches_per_step": launches, "kernel_ms_per_step": own,
               "losses": losses, "peak_memory_gib": torch.cuda.max_memory_allocated() / 2**30,
               "top": [[key[:100], ms] for key, ms in rows[:TOP]],
@@ -99,6 +99,8 @@ def main(argv=None):
           f"{B * S / step_s:.1f} tokens/s, device kernels {dev_ms:.2f} ms, busy "
           f"{dev_ms / (step_s * 1e3):.1%} of the unprofiled wall time, peak memory "
           f"{result['peak_memory_gib']:.2f} GiB")
+    print("  device ms per step by phase: "
+          + ", ".join(f"{rng} {ms:.3f} ({ms / dev_ms:.1%})" for rng, ms in phases.items()))
     print(f"  hand-written kernels per step: launches {launches}, device ms "
           + ", ".join(f"{k} {ms:.3f}" for k, ms in own.items()))
     for key, ms in rows[:TOP]:

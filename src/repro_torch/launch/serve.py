@@ -33,6 +33,7 @@ import torch
 from repro_torch.configs.registry import all_archs, get_config, get_smoke
 from repro_torch.core import NVCache, Policy
 from repro_torch.models.registry import Model, build
+from repro_torch.runtime.ranges import span
 from repro_torch.storage.fsapi import NVCacheFS
 from repro_torch.storage.tiers import BLOB, Tier
 
@@ -68,19 +69,21 @@ def prefill_batch(cfg, prompts):
 def prefill(model: Model, params, prompts, n_tokens: int):
     """Batched prefill with room for ``n_tokens`` more (the cache has
     P + ``n_tokens`` + 8 rows, as the JAX launcher sizes it).  Returns
-    (logits, cache)."""
-    return model.prefill(params, prefill_batch(model.cfg, prompts),
-                         prompts.shape[1] + n_tokens + 8)
+    (logits, cache), under the range ``serve.prefill``."""
+    with span("serve.prefill"):
+        return model.prefill(params, prefill_batch(model.cfg, prompts),
+                             prompts.shape[1] + n_tokens + 8)
 
 
 def decode(model: Model, params, logits, cache, n_tokens: int):
     """Greedy decode of ``n_tokens`` tokens.  Returns (tokens (B, n_tokens),
-    last logits)."""
+    last logits).  Each step is one ``serve.decode_step`` range."""
     out = []
     for _ in range(n_tokens):
-        tok = torch.argmax(logits[:, -1:], -1).to(torch.int32)
-        out.append(tok)
-        logits, cache = model.decode_step(params, cache, tok)
+        with span("serve.decode_step"):
+            tok = torch.argmax(logits[:, -1:], -1).to(torch.int32)
+            out.append(tok)
+            logits, cache = model.decode_step(params, cache, tok)
     return torch.cat(out, 1), logits
 
 

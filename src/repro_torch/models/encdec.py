@@ -16,13 +16,12 @@ the decoder's causal, and cross-attention non-causal from the decoder's
 tokens to the encoder's frames.  The JAX model pads the self-attention's
 heads to ``pad_heads_to`` for the mesh; on one device that changes
 nothing, so the port runs the heads as they are.  Cross-attention runs
-inside the profiler span ``CROSS_SPAN``."""
+inside the profiler range ``CROSS_SPAN`` (``runtime/ranges.py``)."""
 from __future__ import annotations
 
 import torch
 import torch.nn.functional as F
 from torch.distributed.tensor import DTensor
-from torch.profiler import record_function
 
 from repro_torch.kernels import ops
 from repro_torch.models import attention as attn
@@ -33,6 +32,7 @@ from repro_torch.models.lm import (check_ported, embed_tokens, init_stacked, nex
                                    unstack)
 from repro_torch.parallel import context as pctx
 from repro_torch.parallel import sharding as shd
+from repro_torch.runtime.ranges import span
 
 CROSS_SPAN = "encdec.cross_attention"
 ENC_LEN = 1500              # the encoder frames of a serving cache (30 s of audio)
@@ -118,7 +118,7 @@ def encode(cfg: ModelConfig, params, frames):
 def _cross(cfg, pl_cross, h, attend):
     """Cross-attention's query projection, ``attend(q)`` -> (B, S, H, hd)
     and the output projection, under ``CROSS_SPAN``."""
-    with record_function(CROSS_SPAN):
+    with span(CROSS_SPAN):
         q = pctx.split_last(h @ pl_cross["wq"].to(h.dtype), cfg.n_heads, cfg.head_dim)
         return pctx.merge_last(attend(q)) @ pl_cross["wo"].to(h.dtype)
 

@@ -32,14 +32,18 @@ import torch.distributed._functional_collectives as funcol
 import torch.nn.functional as F
 from torch.distributed.tensor import DTensor, Partial, Replicate
 from torch.distributed.tensor.experimental import local_map
-from torch.profiler import record_function
 
 from repro_torch.models.common import ModelConfig
 from repro_torch.models.layers import dense_init
 from repro_torch.parallel import context as pctx
 from repro_torch.parallel.sharding import mesh_sizes, placements
+from repro_torch.runtime.ranges import span
 
 _drops = None   # while count_drops() is open: each call's dropped pairs, on the device
+# the profiler ranges of the layer's three stages (launch/profile_serve.py reads them)
+DISPATCH_SPAN = "moe.dispatch"
+EXPERTS_SPAN = "moe.experts"
+COMBINE_SPAN = "moe.combine"
 
 
 def moe_init(cfg: ModelConfig, gen: torch.Generator, device):
@@ -237,7 +241,7 @@ def _dispatch(cfg: ModelConfig, router, xg):
     if _drops is not None:
         _drops.append((~keep).sum())
     group = torch.arange(G, device=xg.device)[:, None].expand(G, Tg * K)
-    with record_function("moe.dispatch"):   # spans launch.profile_serve reads
+    with span(DISPATCH_SPAN):
         row = group * Tg + torch.arange(Tg * K, device=xg.device) // K
         src = torch.full((E + 1, G, C), G * Tg, dtype=torch.long, device=xg.device)
         src.index_put_((torch.where(keep, idx_f, E), group, torch.where(keep, slot, 0)), row)
@@ -248,7 +252,7 @@ def _dispatch(cfg: ModelConfig, router, xg):
 
 def _experts(h, wg, wu, wd):
     """The experts' SwiGLU over their slots h (E, n, d), in h's dtype."""
-    with record_function("moe.experts"):
+    with span(EXPERTS_SPAN):
         a = F.silu(torch.bmm(h, wg.to(h.dtype))) * torch.bmm(h, wu.to(h.dtype))
         return torch.bmm(a, wd.to(h.dtype))
 
@@ -260,7 +264,7 @@ def _combine(out, plan):
     G, Tg, K = w.shape
     E, d = out.shape[0], out.shape[-1]
     C = out.numel() // (E * G * d)
-    with record_function("moe.combine"):   # one flat index: a vectorized gather
+    with span(COMBINE_SPAN):   # one flat index: a vectorized gather
         at = (idx_f * G + group) * C + slot
         wk = (w.to(out.dtype) * keep.view(G, Tg, K)).view(G * Tg, 1, K)
         return torch.bmm(wk, out.reshape(E * G * C, d)[at].view(G * Tg, K, d))

@@ -6,6 +6,9 @@ goes through the plain file API; when that FS is NVCache-backed, a step's
 checkpoint is synchronously durable at fast-tier speed and drains to the
 blob tier in the background.  On restart the loop recovers: NVCache log
 replay -> manifest -> restore -> resume the data pipeline at the exact step.
+Each step's phases are profiler ranges (``runtime/ranges.py``):
+``train.batch``, ``train.step`` and ``train.log``; the caller's
+``heartbeat`` and the checkpoints run outside them.
 """
 from __future__ import annotations
 
@@ -20,6 +23,7 @@ from repro_torch.checkpoint.manager import CheckpointManager, flatten
 from repro_torch.models.registry import Model
 from repro_torch.optim.adamw import AdamW
 from repro_torch.parallel import sharding as shd
+from repro_torch.runtime.ranges import span
 from repro_torch.train import steps as tsteps
 
 
@@ -92,16 +96,19 @@ def train(model: Model, optimizer: AdamW, pipeline, fs, *,
     history = []
 
     for step in range(start, total_steps):
-        batch = {k: torch.from_numpy(v).to(device) for k, v in pipeline.next().items()}
-        if mesh is not None:
-            batch = shd.distribute(batch, mesh, shd.batch_specs(batch, mesh),
-                                   src_data_rank=None)
+        with span("train.batch"):
+            batch = {k: torch.from_numpy(v).to(device) for k, v in pipeline.next().items()}
+            if mesh is not None:
+                batch = shd.distribute(batch, mesh, shd.batch_specs(batch, mesh),
+                                       src_data_rank=None)
         t0 = time.perf_counter()
-        metrics = step_fn(state, batch)
-        metrics = {k: float(v) for k, v in metrics.items()}   # waits for the step
+        with span("train.step"):
+            metrics = step_fn(state, batch)
+            metrics = {k: float(v) for k, v in metrics.items()}   # waits for the step
         metrics["step_time"] = time.perf_counter() - t0
         if writer:
-            metrics_log.log(step, metrics)
+            with span("train.log"):
+                metrics_log.log(step, metrics)
         history.append(metrics)
         if heartbeat:
             heartbeat(step)

@@ -24,7 +24,14 @@ from repro_torch.optim import grad_compress
 from repro_torch.optim.adamw import AdamW, tree_leaves
 from repro_torch.parallel import context as pctx
 from repro_torch.parallel import sharding as shd
+from repro_torch.runtime.ranges import span
 
+# the profiler ranges of a train step's phases (launch/profile_train.py reads them)
+FORWARD_SPAN = "train.forward"
+BACKWARD_SPAN = "train.backward"
+COMPRESS_SPAN = "train.compress"
+OPTIMIZER_SPAN = "train.optimizer"
+PHASES = (FORWARD_SPAN, BACKWARD_SPAN, COMPRESS_SPAN, OPTIMIZER_SPAN)
 
 def bind_mesh(fn, mesh):
     """``fn`` with ``mesh`` in scope (the expert-parallel MoE path reads
@@ -65,15 +72,18 @@ def make_train_step(model: Model, optimizer: AdamW, *, compress: bool = False):
     ``state`` in place (the counterpart of the JAX step's donated state).
     ``batch``: the model's batch on the state's device, {"tokens": (B, S)
     int} or, for the encoder-decoder, {"frames", "dec_tokens"}.  The
-    metrics ("loss", "ce", "aux", "grad_norm") are 0-d tensors."""
+    metrics ("loss", "ce", "aux", "grad_norm") are 0-d tensors.  Its phases
+    are the profiler ranges ``PHASES`` (``runtime/ranges.py``)."""
     def step(state, batch):
         params = state["params"]
         leaves = list(tree_leaves(params))
         for p in leaves:
             p.requires_grad_(True)
         try:
-            loss, metrics = model.loss(params, batch)
-            grads = torch.autograd.grad(loss, leaves)
+            with span(FORWARD_SPAN):
+                loss, metrics = model.loss(params, batch)
+            with span(BACKWARD_SPAN):
+                grads = torch.autograd.grad(loss, leaves)
         finally:
             for p in leaves:
                 p.requires_grad_(False)
@@ -85,8 +95,10 @@ def make_train_step(model: Model, optimizer: AdamW, *, compress: bool = False):
                  for g, p in zip(grads, leaves)]
         grads = _unflatten_like(params, iter(grads))
         if compress:
-            grads = grad_compress.compress_tree(grads)
-        om = optimizer.update(grads, state["opt"], params)
+            with span(COMPRESS_SPAN):
+                grads = grad_compress.compress_tree(grads)
+        with span(OPTIMIZER_SPAN):
+            om = optimizer.update(grads, state["opt"], params)
         return {k: _whole(v.detach())
                 for k, v in {**metrics, "loss": loss, **om}.items()}
 

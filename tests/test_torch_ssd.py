@@ -345,7 +345,7 @@ def test_profile_train_takes_the_ssm_archs_and_refuses_without_a_card(monkeypatc
     and its backward among its kernels); it measures the card only."""
     from repro_torch.launch import profile_train
     assert arch in profile_train.ARCHS and {"k3", "k3b"} <= set(profile_train.KERNELS)
-    assert profile_train.KERNELS["k3b"] is ssd_bwd_cuda
+    assert profile_train.KERNELS["k3b"] == (ssd_bwd_cuda, "k3.bwd")   # wrapper, range
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(SystemExit, match="CUDA device"):
         profile_train.main(["--arch", arch])
