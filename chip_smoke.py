@@ -62,8 +62,10 @@ Phases, each of which must pass:
              layers) at full width (batch 4, prompt 2048, 32
              new tokens) through ``repro_torch.launch.serve.main``, with the
              kernels' launch counts (and K1's and K3's routes) set to 0 just
-             before and read just after each run, and the request log read
-             back through the port's NVCacheFS;
+             before and read just after each run, the decode replayed as one
+             captured CUDA graph a step outside the MoE and encoder-decoder
+             families (the decode time printed includes the capture), and
+             the request log read back through the port's NVCacheFS;
   4. decode  teacher-forced decode against the full-sequence forward at full
              width, for each model, in float32 and in bfloat16 (MLA: the
              absorbed latent decode against the expanded forward; hymba
@@ -664,8 +666,8 @@ def main() -> int:
     from repro_torch.kernels import quantize as quant
     from repro_torch.kernels import ssd_scan as ssd
     from repro_torch.configs.shapes import SHAPES, scale_shape
-    from repro_torch.launch import (bench_ssd, ckpt_bench, dryrun, mesh_check, perf_probe,
-                                    roofline, serve)
+    from repro_torch.launch import (bench_ssd, ckpt_bench, decode_graph, dryrun, mesh_check,
+                                    perf_probe, roofline, serve)
     from repro_torch.launch.profile_serve import PROMPT as SERVE_PROMPT
     from repro_torch.launch.profile_serve import one_card_config
     from repro_torch.launch import train as launch_train
@@ -1312,18 +1314,24 @@ def main() -> int:
         torch.cuda.empty_cache()      # the last model's blocks: room for this one's
         torch.cuda.reset_peak_memory_stats()
         zero_counts()
+        graphs0 = dataclasses.asdict(decode_graph.COUNTS)
         with moe.count_drops() as drops:   # (token, k) pairs over capacity (MoE)
             res = serve.main(["--arch", arch, "--batch", str(B), "--prompt-len", str(P),
                               "--tokens", str(T), "--seed", "0"], cfg=cfg)
         counts = read_counts(f"serve {arch}")
+        graphs = {k: v - graphs0[k] for k, v in dataclasses.asdict(decode_graph.COUNTS).items()}
         own = ARCHS[arch]
         for key in own:   # the last arch's counts stand: K1's at whisper-small, K3's at hymba
             kernels[key][0]["launches"] = counts[key]
         peak = torch.cuda.max_memory_allocated() / 2**30
         print(f"  serve {arch} ({cfg.param_dtype} parameters): prefill "
               f"{res.prefill_s * 1e3:.2f} ms, decode {B * T / res.decode_s:.1f} tokens/s "
-              f"({res.decode_s / T * 1e3:.2f} ms/step), peak memory {peak:.2f} GiB, "
+              f"({res.decode_s / T * 1e3:.2f} ms/step, the graph's capture included where "
+              f"there is one: decode graph counts {graphs}), peak memory {peak:.2f} GiB, "
               f"launches {counts}")
+        graphed = cfg.family not in decode_graph.EAGER_FAMILIES
+        assert graphs == {"captures": int(graphed), "recaptures": 0, "replays": T * graphed,
+                          "eager_steps": T * (not graphed)}, graphs
         if cfg.family == "moe":   # a decode step's capacity of 4 drops nothing
             # random weights collapse the routing with depth (the attention
             # output's shared part leads every token's router input), so the

@@ -32,6 +32,7 @@ import torch
 
 from repro_torch.configs.registry import all_archs, get_config, get_smoke
 from repro_torch.core import NVCache, Policy
+from repro_torch.launch import decode_graph
 from repro_torch.models.registry import Model, build
 from repro_torch.runtime.ranges import span
 from repro_torch.storage.fsapi import NVCacheFS
@@ -77,13 +78,25 @@ def prefill(model: Model, params, prompts, n_tokens: int):
 
 def decode(model: Model, params, logits, cache, n_tokens: int):
     """Greedy decode of ``n_tokens`` tokens.  Returns (tokens (B, n_tokens),
-    last logits).  Each step is one ``serve.decode_step`` range."""
+    last logits); the cache's tensors are updated in place and its ``pos``
+    rebound.  Each step is one ``serve.decode_step`` range.  Where
+    ``decode_graph.replay_for`` gives a replay (a CUDA device, inference
+    mode, plain tensors, a family whose decode step runs no host code of
+    its own), each step is the replay of one CUDA graph; otherwise it runs
+    op by op."""
+    replay = decode_graph.replay_for(model, params, logits, cache, n_tokens)
     out = []
-    for _ in range(n_tokens):
+    for i in range(n_tokens):
         with span("serve.decode_step"):
+            if replay is not None:
+                replay.step(i)
+                continue
             tok = torch.argmax(logits[:, -1:], -1).to(torch.int32)
             out.append(tok)
             logits, cache = model.decode_step(params, cache, tok)
+    if replay is not None:
+        return replay.finish()
+    decode_graph.COUNTS.eager_steps += n_tokens
     return torch.cat(out, 1), logits
 
 

@@ -372,15 +372,15 @@ def init_cache(cfg: ModelConfig, batch: int, max_len: int, device="cuda"):
     return c
 
 
-_SSM_KEYS = ("ssm_state", "conv_state")   # whole per layer: no sequence axis
+SSM_KEYS = ("ssm_state", "conv_state")   # whole per layer: no sequence axis
 
 
 def _cache_keys(cfg: ModelConfig):
     """The per-layer cache entries ``_block_decode`` takes, in its order."""
     if cfg.family == "ssm":
-        return _SSM_KEYS
+        return SSM_KEYS
     keys = ("ckv", "krope") if cfg.attn_kind == "mla" else ("k", "v")
-    return (*keys, *_SSM_KEYS) if cfg.family == "hybrid" else keys
+    return (*keys, *SSM_KEYS) if cfg.family == "hybrid" else keys
 
 
 def prefill(cfg: ModelConfig, params, tokens, max_len: int, positions=None):
@@ -400,7 +400,7 @@ def prefill(cfg: ModelConfig, params, tokens, max_len: int, positions=None):
                                       layer_windows(cfg))):
         x, _, kv = _block(cfg, pl, x, rope, int(win), return_kv=True)
         for key, val in zip(_cache_keys(cfg), kv):
-            if key in _SSM_KEYS:
+            if key in SSM_KEYS:
                 cache[key][i] = val
             else:
                 write_rows(cache[key][i], 0, val)
