@@ -5,13 +5,18 @@ traffic mix and the readers of its per-layer metrics, each found by name.
 * a traffic mix ``<name>`` is ``bench/traffic/<name>.json``, whose
   ``kind`` ("train" or "serve") picks the harness module that runs it;
 * a per-layer metric ``<name>`` is read by ``bench/metrics/<name>.py``'s
-  ``read(run)``.
+  ``read(run)``;
+* a configuration's model family ``<family>`` (its ``model.family``) is
+  ``bench/families/<family>.py``: its weights, plain forward, FLOPs and
+  SSD scans (``bench/families/__init__.py``).
 """
 from __future__ import annotations
 
 import importlib.util
 import json
 from pathlib import Path
+
+from bench import families
 
 ROOT = Path(__file__).resolve().parents[2]
 BENCH = ROOT / "bench"
@@ -61,3 +66,10 @@ def reader(name: str, bench: Path = BENCH):
     mod = importlib.util.module_from_spec(spec)
     spec.loader.exec_module(mod)
     return mod.read
+
+
+def family(m: dict, bench: Path = BENCH):
+    """The module of the model ``m``'s family, loaded from ``bench`` and
+    used by the weights, the reference and the work count from here on;
+    raises, naming the file to add, where there is none."""
+    return families.load(m["family"], bench / "families")

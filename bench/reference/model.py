@@ -1,18 +1,15 @@
-"""Plain float32 forward of the benchmark's two families, written from the
-papers and imports nothing of the program:
-
-* ``ssm`` (Mamba-2, arXiv:2405.21060): x + out_proj(gated_rmsnorm(SSD(
-  silu(causal_conv(in_proj(rmsnorm(x))))) + D x)), tied embeddings;
-* ``hybrid`` (Hymba, arXiv:2411.13676): attention heads (GQA, NeoX rope,
-  a causal window except on the global layers) and Mamba-2 heads side by
-  side on one normed input, summed with per-channel weights, then a
-  SwiGLU MLP.  Hymba's meta tokens and its cross-layer KV sharing are left
-  out, as the program leaves them out.
+"""The plain float32 reference's building blocks, written from the papers
+and importing nothing of the program: the products, RMSNorm, the causal
+conv, the Mamba-2 mixer (arXiv:2405.21060), GQA attention with NeoX rope
+and an optional causal window, the SwiGLU MLP, the stack of layers, the
+unembedding and the cross-entropy.  Each model family
+(``bench/families/<family>.py``) builds its layer from them; :func:`hidden`
+runs the family's forward.
 
 Every product goes through ``mm``: ``torch.matmul`` in float32, or
 :func:`fp8_mm` for the control, which puts both operands through float8
-e4m3 first.  Layers run one after another under activation checkpointing,
-so a long sequence fits beside its gradient.
+e4m3 first.  Layers run one after another, under activation checkpointing
+when asked, so a long sequence fits beside its gradient.
 """
 from __future__ import annotations
 
@@ -22,6 +19,7 @@ import torch
 import torch.nn.functional as F
 from torch.utils.checkpoint import checkpoint
 
+from bench import families
 from bench.reference.ssd import ssd
 
 FP8_MAX = 448.0
@@ -123,17 +121,9 @@ def windows(m):
             for i in range(L)]
 
 
-def block(m, pl, x, window, mm):
-    eps = m["norm_eps"]
-    h = rmsnorm(x, pl["norm1"], eps)
-    if m["family"] == "ssm":
-        return x + ssm_mixer(m, pl["ssm"], h, mm)
-    a = attention(m, pl["attn"], h, window, mm)
-    s = ssm_mixer(m, pl["ssm"], h, mm)
-    x = x + pl["fuse_a"] * a + pl["fuse_s"] * s
-    h2 = rmsnorm(x, pl["norm2"], eps)
-    mlp = pl["mlp"]
-    return x + mm(F.silu(mm(h2, mlp["wg"])) * mm(h2, mlp["wu"]), mlp["wd"])
+def swiglu(p, x, mm):
+    """The SwiGLU MLP (``wg``, ``wu``, ``wd``) on the normed ``x``."""
+    return mm(F.silu(mm(x, p["wg"])) * mm(x, p["wu"]), p["wd"])
 
 
 def _layers(tree, n):
@@ -144,8 +134,10 @@ def _layers(tree, n):
     return [{k: v[i] for k, v in per.items()} for i in range(n)]
 
 
-def hidden(m, params, tokens, mm=f32_mm, remat=False):
-    """The final normed hidden states (B, S, d) of ``tokens`` (B, S)."""
+def decoder(m, params, tokens, block, mm=f32_mm, remat=False):
+    """The final normed hidden states (B, S, d) of ``tokens`` (B, S) through
+    the embedding and ``block(m, layer_params, x, window, mm)`` over the
+    stacked layers, with each layer's window (:func:`windows`)."""
     x = params["embed"][tokens.long()]
     for pl, w in zip(_layers(params["layers"], m["n_layers"]), windows(m)):
         if remat:
@@ -153,6 +145,12 @@ def hidden(m, params, tokens, mm=f32_mm, remat=False):
         else:
             x = block(m, pl, x, w, mm)
     return rmsnorm(x, params["final_norm"], m["norm_eps"])
+
+
+def hidden(m, params, tokens, mm=f32_mm, remat=False):
+    """The final normed hidden states (B, S, d) of ``tokens`` (B, S): the
+    forward of ``m``'s family."""
+    return families.of(m).hidden(m, params, tokens, mm, remat)
 
 
 def unembed(m, params, x, mm=f32_mm):

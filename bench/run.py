@@ -48,6 +48,7 @@ def measure(workload: str, seed: int, seconds: float, trace: bool, *, device="cu
     cell = manifest.cell(man, workload)
     conf = manifest.config(cell["config"], root / "bench")
     traffic = manifest.traffic(cell["traffic"], root / "bench")
+    manifest.family(conf["model"], root / "bench")
     driver = {"train": train_cell, "serve": serve_cell}[traffic["kind"]]
     prof = None
     if trace:

@@ -1,5 +1,5 @@
 """The benchmark loads neither JAX nor the JAX package (``repro``), and the
-reference nothing of the program (``repro_torch``).  Names are compared
+reference and the model families nothing of the program (``repro_torch``).  Names are compared
 by their top-level part whole: ``repro_torch`` begins with ``repro`` but
 is not it."""
 from __future__ import annotations
@@ -46,6 +46,16 @@ def test_reference_imports_nothing_of_the_program(path):
     assert "repro_torch" not in text and "bench.harness" not in text
 
 
+@pytest.mark.parametrize("path", sorted((BENCH / "families").glob("*.py")), ids=lambda p: p.name)
+def test_families_import_nothing_of_the_program(path):
+    """A family is reference code: neither JAX nor the JAX package (the
+    test above) nor anything of the program or the harness."""
+    assert imported_top_levels(path) <= {"__future__", "importlib", "math", "pathlib", "sys",
+                                         "torch", "bench"}
+    text = path.read_text()
+    assert "repro_torch" not in text and "bench.harness" not in text
+
+
 def test_whole_names_are_compared():
     assert forbidden_modules({"repro_torch": 1, "repro_torch.models": 1, "jaxtyping": 1}) == []
     assert forbidden_modules({"repro.models.lm": 1, "jax._src": 1, "numpy": 1}) == ["jax", "repro"]
@@ -61,6 +71,8 @@ def test_a_run_loads_neither():
         "from bench.harness import manifest\n"
         "[manifest.reader(m['name']) for m in manifest.load()['per_layer'] + "
         "manifest.load()['end_to_end']]\n"
+        "[manifest.family(manifest.config(c['name'])['model']) for c in "
+        "manifest.load()['configs']]\n"
         "import repro_torch.train.loop, repro_torch.launch.serve\n"
         "print(bench.run.forbidden_modules())\n" % (str(ROOT), str(ROOT / "src")))
     out = subprocess.run([sys.executable, "-c", code], capture_output=True, text=True,

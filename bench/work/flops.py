@@ -3,7 +3,9 @@ products (projections, MLP, unembedding), the SSD scan (:func:`ssd_work`'s
 operations) and attention's two products over the (query, key) pairs that
 its masks leave visible.  Convolutions, norms and other elementwise work
 are not counted; a training step counts its backward at twice the forward
-and none of remat's recomputation.
+and none of remat's recomputation.  Each family's ``forward_flops``
+(``bench/families/``) sums the counts of its layers from the shared ones
+here.
 
 Worked examples (``train_step_flops(m, 1, 4096) / 4096``, FLOPs a token):
 
@@ -22,7 +24,7 @@ A prefill unembeds only each prompt's last position
 """
 from __future__ import annotations
 
-from bench.work.ssd import ssd_work
+from bench import families
 
 
 def visible_pairs(S: int, window: int) -> int:
@@ -33,29 +35,34 @@ def visible_pairs(S: int, window: int) -> int:
     return window * (window + 1) // 2 + (S - window) * window
 
 
+def gqa_proj_flops(m: dict, tokens: int) -> int:
+    """GQA's q, k, v and output projections over ``tokens``."""
+    d, H, KV, hd = m["d_model"], m["n_heads"], m["n_kv_heads"], m["head_dim"]
+    return 2 * d * (2 * H * hd + 2 * KV * hd) * tokens
+
+
+def attention_pair_flops(m: dict, B: int, S: int, window: int) -> int:
+    """Attention's two products (scores, weighted values) over the visible
+    pairs of ``B`` sequences of ``S`` tokens."""
+    return 2 * B * m["n_heads"] * (2 * m["head_dim"]) * visible_pairs(S, window)
+
+
+def swiglu_flops(m: dict, tokens: int) -> int:
+    """The SwiGLU MLP's three products over ``tokens``."""
+    return 3 * 2 * m["d_model"] * m["d_ff"] * tokens
+
+
+def unembed_flops(m: dict, B: int, S: int, unembed_all: bool) -> int:
+    """The unembedding over every position, or over each sequence's last
+    one when ``unembed_all`` is False."""
+    return 2 * m["d_model"] * m["vocab"] * (B * S if unembed_all else B)
+
+
 def forward_flops(m: dict, B: int, S: int, *, unembed_all: bool = True) -> int:
-    """The forward's FLOPs over ``B`` sequences of ``S`` tokens; with
-    ``unembed_all`` False the unembedding counts for each sequence's last
-    position only, as a prefill computes it."""
-    d, L, V = m["d_model"], m["n_layers"], m["vocab"]
-    di = m["ssm_expand"] * d
-    n, P = m["ssm_state"], m["ssm_head_dim"]
-    h = di // P
-    tokens = B * S
-    per_layer = 2 * d * (2 * di + 2 * n + h) * tokens + 2 * di * d * tokens
-    chunk = m["ssm_chunk"]
-    s_pad = -(-S // chunk) * chunk
-    per_layer += ssd_work(B, s_pad, h, P, 1, n, chunk, 2)[0]
-    total = L * per_layer
-    if m["family"] == "hybrid":
-        H, KV, hd, f = m["n_heads"], m["n_kv_heads"], m["head_dim"], m["d_ff"]
-        proj = 2 * d * (2 * H * hd + 2 * KV * hd) * tokens
-        mlp = 3 * 2 * d * f * tokens
-        total += L * (proj + mlp)
-        for i in range(L):
-            win = 0 if i in m["global_layers"] else m["swa_window"]
-            total += 2 * B * H * (2 * hd) * visible_pairs(S, win)
-    return total + 2 * d * V * (tokens if unembed_all else B)
+    """The forward's FLOPs over ``B`` sequences of ``S`` tokens (the
+    family's count); with ``unembed_all`` False the unembedding counts for
+    each sequence's last position only, as a prefill computes it."""
+    return families.of(m).forward_flops(m, B, S, unembed_all=unembed_all)
 
 
 def train_step_flops(m: dict, B: int, S: int) -> int:
