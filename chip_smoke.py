@@ -1,7 +1,10 @@
 #!/usr/bin/env python3
 """Chip check of the PyTorch port (``src/repro_torch``) on one CUDA card.
 
-    python3 chip_smoke.py
+    python3 chip_smoke.py [--only "serve nemotron-3-nano-30b-a3b,decode nemotron-3-nano-30b-a3b"]
+
+``--only`` runs the build and the phases named (as each prints its name),
+and fails if one of them names no phase.
 
 Phases, each of which must pass:
   1. build   every kernel of the serving and training paths from
@@ -56,10 +59,12 @@ Phases, each of which must pass:
              bfloat16 parameters: its float32 ones do not fit the card),
              qwen2-vl-7b (M-RoPE), qwen3-moe-30b-a3b (128 experts, top
              8, bfloat16 parameters; the (token, k) pairs a prefill drops
-             over capacity printed) and whisper-small (the encoder-decoder:
+             over capacity printed), whisper-small (the encoder-decoder:
              prompt 1500 zero frames, a decoder prompt of 8 tokens; K1 in
              its 12 encoder layers and twice in each of its 12 decoder
-             layers) at full width (batch 4, prompt 2048, 32
+             layers) and nemotron-3-nano-30b-a3b (the pattern family: K3 in
+             its 23 Mamba blocks, K1 in its 6 attention blocks, 64 of 128
+             experts held, ``one_card_config``) at full width (batch 4, prompt 2048, 32
              new tokens) through ``repro_torch.launch.serve.main``, with the
              kernels' launch counts (and K1's and K3's routes) set to 0 just
              before and read just after each run, the decode replayed as one
@@ -73,7 +78,8 @@ Phases, each of which must pass:
              qwen2-vl also from a prefill of text and an image grid whose
              three M-RoPE position streams differ; qwen3-moe, and arctic-480b
              at SMOKE size, at a capacity that drops nothing; whisper-small
-             over 1500 random frames);
+             over 1500 random frames; nemotron-3-nano-30b-a3b, whose MoE
+             drops nothing);
   5. train   llama3.2-1b, mamba2-780m (K3 and its backward in every layer)
              and hymba-1.5b (K1, K3 and both backwards) at full width (batch
              4 x 2048, bf16 compute, f32 parameters, AdamW, int8-compressed
@@ -163,7 +169,8 @@ from pathlib import Path
 # ``k1_calls``, three a whisper-small encoder and decoder layer pair)
 ARCHS = {"llama3.2-1b": ("k1",), "mamba2-780m": ("k3",), "minicpm3-4b": ("k1",),
          "hymba-1.5b": ("k1", "k3"), "minitron-8b": ("k1",), "granite-20b": ("k1",),
-         "qwen2-vl-7b": ("k1",), "qwen3-moe-30b-a3b": ("k1",), "whisper-small": ("k1",)}
+         "qwen2-vl-7b": ("k1",), "qwen3-moe-30b-a3b": ("k1",), "whisper-small": ("k1",),
+         "nemotron-3-nano-30b-a3b": ("k1", "k3")}
 # K1 cases: (B, Sq, Skv, H, KV, D, Dv, dtype, causal, window), D of q/k, Dv of v
 SLICE = dict(B=4, Sq=2048, Skv=2048, H=32, KV=8, D=64, Dv=64)   # llama3.2-1b prefill, batch 4
 MASKS = [(True, None), (False, None), (True, 24)]
@@ -465,7 +472,7 @@ DECODE_TOL = {"float32": 2e-3, "bfloat16": 0.25}
 # Factor per arch:
 NOISE_HELD = {"mamba2-780m": 1, "hymba-1.5b": 2, "minitron-8b": 2, "granite-20b": 2,
               "qwen2-vl-7b": 2, "qwen3-moe-30b-a3b": 2, "arctic-480b": 2,
-              "whisper-small": 2}
+              "whisper-small": 2, "nemotron-3-nano-30b-a3b": 2}
 # whisper-small is held to twice the noise too: at SMOKE widths and its 12 +
 # 12 layers on the CPU its bf16 mean gap is 0-4e-6x the noise in JAX and
 # 0-0.20x in the port over three draws, and at 2 + 2 layers under the noise
@@ -510,9 +517,18 @@ def train_launches(cfg, kernels):
 
 def k1_calls(cfg):
     """K1 launches of one full-sequence pass (a prefill or a forward): one
-    a layer, or for the encoder-decoder one an encoder layer and two a
-    decoder layer (self-attention and cross-attention)."""
+    a layer, for the encoder-decoder one an encoder layer and two a decoder
+    layer (self-attention and cross-attention), for a pattern stack one an
+    attention block."""
+    if cfg.family == "pattern":
+        return cfg.blocks("*")
     return cfg.enc_layers + 2 * cfg.dec_layers if cfg.family == "encdec" else cfg.n_layers
+
+
+def k3_calls(cfg):
+    """K3 launches of one full-sequence pass: one a layer, or a pattern
+    stack's Mamba block."""
+    return cfg.blocks("M") if cfg.family == "pattern" else cfg.n_layers
 
 
 def k1_train_calls(cfg):
@@ -646,7 +662,9 @@ def run_engine(root: Path) -> dict:
             "numbers_checked": len(numbers)}
 
 
-def main() -> int:
+def main(argv=None) -> int:
+    import argparse
+
     import numpy
     import torch
     if not torch.cuda.is_available():
@@ -735,7 +753,16 @@ def main() -> int:
                 entry["paths"][path] = counts[key]
         return counts
 
+    ap = argparse.ArgumentParser()
+    ap.add_argument("--only", default=None, help="comma-separated phase names")
+    only = ap.parse_args(argv).only
+    only = None if only is None else set(only.split(","))
+    ran = set()
+
     def phase(name, fn):
+        if only is not None and name != "build" and name not in only:
+            return
+        ran.add(name)
         t0 = time.perf_counter()
         try:
             fn()
@@ -1344,7 +1371,7 @@ def main() -> int:
                   f"({len(drops)} MoE calls, decode {int(sum(drops[cfg.n_layers:]))}); by "
                   f"layer: " + ", ".join(f"{x:.3f}" for x in per_layer))
             assert len(drops) == cfg.n_layers * (1 + T) and int(sum(drops[cfg.n_layers:])) == 0
-        per_prefill = {"k1": k1_calls(cfg), "k3": cfg.n_layers}
+        per_prefill = {"k1": k1_calls(cfg), "k3": k3_calls(cfg)}
         want = {key: per_prefill[key] if key in own else 0 for key in kernels}
         assert counts == want, f"{arch}: kernel launches {counts} in one request, want {want}"
         # every prefill call on the wgmma route (K1: bf16 at head dims 64 or
@@ -1418,7 +1445,7 @@ def main() -> int:
                     took = {r: k - before[r] for r, k in ssd.ssd_cuda.routes.items()}
                     want = dict.fromkeys(ssd.ROUTES, 0)
                     if plain_scan:
-                        want["wgmma" if dtype == "bfloat16" else "fma"] = 2 * cfg.n_layers
+                        want["wgmma" if dtype == "bfloat16" else "fma"] = 2 * k3_calls(cfg)
                     assert took == want, f"{dtype}: K3 routes {took}, want {want}"
                     outs = []
                     for t in range(P, S):
@@ -1986,10 +2013,12 @@ def main() -> int:
                           "--format=csv,noheader"], capture_output=True, text=True, timeout=60)
     print(smi.stdout.strip().splitlines()[0] if smi.returncode == 0 and smi.stdout.strip()
           else f"nvidia-smi failed: {smi.stderr.strip()}")
+    if only is not None and only - ran:
+        failures.append(f"--only: no phase named {sorted(only - ran)}")
     if failures:
         print("chip_smoke FAILED:\n  " + "\n  ".join(failures), file=sys.stderr)
         return 1
-    print(json.dumps({"ok": True, "device": {"platform": "gpu",
+    print(json.dumps({"ok": True, **({"only": sorted(only)} if only else {}), "device": {"platform": "gpu",
                                              "kind": torch.cuda.get_device_name(0),
                                              "count": torch.cuda.device_count()}}))
     return 0

@@ -1,5 +1,7 @@
 """Architecture registry: ``--arch <id>`` resolution, over the ten
-architectures of ``repro.configs.registry``, in its order."""
+architectures of ``repro.configs.registry``, in its order (``all_archs``),
+and the port's own, which the JAX package has no model of
+(``PORT_ARCHS``; ``served_archs`` lists both)."""
 from __future__ import annotations
 
 import importlib
@@ -20,10 +22,18 @@ ARCHS = {   # in the order of repro.configs.registry.ARCHS
 }
 
 
+# the port's own architectures: served and tested against the benchmark's
+# plain reference (bench/families/), with no JAX twin to compare against
+PORT_ARCHS = {
+    "nemotron-3-nano-30b-a3b": "nemotron_3_nano_30b_a3b",
+}
+
+
 def _mod(arch: str):
-    if arch not in ARCHS:
-        raise KeyError(f"unknown arch {arch!r}; known: {sorted(ARCHS)}")
-    return importlib.import_module(f"repro_torch.configs.{ARCHS[arch]}")
+    mods = {**ARCHS, **PORT_ARCHS}
+    if arch not in mods:
+        raise KeyError(f"unknown arch {arch!r}; known: {sorted(mods)}")
+    return importlib.import_module(f"repro_torch.configs.{mods[arch]}")
 
 
 def get_config(arch: str) -> ModelConfig:
@@ -35,4 +45,10 @@ def get_smoke(arch: str) -> ModelConfig:
 
 
 def all_archs():
+    """The JAX package's architectures, in its order."""
     return list(ARCHS)
+
+
+def served_archs():
+    """Every architecture the port serves: ``all_archs`` and ``PORT_ARCHS``."""
+    return [*ARCHS, *PORT_ARCHS]

@@ -1,7 +1,7 @@
 """Time K3 (the SSD scan) or its backward of this tree against variants
 of its source, in turns, on one card.
 
-    python -m repro_torch.launch.bench_ssd [DIR ...]
+    python -m repro_torch.launch.bench_ssd [--shape NAME] [DIR ...]
     python -m repro_torch.launch.bench_ssd --bwd [DIR ...]
 
 Each DIR holds a variant of ``csrc/ssd_scan.cu`` with the ``hopper.cuh``
@@ -15,7 +15,11 @@ mamba2-780m's prefill (b=4, s=2048, h=48, p=64, g=1, n=128, chunk 256,
 bf16 x/B/C) is checked against ``ssd_ref`` (y 2e-2, state 2e-3, both
 ·(1+|ref|)); then all are timed with CUDA events (mean of 20 calls) in the
 order a, b, ..., ..., b, a, and the device time of each CUDA kernel of
-each source over 20 calls under ``torch.profiler``.  Prints the card's
+each source over 20 calls under ``torch.profiler``.  ``--shape`` names
+another shape of ``SHAPES`` (nemotron-3-nano-30b-a3b's prefill: b=16,
+s=8192, h=64, p=64, g=8, n=128, chunk 128, x, B and C the views of one
+6144-wide row as ``ssm_forward`` hands them over), at which the plain
+version is also timed (mean of 3 calls).  Prints the card's
 name and power limit, each check, then one JSON line of times.  A variant
 that drops work gives wrong numbers but a time: that is how the cost of a
 piece is found.  Needs a CUDA card.
@@ -46,10 +50,12 @@ from torch.profiler import ProfilerActivity, profile
 
 from repro_torch.kernels import _build, ref
 from repro_torch.kernels import ssd_scan as ssd
-from repro_torch.launch.bench_attention import in_turns
+from repro_torch.launch.bench_attention import cuda_ms, in_turns
 from repro_torch.launch.profile_serve import _device_ms
 
 SHAPE = dict(b=4, s=2048, h=48, p=64, g=1, n=128, chunk=256)   # mamba2-780m prefill
+SHAPES = {"mamba2-780m": SHAPE,      # the forward's shapes, by the model whose prefill it is
+          "nemotron-3-nano-30b-a3b": dict(b=16, s=8192, h=64, p=64, g=8, n=128, chunk=128)}
 BWD_SHAPES = {"mamba2-780m": SHAPE, "hymba-1.5b": dict(SHAPE, h=50, n=16)}   # their train steps'
 BWD_TOL, BWD_DA_REL = 2e-2, 1e-2
 
@@ -185,6 +191,11 @@ def main(argv=None):
     argv = sys.argv[1:] if argv is None else argv
     if "--bwd" in argv:
         return main_bwd([Path(d) for d in argv if d != "--bwd"])
+    name = "mamba2-780m"
+    if "--shape" in argv:
+        i = argv.index("--shape")
+        name, argv = argv[i + 1], argv[:i] + argv[i + 2:]
+    shape = SHAPES[name]
     dirs = [Path(d) for d in argv]
     srcs = [("tree", ssd.SRC)] + [(d.name, d / ssd.SRC.name) for d in dirs
                                   if (d / ssd.SRC.name).exists()]
@@ -194,19 +205,25 @@ def main(argv=None):
                          capture_output=True, text=True)
     print(smi.stdout.strip())
     dev = torch.device("cuda")
-    args = inputs(torch.Generator(dev).manual_seed(0), dev, *(SHAPE[k] for k in "bshpgn"))
-    wy, wst = ref.ssd_ref(*args, chunk=SHAPE["chunk"])
+    x, dt, A, B, C = inputs(torch.Generator(dev).manual_seed(0), dev, *(shape[k] for k in "bshpgn"))
+    if shape is not SHAPE:
+        x, B, C = projection_views(x, B, C)
+    args, chunk = (x, dt, A, B, C), shape["chunk"]
+    wy, wst = ref.ssd_ref(*args, chunk=chunk)
     fns = []
-    for (name, src), lib in zip(srcs, libs):
+    for (src_name, src), lib in zip(srcs, libs):
         run = runner(src, lib)
-        y, st = run(*args, chunk=SHAPE["chunk"])
+        y, st = run(*args, chunk=chunk)
         dy, ds = (y.float() - wy.float()).abs(), (st - wst).abs()
         ok = (bool((dy <= 2e-2 * (1 + wy.float().abs())).all())
               and bool((ds <= 2e-3 * (1 + wst.abs())).all()))
-        print(f"  {name} at {SHAPE}: max abs error y {float(dy.max()):.3e} state "
+        print(f"  {src_name} at {shape}: max abs error y {float(dy.max()):.3e} state "
               f"{float(ds.max()):.3e} {'ok' if ok else 'MISMATCH'}")
-        fns.append((name, lambda run=run: run(*args, chunk=SHAPE["chunk"])))
+        fns.append((src_name, lambda run=run: run(*args, chunk=chunk)))
+    del wy, wst
     times = in_turns(fns)
+    if shape is not SHAPE:
+        times["plain"] = cuda_ms(lambda: ref.ssd_ref(*args, chunk=chunk), reps=3, warmup=1)
     kernels = {}
     for name, fn in fns:
         fn()
@@ -216,7 +233,7 @@ def main(argv=None):
                 fn()
             torch.cuda.synchronize()
         kernels[name] = {key[:100]: ms / 20 for key, ms in _device_ms(prof)}
-    print(json.dumps({"shape": SHAPE, "ms": times, "kernel_ms": kernels}), flush=True)
+    print(json.dumps({"shape": shape, "ms": times, "kernel_ms": kernels}), flush=True)
 
 
 if __name__ == "__main__":

@@ -47,9 +47,13 @@ from repro_torch.models.lm import SSM_KEYS
 from repro_torch.optim.adamw import tree_leaves
 
 # families whose decode step runs host code that a replay would skip: the
-# MoE layer appends to ``moe.count_drops``'s list and opens the ``moe.*``
-# ranges, the encoder-decoder opens ``encdec.cross_attention``; both ranges
-# are read a decode step by ``launch/profile_serve.py``
+# moe family's capacity path appends each step's dropped pairs to
+# ``moe.count_drops``' list (``chip_smoke.py`` asserts a decode drops none)
+# and opens the ``moe.*`` ranges, the encoder-decoder opens
+# ``encdec.cross_attention``; both ranges are read a decode step by
+# ``launch/profile_serve.py``.  The pattern family's dropless MoE path is
+# replayed: it appends to ``moe.count_routes``' list only outside a capture,
+# and its ranges are read in prefill alone
 EAGER_FAMILIES = frozenset({"moe", "encdec"})
 
 # graphs kept a parameter tree: a served set of prompt lengths up to this

@@ -23,8 +23,12 @@ device time (the device work launched inside their ranges ``k1.fwd`` and
 ``k3.fwd``, ``runtime/ranges.py``); for an MoE model the device time per
 prefill and per decode step of its expert products, dispatch and combine
 (the ``moe.*`` ranges of ``models/moe.py``) and the (token, k) pairs a
-prefill drops over capacity; for the encoder-decoder K1's device time per
-prefill by kind of call (encoder, decoder self-attention,
+prefill drops over capacity; for the pattern family (nemotron-3-nano-30b-a3b,
+named on the command line) the device time per prefill of its MoE layers,
+routing, dispatch, expert products and combine (decode replays a graph and
+opens no range) and, per prefill, the pairs on held experts and the largest
+load on one (``moe.count_routes``); for the encoder-decoder K1's device
+time per prefill by kind of call (encoder, decoder self-attention,
 cross-attention: its launches in the order the prefill makes them) and
 the cross-attention's device time per prefill and per decode step with
 its share of each (the ``encdec.cross_attention`` range of
@@ -61,13 +65,18 @@ TOP = 12                         # kernels listed per phase
 REPS = 5                         # timed runs of each phase
 # what an arch's config must change to serve on one 80 GB card: granite-20b's
 # float32 parameters (28.37 B, 105.7 GiB) do not fit, its bfloat16 ones (52.8
-# GiB) do; qwen3-moe-30b-a3b's likewise (30.53 B: 113.7 GiB, 56.9 GiB)
+# GiB) do; qwen3-moe-30b-a3b's likewise (30.53 B: 113.7 GiB, 56.9 GiB);
+# nemotron-3-nano-30b-a3b's bfloat16 ones (31.6 B, 58.9 GiB) leave no room for
+# a long prefill, so the card holds card 0's share of two-way expert
+# parallelism, experts 0-63 of 128 (16.9 B, 31.5 GiB)
 ONE_CARD = {"granite-20b": {"param_dtype": "bfloat16"},
-            "qwen3-moe-30b-a3b": {"param_dtype": "bfloat16"}}
+            "qwen3-moe-30b-a3b": {"param_dtype": "bfloat16"},
+            "nemotron-3-nano-30b-a3b": {"n_experts": 64}}
 # archs no one-card config serves at full width
 WAITING = {"arctic-480b": "~477 B parameters, ~27 GB of bfloat16 a layer: two of its "
                           "35 layers fill an 80 GB card"}
 MOE_SPANS = (moe.EXPERTS_SPAN, moe.DISPATCH_SPAN, moe.COMBINE_SPAN)
+PATTERN_SPANS = (moe.LAYER_SPAN, moe.ROUTE_SPAN, *MOE_SPANS)
 
 
 def one_card_config(arch: str):
@@ -176,6 +185,12 @@ def profile_arch(arch: str, card: str, cfg=None):
                 prefill(model, params, prompts, T)
             result["moe_dropped_pairs_per_prefill"] = int(sum(drops))
             result["moe_pairs_per_prefill"] = B * prompt_len * cfg.top_k * cfg.n_layers
+        if cfg.family == "pattern":
+            with moe.count_routes() as routes:
+                prefill(model, params, prompts, T)
+            result["moe_pairs_per_prefill"] = B * prompt_len * cfg.top_k * cfg.blocks("E")
+            result["moe_held_pairs_per_prefill"] = sum(int(n) for n, _ in routes)
+            result["moe_top_load_by_layer"] = [int(top) for _, top in routes]
 
     for name, prof, wall_s, steps in (("prefill", prof_p, prefill_s, 1),
                                       ("decode", prof_d, decode_s, T)):
@@ -192,7 +207,8 @@ def profile_arch(arch: str, card: str, cfg=None):
         for key, ms in rows[:TOP]:
             print(f"  {ms / steps:9.3f} ms  {ms / dev_ms:6.1%}  {key[:100]}")
         result[f"{name}_top"] = [[key[:100], ms / steps] for key, ms in rows[:TOP]]
-        spans = {"moe": MOE_SPANS, "encdec": (encdec.CROSS_SPAN,)}.get(cfg.family, ())
+        spans = {"moe": MOE_SPANS, "pattern": PATTERN_SPANS,
+                 "encdec": (encdec.CROSS_SPAN,)}.get(cfg.family, ())
         for span in spans:
             ms = _span_ms(prof, span) / steps
             result[f"{span.replace('.', '_')}_ms_per_{name}"] = ms

@@ -6,9 +6,10 @@ decode — no request is lost to a crash).
 
 ``--arch`` is one of the architectures: llama3.2-1b, minicpm3-4b,
 granite-20b, minitron-8b, whisper-small, arctic-480b, qwen3-moe-30b-a3b,
-hymba-1.5b, qwen2-vl-7b or mamba2-780m.  The encoder-decoder whisper-small
-encodes ``--prompt-len`` zero frames (the audio front end is a stub, as in
-the JAX launcher) and decodes from the first 8 prompt tokens:
+hymba-1.5b, qwen2-vl-7b, mamba2-780m or nemotron-3-nano-30b-a3b.  The
+encoder-decoder whisper-small encodes ``--prompt-len`` zero frames (the
+audio front end is a stub, as in the JAX launcher) and decodes from the
+first 8 prompt tokens:
 
     python -m repro_torch.launch.serve --arch whisper-small --prompt-len 1500 --tokens 32
 
@@ -16,7 +17,8 @@ Runs on the CUDA device unless ``--device cpu`` is given.  ``main``'s
 ``cfg`` keyword serves a config of the caller's in place of ``--arch``'s,
 e.g. granite-20b or qwen3-moe-30b-a3b with
 ``param_dtype="bfloat16"`` (their float32 parameters do not fit one 80 GB
-card; ``launch.profile_serve.one_card_config`` gives that config):
+card), or nemotron-3-nano-30b-a3b with 64 of its 128 experts held
+(``launch.profile_serve.one_card_config`` gives those configs):
 
     main(["--arch", "granite-20b"],
          cfg=dataclasses.replace(get_config("granite-20b"), param_dtype="bfloat16"))
@@ -30,7 +32,7 @@ import time
 
 import torch
 
-from repro_torch.configs.registry import all_archs, get_config, get_smoke
+from repro_torch.configs.registry import get_config, get_smoke, served_archs
 from repro_torch.core import NVCache, Policy
 from repro_torch.launch import decode_graph
 from repro_torch.models.registry import Model, build
@@ -118,7 +120,7 @@ def main(argv=None, cfg=None) -> ServeResult:
     ``cfg``, when given, is served in place of the config ``--arch`` and
     ``--smoke`` name."""
     ap = argparse.ArgumentParser()
-    ap.add_argument("--arch", default="llama3.2-1b", choices=all_archs())
+    ap.add_argument("--arch", default="llama3.2-1b", choices=served_archs())
     ap.add_argument("--smoke", action="store_true")
     ap.add_argument("--batch", type=int, default=4)
     ap.add_argument("--prompt-len", type=int, default=32)

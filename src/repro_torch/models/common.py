@@ -1,4 +1,6 @@
-"""Model configuration shared by all 10 assigned architectures."""
+"""Model configuration shared by every architecture the port serves: the
+ten of the JAX package's registry and the port's own (``configs/registry.py``
+``PORT_ARCHS``)."""
 from __future__ import annotations
 
 import dataclasses
@@ -10,7 +12,7 @@ import torch
 @dataclasses.dataclass(frozen=True)
 class ModelConfig:
     arch: str
-    family: str                      # dense | moe | ssm | hybrid | encdec | vlm
+    family: str                      # dense | moe | ssm | hybrid | encdec | vlm | pattern
     n_layers: int
     d_model: int
     n_heads: int
@@ -21,7 +23,7 @@ class ModelConfig:
 
     # -- attention ---------------------------------------------------------
     attn_kind: str = "gqa"           # gqa | mla | none
-    pos: str = "rope"                # rope | learned | mrope
+    pos: str = "rope"                # rope | learned | mrope | none
     rope_theta: float = 10000.0
     mrope_sections: Tuple[int, ...] = ()
     swa_window: int = 0              # 0 = full attention
@@ -50,6 +52,10 @@ class ModelConfig:
     dense_residual: bool = False     # Arctic: dense MLP in parallel with MoE
     capacity_factor: float = 1.25
     moe_group: int = 2048            # tokens per dispatch group
+    router_experts: int = 0          # the router's outputs; 0 -> n_experts.  Experts
+    #                                  0..n_experts-1 of them are held here
+    routed_scale: float = 1.0        # the routed experts' weights scaled by this
+    d_shared: int = 0                # a shared expert of this width beside them; 0: none
 
     # -- SSM (Mamba2 / SSD) ---------------------------------------------------
     ssm_state: int = 0
@@ -58,6 +64,11 @@ class ModelConfig:
     ssm_conv: int = 4
     ssm_chunk: int = 256
     ssm_pad_heads_to: int = 0        # pad SSD heads so they shard over TP
+    ssm_n_heads: int = 0             # SSD heads; 0 -> ssm_expand * d_model / ssm_head_dim
+    ssm_groups: int = 1              # B/C groups; the gated norm runs over each group
+
+    # -- pattern: one mixer a block, x + mixer(rmsnorm(x)) ----------------------
+    block_pattern: str = ""          # M Mamba-2, E MoE, * attention, one char a block
 
     # -- encoder-decoder -------------------------------------------------------
     enc_layers: int = 0
@@ -85,16 +96,34 @@ class ModelConfig:
 
     @property
     def d_inner(self) -> int:        # SSM inner width
+        if self.ssm_n_heads:
+            return self.ssm_n_heads * self.ssm_head_dim
         return self.ssm_expand * self.d_model
 
     @property
     def ssm_heads(self) -> int:
         return self.d_inner // self.ssm_head_dim
 
+    @property
+    def n_router(self) -> int:       # the router's outputs
+        return self.router_experts or self.n_experts
+
+    def blocks(self, kind: str) -> int:
+        """How many blocks of ``block_pattern`` are of ``kind`` (M, E or *)."""
+        return self.block_pattern.count(kind)
+
+    def _ssm_params(self) -> int:
+        d, di, n, h = self.d_model, self.d_inner, self.ssm_state, self.ssm_heads
+        gn = self.ssm_groups * n
+        return d * (2 * di + 2 * gn + h) + (di + 2 * gn) * (self.ssm_conv + 1) + 3 * h \
+            + di + di * d
+
     def param_count(self) -> int:
         """Analytic parameter count (for 6·N·D roofline math)."""
         d, v = self.d_model, self.vocab
         emb = v * d * (1 if self.tie_embeddings else 2)
+        if self.family == "pattern":
+            return emb + d + self._pattern_params(self.n_experts)
         if self.family == "ssm":
             di, n, h = self.d_inner, self.ssm_state, self.ssm_heads
             per = d * (2 * di + 2 * n + h) + di * (self.ssm_conv + 1) + 2 * h + di * d + d
@@ -129,8 +158,20 @@ class ModelConfig:
             return 0
         return d * self.n_heads * hd + 2 * d * self.n_kv_heads * hd + self.n_heads * hd * d
 
+    def _pattern_params(self, experts: int) -> int:
+        """A pattern stack's blocks (each with its norm), with ``experts``
+        routed experts in each MoE block: a router with its correction bias,
+        relu² experts (an up and a down projection) and the shared one."""
+        d = self.d_model
+        moe = (d + 1) * self.n_router + experts * 2 * d * self.d_expert + 2 * d * self.d_shared
+        return (self.blocks("M") * (self._ssm_params() + d) + self.blocks("E") * (moe + d)
+                + self.blocks("*") * (self._attn_params() + d))
+
     def active_param_count(self) -> int:
         """Active params per token (MoE: routed top-k only) for 6·N_active·D."""
+        if self.family == "pattern":
+            emb = self.vocab * self.d_model * (1 if self.tie_embeddings else 2)
+            return emb + self.d_model + self._pattern_params(self.top_k)
         if self.family != "moe":
             return self.param_count()
         d = self.d_model

@@ -2,8 +2,10 @@
 with M-RoPE's three position streams, as qwen2-vl), moe (a routed
 mixture of experts in place of the MLP, plus a dense MLP beside it with
 ``dense_residual``, as arctic), ssm and hybrid (GQA attention and an SSM
-side by side on the same normed input, as hymba) families, with rope,
-M-RoPE or learned absolute positions (granite): a
+side by side on the same normed input, as hymba) and pattern (one mixer a
+block, Mamba-2, MoE or GQA attention as ``block_pattern`` says, as
+NVIDIA's Nemotron-H) families, with rope, M-RoPE, learned absolute
+positions (granite) or none: a
 Python loop over the stacked ``(L, ...)`` layer
 parameters (the layout ``repro.models.lm`` builds with ``vmap`` and scans
 over, so keys and shapes match its pytree), and four entry points —
@@ -32,7 +34,10 @@ from repro_torch.parallel import context as pctx
 from repro_torch.parallel import sharding as shd
 
 NEG_WINDOW_OFF = 1 << 30   # "window" value that disables windowing
-FAMILIES = ("dense", "vlm", "moe", "ssm", "hybrid", "encdec")
+FAMILIES = ("dense", "vlm", "moe", "ssm", "hybrid", "encdec", "pattern")
+# a pattern block's kind by its letter in ``block_pattern``: the key of its
+# stacked parameters (``params["layers"][kind]``), one tree a kind
+PATTERN_KINDS = {"M": "mamba", "E": "moe", "*": "attention"}
 
 
 def check_ported(cfg: ModelConfig):
@@ -48,6 +53,8 @@ def check_ported(cfg: ModelConfig):
         if cfg.attn_kind != "none":
             raise NotImplementedError(f"{cfg.arch}: an ssm model with {cfg.attn_kind!r} "
                                       f"attention is the hybrid family's")
+    elif cfg.family == "pattern":
+        _check_pattern(cfg)
     elif cfg.family == "hybrid" and cfg.attn_kind != "gqa":
         raise NotImplementedError(f"{cfg.arch}: a hybrid model runs GQA attention beside "
                                   f"its SSM, got {cfg.attn_kind!r}")
@@ -58,8 +65,12 @@ def check_ported(cfg: ModelConfig):
     elif cfg.attn_kind not in ("gqa", "mla"):
         raise NotImplementedError(f"{cfg.arch}: {cfg.attn_kind!r} attention is not "
                                   f"in the port")
-    if cfg.pos not in ("rope", "learned", "mrope"):
-        raise ValueError(f"{cfg.arch}: positions must be rope, learned or mrope, "
+    if cfg.family == "moe" and (cfg.d_shared or cfg.n_router != cfg.n_experts):
+        raise NotImplementedError(f"{cfg.arch}: the moe family routes over the experts it "
+                                  f"holds, with no shared expert; a held share and a shared "
+                                  f"expert are the pattern family's")
+    if cfg.pos not in ("rope", "learned", "mrope", "none"):
+        raise ValueError(f"{cfg.arch}: positions must be rope, learned or mrope (or none), "
                          f"got {cfg.pos!r}")
     if cfg.attn_kind == "mla" and cfg.pos != "rope":
         raise NotImplementedError(f"{cfg.arch}: MLA's decoupled half of q and k is "
@@ -69,6 +80,21 @@ def check_ported(cfg: ModelConfig):
     if cfg.pos == "mrope" and sum(cfg.mrope_sections) != _rope_dim(cfg) // 2:
         raise ValueError(f"{cfg.arch}: M-RoPE sections {cfg.mrope_sections} must sum to "
                          f"half the rotated width, {_rope_dim(cfg) // 2}")
+
+
+def _check_pattern(cfg: ModelConfig):
+    """A pattern stack: one letter of ``PATTERN_KINDS`` a block, GQA
+    attention, and MoE blocks on the dropless sigmoid-routed relu² path
+    (``moe._moe_dropless``) over a held share of the router's experts."""
+    if len(cfg.block_pattern) != cfg.n_layers or set(cfg.block_pattern) - set(PATTERN_KINDS):
+        raise ValueError(f"{cfg.arch}: block_pattern {cfg.block_pattern!r} must hold one of "
+                         f"{''.join(PATTERN_KINDS)} for each of the {cfg.n_layers} blocks")
+    if cfg.blocks("*") and cfg.attn_kind != "gqa":
+        raise NotImplementedError(f"{cfg.arch}: a pattern's attention blocks run GQA, got "
+                                  f"{cfg.attn_kind!r}")
+    if cfg.blocks("E") and not 0 < cfg.n_experts <= cfg.n_router:
+        raise ValueError(f"{cfg.arch}: a pattern's MoE blocks hold 1 to {cfg.n_router} of "
+                         f"the router's experts, got {cfg.n_experts}")
 
 
 # ------------------------------------------------------------------- params
@@ -88,6 +114,18 @@ def _layer_init(cfg: ModelConfig, gen, device):
         p["ssm"] = ssm_mod.ssm_init(cfg, gen, device)
         p["fuse_a"] = torch.full((cfg.d_model,), 0.5, dtype=cfg.pdt, device=device)
         p["fuse_s"] = torch.full((cfg.d_model,), 0.5, dtype=cfg.pdt, device=device)
+    return p
+
+
+def _pattern_init(cfg: ModelConfig, kind: str, gen, device):
+    """One pattern block of ``kind``: its norm and its mixer."""
+    p = {"norm1": torch.ones((cfg.d_model,), dtype=cfg.pdt, device=device)}
+    if kind == "mamba":
+        p["ssm"] = ssm_mod.ssm_init(cfg, gen, device)
+    elif kind == "moe":
+        p["moe"] = moe_mod.moe_init(cfg, gen, device)
+    else:
+        p["attn"] = attn.gqa_init(cfg, gen, device)
     return p
 
 
@@ -144,8 +182,12 @@ def init_lm(cfg: ModelConfig, gen: torch.Generator, device=None):
     params = {
         "embed": dense_init(gen, (cfg.vocab, cfg.d_model), cfg.d_model, cfg.pdt, device),
         "final_norm": torch.ones((cfg.d_model,), dtype=cfg.pdt, device=device),
-        "layers": init_stacked(cfg.n_layers, lambda: _layer_init(cfg, gen, device)),
     }
+    if cfg.family == "pattern":     # one stack a kind of block, in PATTERN_KINDS' order
+        params["layers"] = {kind: init_stacked(cfg.blocks(ch), lambda kind=kind: _pattern_init(
+            cfg, kind, gen, device)) for ch, kind in PATTERN_KINDS.items() if cfg.blocks(ch)}
+    else:
+        params["layers"] = init_stacked(cfg.n_layers, lambda: _layer_init(cfg, gen, device))
     if not cfg.tie_embeddings:
         params["unembed"] = dense_init(gen, (cfg.d_model, cfg.vocab), cfg.d_model, cfg.pdt, device)
     if cfg.pos == "learned":
@@ -226,6 +268,47 @@ def _block(cfg: ModelConfig, pl, x, rope, window: int, *, return_kv=False):
     return x + out, aux, kv
 
 
+def _pattern_blocks(cfg: ModelConfig, layers):
+    """(kind, its parameters, its index among its kind) of each block of
+    ``block_pattern`` in order, from the stacked trees ``layers``."""
+    per = {kind: unstack(layers[kind], cfg.blocks(ch)) for ch, kind in PATTERN_KINDS.items()
+           if cfg.blocks(ch)}
+    seen = dict.fromkeys(per, 0)
+    for ch in cfg.block_pattern:
+        kind = PATTERN_KINDS[ch]
+        yield kind, per[kind][seen[kind]], seen[kind]
+        seen[kind] += 1
+
+
+def _pattern_block(cfg: ModelConfig, kind: str, pl, x, *, return_kv=False):
+    """One pattern block, x + mixer(rmsnorm(x)), full-sequence path.  Returns
+    (x, kv): with ``return_kv`` its cache entries (Mamba's (ssm state, conv
+    state), attention's (k, v)), else None; an MoE block has none."""
+    h = rmsnorm(x, pl["norm1"], cfg.norm_eps)
+    kv = None
+    if kind == "moe":
+        out, _ = moe_mod.moe_forward(cfg, pl["moe"], h)
+    elif kind == "mamba":
+        out = ssm_mod.ssm_forward(cfg, pl["ssm"], h, return_state=return_kv)
+    else:
+        out = attn.gqa_forward(cfg, pl["attn"], h, None, return_kv=return_kv)
+    if return_kv and kind != "moe":
+        out, kv = out
+    return x + out, kv
+
+
+def _pattern_block_decode(cfg: ModelConfig, kind: str, pl, x, caches, pos):
+    """One pattern block, one token; ``caches`` its kind's cache views at
+    its index (Mamba's ssm and conv state, attention's k and v), updated in
+    place."""
+    h = rmsnorm(x, pl["norm1"], cfg.norm_eps)
+    if kind == "moe":
+        return x + moe_mod.moe_forward(cfg, pl["moe"], h)[0]
+    if kind == "mamba":
+        return x + _ssm_decode(cfg, pl, h, *caches)
+    return x + attn.gqa_decode(cfg, pl["attn"], h, *caches, pos)[0]
+
+
 # ----------------------------------------------------------------- forward
 
 def _embed(cfg, params, tokens):
@@ -256,9 +339,9 @@ def _rope_dim(cfg: ModelConfig) -> int:
 
 def _rope_for(cfg: ModelConfig, positions):
     """positions: (B,S) int32, or (3,B,S) for mrope; returns (cos, sin), or
-    None for ssm (no attention) and for learned positions (added to the
-    embedding instead)."""
-    if cfg.family == "ssm" or cfg.pos == "learned":
+    None for ssm (no attention), for learned positions (added to the
+    embedding instead) and for none."""
+    if cfg.family == "ssm" or cfg.pos in ("learned", "none"):
         return None
     if cfg.pos == "mrope":
         return mrope_cos_sin(positions, _rope_dim(cfg), cfg.rope_theta, cfg.mrope_sections)
@@ -310,6 +393,10 @@ def forward(cfg: ModelConfig, params, tokens, positions=None):
     if positions is None:
         positions = _positions(cfg, tokens)
     x = _embed(cfg, params, tokens)
+    if cfg.family == "pattern":
+        for kind, pl, _ in _pattern_blocks(cfg, params["layers"]):
+            x = _pattern_block(cfg, kind, pl, x)[0]
+        return _unembed(cfg, params, x), torch.zeros((), device=x.device)
     rope = _rope_for(cfg, positions)
 
     def body(pl, x, win):
@@ -352,10 +439,16 @@ def next_token_ce(logits, tokens):
 def init_cache(cfg: ModelConfig, batch: int, max_len: int, device="cuda"):
     """Decode cache, stacked over layers: k/v (dense GQA), the latent ckv and
     krope (MLA), ssm_state (float32) and conv_state (ssm; ``max_len`` does
-    not size them), or k/v and both SSM entries (hybrid)."""
-    L = cfg.n_layers
+    not size them), or k/v and both SSM entries (hybrid); a pattern's k/v
+    stacked over its attention blocks, its SSM entries over its Mamba
+    blocks."""
     c = {"pos": torch.zeros((), dtype=torch.int32, device=device)}
-    if cfg.family != "ssm":
+    if cfg.family == "pattern":     # k/v at the attention blocks, SSM state at the Mamba ones
+        n_attn, n_ssm = cfg.blocks("*"), cfg.blocks("M")
+    else:
+        n_attn = n_ssm = cfg.n_layers
+    L = n_attn
+    if cfg.family != "ssm" and n_attn:
         if cfg.attn_kind == "mla":
             c["ckv"] = torch.zeros((L, batch, max_len, cfg.kv_lora_rank), dtype=cfg.cdt,
                                    device=device)
@@ -365,18 +458,21 @@ def init_cache(cfg: ModelConfig, batch: int, max_len: int, device="cuda"):
             kvh, hd = cfg.n_kv_heads, cfg.head_dim
             c["k"] = torch.zeros((L, batch, max_len, kvh, hd), dtype=cfg.cdt, device=device)
             c["v"] = torch.zeros((L, batch, max_len, kvh, hd), dtype=cfg.cdt, device=device)
-    if cfg.family in ("ssm", "hybrid"):
+    if cfg.family in ("ssm", "hybrid") or (cfg.family == "pattern" and n_ssm):
         st, cv = ssm_mod.ssm_init_cache(cfg, batch, cfg.cdt, device)
-        c["ssm_state"] = st.new_zeros((L, *st.shape))
-        c["conv_state"] = cv.new_zeros((L, *cv.shape))
+        c["ssm_state"] = st.new_zeros((n_ssm, *st.shape))
+        c["conv_state"] = cv.new_zeros((n_ssm, *cv.shape))
     return c
 
 
 SSM_KEYS = ("ssm_state", "conv_state")   # whole per layer: no sequence axis
 
 
-def _cache_keys(cfg: ModelConfig):
-    """The per-layer cache entries ``_block_decode`` takes, in its order."""
+def _cache_keys(cfg: ModelConfig, kind: str = ""):
+    """The per-layer cache entries ``_block_decode`` takes, in its order; a
+    pattern block's by its ``kind`` (none for MoE)."""
+    if cfg.family == "pattern":
+        return {"mamba": SSM_KEYS, "attention": ("k", "v")}.get(kind, ())
     if cfg.family == "ssm":
         return SSM_KEYS
     keys = ("ckv", "krope") if cfg.attn_kind == "mla" else ("k", "v")
@@ -396,15 +492,27 @@ def prefill(cfg: ModelConfig, params, tokens, max_len: int, positions=None):
         mesh = tokens.device_mesh
         cache = shd.distribute(cache, mesh, shd.cache_specs(cache, mesh), src_data_rank=None)
     cache["pos"].fill_(S)
+    if cfg.family == "pattern":
+        for kind, pl, i in _pattern_blocks(cfg, params["layers"]):
+            x, kv = _pattern_block(cfg, kind, pl, x, return_kv=True)
+            for key, val in zip(_cache_keys(cfg, kind), kv or ()):
+                _write_cache(cache, key, i, val)
+        return _unembed(cfg, params, x[:, -1:]), cache
     for i, (pl, win) in enumerate(zip(unstack(params["layers"], cfg.n_layers),
                                       layer_windows(cfg))):
         x, _, kv = _block(cfg, pl, x, rope, int(win), return_kv=True)
         for key, val in zip(_cache_keys(cfg), kv):
-            if key in SSM_KEYS:
-                cache[key][i] = val
-            else:
-                write_rows(cache[key][i], 0, val)
+            _write_cache(cache, key, i, val)
     return _unembed(cfg, params, x[:, -1:]), cache
+
+
+def _write_cache(cache, key: str, i: int, val):
+    """A prefill's entry into layer ``i`` of ``cache[key]``: an SSM entry
+    whole, k/v-like entries into the first rows."""
+    if key in SSM_KEYS:
+        cache[key][i] = val
+    else:
+        write_rows(cache[key][i], 0, val)
 
 
 def _ssm_decode(cfg: ModelConfig, pl, h, state, conv_state):
@@ -449,6 +557,12 @@ def decode_step(cfg: ModelConfig, params, cache, tokens):
     if cfg.pos == "learned":
         row = pos.clamp(0, cfg.max_positions - 1).reshape(1).long()
         x = x + params["pos_table"].index_select(0, row)[None].to(x.dtype)
+    if cfg.family == "pattern":
+        for kind, pl, i in _pattern_blocks(cfg, params["layers"]):
+            x = _pattern_block_decode(cfg, kind, pl, x,
+                                      tuple(cache[k][i] for k in _cache_keys(cfg, kind)), pos)
+        cache["pos"] = pos + 1
+        return _unembed(cfg, params, x), cache
     rope = _rope_for(cfg, positions)
     keys = _cache_keys(cfg)
     for i, (pl, win) in enumerate(zip(unstack(params["layers"], cfg.n_layers),

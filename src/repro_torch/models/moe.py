@@ -1,8 +1,10 @@
-"""Mixture-of-Experts layer with capacity-factor gather/scatter dispatch:
-the port of ``repro.models.moe``.  Without a mesh, and on a mesh where JAX
-falls back to it, ``moe_forward`` runs the gather path (``_moe_gather``);
-on a mesh whose ``model`` axis can split the experts and the sequence, it
-runs expert parallelism with explicit all-to-alls (``_moe_shard_map``).
+"""Mixture-of-Experts layer: the port of ``repro.models.moe``'s
+capacity-factor gather/scatter dispatch, and a dropless path of the port's
+own.  Without a mesh, and on a mesh where JAX falls back to it,
+``moe_forward`` runs the gather path (``_moe_gather``); on a mesh whose
+``model`` axis can split the experts and the sequence, it runs expert
+parallelism with explicit all-to-alls (``_moe_shard_map``).  The
+``pattern`` family runs the dropless path (``_moe_dropless``).
 
 Tokens are cut into groups of ``cfg.moe_group`` (the last one zero-padded),
 each token picks its top-k experts from a float32 router softmax, and each
@@ -21,6 +23,17 @@ probability).  A decode step of B tokens is one group of B with C =
 max(4, ...) = 4 here, so it drops nothing (each token takes an expert once),
 where a prefill may: forward and decode can differ at dropped pairs, in
 JAX as in the port.
+
+The dropless path (NVIDIA Nemotron-H's MoE) routes each token over
+``cfg.n_router`` experts by sigmoid scores: it picks the top k by score
+plus a correction bias and weighs them by their unbiased scores,
+normalised over the k and scaled by ``routed_scale``.  Of the router's
+experts, 0..``n_experts``-1 are held here (a card's share of expert
+parallelism): a pair routed to another adds nothing, as its part would come
+back from the card that holds it.  The held experts are relu² MLPs,
+down(relu(up(x))²); a shared expert of the same kind runs on every token.
+Every pair on a held expert is computed, with no host sync and no shape
+that depends on the routing, so that a decode step can be captured.
 """
 from __future__ import annotations
 
@@ -40,20 +53,36 @@ from repro_torch.parallel.sharding import mesh_sizes, placements
 from repro_torch.runtime.ranges import span
 
 _drops = None   # while count_drops() is open: each call's dropped pairs, on the device
-# the profiler ranges of the layer's three stages (launch/profile_serve.py reads them)
+_routes = None  # while count_routes() is open: each dropless call's (held pairs, top load)
+# the profiler ranges of the layer's stages (launch/profile_serve.py reads them;
+# the dropless path also opens ``moe.route``, and ``moe.layer`` around all of it,
+# which bench/metrics/moe_idle_pct.serve.py reads)
+ROUTE_SPAN = "moe.route"
 DISPATCH_SPAN = "moe.dispatch"
 EXPERTS_SPAN = "moe.experts"
 COMBINE_SPAN = "moe.combine"
+LAYER_SPAN = "moe.layer"
 
 
 def moe_init(cfg: ModelConfig, gen: torch.Generator, device):
-    """router (d, E) float32 whatever ``cfg.param_dtype`` is, as JAX draws it;
-    the experts' wg, wu (E, d, f) and wd (E, f, d) in ``cfg.pdt``."""
-    d, E, f = cfg.d_model, cfg.n_experts, cfg.d_expert
-    return {"router": dense_init(gen, (d, E), d, torch.float32, device),
-            "wg": dense_init(gen, (E, d, f), d, cfg.pdt, device),
-            "wu": dense_init(gen, (E, d, f), d, cfg.pdt, device),
-            "wd": dense_init(gen, (E, f, d), f, cfg.pdt, device)}
+    """router (d, R) float32 whatever ``cfg.param_dtype`` is, as JAX draws it
+    (R = ``cfg.n_router``); the E held experts' wg (SwiGLU, not the
+    ``pattern`` family's relu²), wu (E, d, f) and wd (E, f, d) in
+    ``cfg.pdt``; the ``pattern`` family's router correction bias
+    ``router_bias`` (R,) float32, zero; a shared expert's ``shared_wu`` (d,
+    f_s) and ``shared_wd`` (f_s, d)."""
+    d, E, f, R = cfg.d_model, cfg.n_experts, cfg.d_expert, cfg.n_router
+    p = {"router": dense_init(gen, (d, R), d, torch.float32, device)}
+    if cfg.family == "pattern":
+        p["router_bias"] = torch.zeros((R,), dtype=torch.float32, device=device)
+    else:
+        p["wg"] = dense_init(gen, (E, d, f), d, cfg.pdt, device)
+    p["wu"] = dense_init(gen, (E, d, f), d, cfg.pdt, device)
+    p["wd"] = dense_init(gen, (E, f, d), f, cfg.pdt, device)
+    if cfg.d_shared:
+        p["shared_wu"] = dense_init(gen, (d, cfg.d_shared), d, cfg.pdt, device)
+        p["shared_wd"] = dense_init(gen, (cfg.d_shared, d), cfg.d_shared, cfg.pdt, device)
+    return p
 
 
 def moe_capacity(cfg: ModelConfig, group_len: int) -> int:
@@ -104,6 +133,34 @@ def _slots(idx_f, E: int, C: int):
     return slot.clamp(max=C - 1), slot < C
 
 
+# each stage's range is opened at one call site, shared by both paths
+# (``tests/test_torch_ranges.py`` holds every range name to one ``span`` call)
+def _dispatch_range():
+    return span(DISPATCH_SPAN)
+
+
+def _experts_range():
+    return span(EXPERTS_SPAN)
+
+
+def _combine_range():
+    return span(COMBINE_SPAN)
+
+
+@contextlib.contextmanager
+def count_routes():
+    """While open, each dropless ``moe_forward`` call outside a CUDA graph's
+    capture appends (the (token, k) pairs that landed on held experts, the
+    most pairs on one held expert) to the yielded list, as 0-d int32
+    tensors on its device (no sync); closed, nothing is counted."""
+    global _routes
+    outer, _routes = _routes, []
+    try:
+        yield _routes
+    finally:
+        _routes = outer
+
+
 @contextlib.contextmanager
 def count_drops():
     """While open, each ``moe_forward`` call appends the number of (token,
@@ -123,7 +180,14 @@ def moe_forward(cfg: ModelConfig, p, x):
     With a mesh in scope whose ``model`` axis M > 1 divides the experts and
     the sequence, and (B·S)/M >= k, the expert-parallel ``_moe_shard_map``,
     as JAX dispatches; otherwise the gather path, on a mesh over every
-    rank's whole copy of the tokens and experts (``_moe_gather_replicated``)."""
+    rank's whole copy of the tokens and experts (``_moe_gather_replicated``).
+    The ``pattern`` family's dropless path, without a mesh (aux None)."""
+    if cfg.family == "pattern":
+        if isinstance(x, DTensor):
+            raise NotImplementedError("the dropless MoE path runs on one card's share of "
+                                      "the experts, not on a mesh")
+        with span(LAYER_SPAN):
+            return _moe_dropless(cfg, p, x), None
     mesh = pctx.current_mesh()
     if mesh is None or not isinstance(x, DTensor):
         return _moe_gather(cfg, p, x)
@@ -241,7 +305,7 @@ def _dispatch(cfg: ModelConfig, router, xg):
     if _drops is not None:
         _drops.append((~keep).sum())
     group = torch.arange(G, device=xg.device)[:, None].expand(G, Tg * K)
-    with span(DISPATCH_SPAN):
+    with _dispatch_range():
         row = group * Tg + torch.arange(Tg * K, device=xg.device) // K
         src = torch.full((E + 1, G, C), G * Tg, dtype=torch.long, device=xg.device)
         src.index_put_((torch.where(keep, idx_f, E), group, torch.where(keep, slot, 0)), row)
@@ -252,7 +316,7 @@ def _dispatch(cfg: ModelConfig, router, xg):
 
 def _experts(h, wg, wu, wd):
     """The experts' SwiGLU over their slots h (E, n, d), in h's dtype."""
-    with span(EXPERTS_SPAN):
+    with _experts_range():
         a = F.silu(torch.bmm(h, wg.to(h.dtype))) * torch.bmm(h, wu.to(h.dtype))
         return torch.bmm(a, wd.to(h.dtype))
 
@@ -264,7 +328,71 @@ def _combine(out, plan):
     G, Tg, K = w.shape
     E, d = out.shape[0], out.shape[-1]
     C = out.numel() // (E * G * d)
-    with span(COMBINE_SPAN):   # one flat index: a vectorized gather
+    with _combine_range():   # one flat index: a vectorized gather
         at = (idx_f * G + group) * C + slot
         wk = (w.to(out.dtype) * keep.view(G, Tg, K)).view(G * Tg, 1, K)
         return torch.bmm(wk, out.reshape(E * G * C, d)[at].view(G * Tg, K, d))
+
+
+# ------------------------------------------------------------------ dropless
+
+def _route_sigmoid(cfg: ModelConfig, p, xt):
+    """Sigmoid routing of the tokens ``xt`` (T, d): (w (T, K) float32, idx
+    (T, K)).  The scores are the sigmoid of a float32 product; the k experts
+    are the largest by score plus ``router_bias`` (the correction moves the
+    choice, not the weight), weighted by their scores normalised to sum to 1
+    and scaled by ``routed_scale``."""
+    scores = torch.sigmoid(xt.float() @ p["router"].float())
+    idx = torch.topk(scores + p["router_bias"].float(), cfg.top_k, dim=-1).indices
+    w = scores.gather(-1, idx)
+    return w / (w.sum(-1, keepdim=True) + 1e-20) * cfg.routed_scale, idx
+
+
+def _relu2(x, wu, wd):
+    return torch.relu(x @ wu.to(x.dtype)).square() @ wd.to(x.dtype)
+
+
+def _moe_dropless(cfg: ModelConfig, p, x):
+    """The dropless path: x (B, S, d) -> (B, S, d) in x.dtype.
+
+    The N = T·K (token, k) pairs are sorted by expert, those on experts
+    held elsewhere last (a stable sort, so each expert's pairs stay in token
+    order), each held expert's count taken by a scatter into a fixed
+    (E + 1,) vector and its end offset by a cumsum, all on the device.  Each
+    projection of the held experts is then one grouped product
+    (``torch._grouped_mm``) over the sorted rows at those offsets; it leaves
+    the rows past the last offset unwritten.  Combine gathers each pair's
+    output back into token order, zeroes the pairs of experts held
+    elsewhere, and sums each token's k weighted in one batched product.
+    Every shape is fixed by x's."""
+    B, S, d = x.shape
+    xt = x.reshape(B * S, d)
+    T, K, E = B * S, cfg.top_k, cfg.n_experts
+    with span(ROUTE_SPAN):
+        w, idx = _route_sigmoid(cfg, p, xt)
+    with _dispatch_range():
+        key = idx.reshape(T * K)
+        held = key < E
+        key = torch.where(held, key, E)           # pairs held elsewhere sort last
+        order = torch.argsort(key, stable=True)
+        counts = torch.zeros((E + 1,), dtype=torch.int32, device=x.device).scatter_add_(
+            0, key, torch.ones_like(key, dtype=torch.int32))
+        ends = torch.cumsum(counts[:E], 0, dtype=torch.int32)
+        rows = xt.index_select(0, order // K)
+    if _routes is not None and not (x.is_cuda and torch.cuda.is_current_stream_capturing()):
+        _routes.append((ends[-1], counts[:E].max()))
+    with _experts_range():
+        h = torch._grouped_mm(rows, p["wu"].to(x.dtype), offs=ends)
+        del rows
+        y = torch._grouped_mm(torch.relu(h).square_(), p["wd"].to(x.dtype), offs=ends)
+        del h
+    with _combine_range():
+        back = torch.empty_like(order).scatter_(
+            0, order, torch.arange(T * K, device=x.device))
+        yk = y.index_select(0, back).view(T, K, d)
+        del y
+        yk.masked_fill_(~held.view(T, K, 1), 0)   # rows the products left unwritten
+        out = torch.bmm(w.to(x.dtype).view(T, 1, K), yk).view(T, d)
+    if cfg.d_shared:
+        out = out + _relu2(xt, p["shared_wu"], p["shared_wd"])
+    return out.view(B, S, d)

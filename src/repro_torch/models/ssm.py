@@ -1,7 +1,9 @@
 """Mamba-2 (SSD) block: in-proj -> causal depthwise conv -> SSD scan ->
 gated RMSNorm -> out-proj.  Prefill and forward use the chunked SSD
 algorithm (``repro_torch.kernels.ops.ssd``: the hand-written kernel on the
-card, its plain version on the CPU); decode is the O(1)-state recurrence."""
+card, its plain version on the CPU); decode is the O(1)-state recurrence.
+B and C come in ``cfg.ssm_groups`` groups (head i reads group i // (h / g)),
+and the gated RMSNorm normalises each group's di / g channels on their own."""
 from __future__ import annotations
 
 import torch
@@ -16,7 +18,7 @@ from repro_torch.parallel import context as pctx
 
 def _dims(cfg: ModelConfig):
     di = cfg.d_inner
-    g, n = 1, cfg.ssm_state
+    g, n = cfg.ssm_groups, cfg.ssm_state
     h = cfg.ssm_heads
     conv_dim = di + 2 * g * n
     return di, g, n, h, conv_dim
@@ -56,6 +58,17 @@ def causal_conv(xBC, w, b):
     pad = pad_zeros(xBC, -(K - 1), 1)
     out = sum(pad[:, i:i + xBC.shape[1], :] * w[i][None, None, :] for i in range(K))
     return F.silu(out + b[None, None, :])
+
+
+def gated_norm(cfg: ModelConfig, y, z, w):
+    """RMSNorm of y·silu(z) (..., di), taken over each of the
+    ``cfg.ssm_groups`` groups of di / g channels, weighted by ``w`` (di,).
+    The product is handed to ``rmsnorm`` unnamed, so that it is freed once
+    ``rmsnorm`` has its float32 copy (a (B, S, di) tensor at a prefill's
+    peak)."""
+    g = cfg.ssm_groups
+    return rmsnorm((y * F.silu(z.float()).to(y.dtype)).unflatten(-1, (g, -1)), w.view(g, -1),
+                   cfg.norm_eps).flatten(-2)
 
 
 def ssm_forward(cfg: ModelConfig, p, x, *, return_state=False):
@@ -102,8 +115,7 @@ def ssm_forward(cfg: ModelConfig, p, x, *, return_state=False):
     y = y[:, :S, :h]
     state = state[:, :h]
     y = y + xs_res * p["D"].to(y.dtype)[None, None, :, None]
-    y = y.reshape(B_, S, di)
-    y = rmsnorm(y * F.silu(z.float()).to(y.dtype), p["gnorm"], cfg.norm_eps)
+    y = gated_norm(cfg, y.reshape(B_, S, di), z, p["gnorm"])
     out = y @ p["out_proj"].to(x.dtype)
     if return_state:
         # conv state: the last (K-1) raw (pre-conv) channels, left-padded with
@@ -135,8 +147,7 @@ def ssm_decode(cfg: ModelConfig, p, x, state, conv_state):
     A = -torch.exp(p["A_log"].float())
     y, state = ssd_decode_ref(xs, dtv, A, Bs, Cs, state)
     y = y + xs * p["D"].to(y.dtype)[None, :, None]
-    y = y.reshape(B_, 1, di)
-    y = rmsnorm(y * F.silu(z.float()).to(y.dtype), p["gnorm"], cfg.norm_eps)
+    y = gated_norm(cfg, y.reshape(B_, 1, di), z, p["gnorm"])
     out = y @ p["out_proj"].to(x.dtype)
     return out, state, window[:, 1:, :]
 

@@ -23,13 +23,15 @@ Ranges sit at the layer boundaries:
   library's entry point alone (the outputs and scratch it allocates and
   zeroes lie outside), so a range holds that kernel's launches and no
   other device work;
-* the MoE layer's ``moe.dispatch``, ``moe.experts``, ``moe.combine`` and
-  the encoder-decoder's ``encdec.cross_attention``.
+* the MoE layer's ``moe.dispatch``, ``moe.experts``, ``moe.combine``, on
+  the dropless path also ``moe.route`` and ``moe.layer`` around the whole
+  layer, and the encoder-decoder's ``encdec.cross_attention``.
 
 A range has a reader: the loop's and serving's are read by the
 benchmark's metrics (``bench/metrics/``), the step's phases and the
 kernels' by ``launch/profile_train.py`` and ``launch/profile_serve.py``,
-the MoE and encoder-decoder ranges by ``launch/profile_serve.py``.
+the MoE and encoder-decoder ranges by ``launch/profile_serve.py``, and
+``moe.layer`` by the benchmark's ``moe_idle_pct.serve`` too.
 """
 from __future__ import annotations
 
@@ -42,7 +44,8 @@ NAMES = frozenset({
     "train.forward", "train.backward", "train.compress", "train.optimizer",
     "serve.prefill", "serve.decode_step",
     "k1.fwd", "k1.bwd", "k2.quantize", "k3.fwd", "k3.bwd",
-    "moe.dispatch", "moe.experts", "moe.combine", "encdec.cross_attention",
+    "moe.route", "moe.dispatch", "moe.experts", "moe.combine", "moe.layer",
+    "encdec.cross_attention",
 })
 
 _OFF = contextlib.nullcontext()

@@ -136,13 +136,22 @@ def _close(got, want, tol):
 
 
 def test_configs_match_and_unported_archs_raise(arch):
-    """Each config equals the JAX package's; every arch of the JAX registry
-    resolves to the port's config (whisper-small too, now ported), and an
-    unknown arch or family raises."""
+    """Each config equals the JAX package's in every field the JAX config
+    has, and holds the defaults in the fields only the port's config has
+    (the pattern family's, whose defaults keep every other model as it
+    is); every arch of the JAX registry resolves to the port's config
+    (whisper-small too, now ported), and an unknown arch or family raises."""
     mod = importlib.import_module(f"repro.configs.{arch.replace('.', '_').replace('-', '_')}")
     own = importlib.import_module(f"repro_torch.configs.{mod.__name__.split('.')[-1]}")
+    theirs = {f.name for f in dataclasses.fields(mod.ModelConfig)}
+    port_only = {f.name: f.default for f in dataclasses.fields(own.ModelConfig)
+                 if f.name not in theirs}
+    assert set(port_only) == {"router_experts", "routed_scale", "d_shared", "ssm_n_heads",
+                              "ssm_groups", "block_pattern"}
     for f in ("CONFIG", "SMOKE"):
-        assert dataclasses.asdict(getattr(mod, f)) == dataclasses.asdict(getattr(own, f))
+        ours = dataclasses.asdict(getattr(own, f))
+        assert {k: ours.pop(k) for k in port_only} == port_only
+        assert dataclasses.asdict(getattr(mod, f)) == ours
     assert get_config(arch) is own.CONFIG
     assert get_smoke(arch).cdt == torch.bfloat16 and get_smoke(arch).pdt == torch.float32
     whisper = importlib.import_module("repro_torch.configs.whisper_small")
